@@ -1,0 +1,217 @@
+"""The port's four kernels.
+
+On the CPU the wrappers run the kernels' plain PyTorch versions; these
+are held against the JAX package's Pallas kernels in interpret mode, at
+the bar of tests/test_coo_kernels.py (rtol 1e-5, atol 1e-4), for f32 and
+for bf16. In bf16 both packages round at the same points (the gathered
+table value, then its product with val; the scattered gradient), so the
+same bar holds. The CUDA kernels themselves run only on the card (see
+tests/test_torch_cuda.py).
+"""
+
+import os
+import shutil
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from wormhole_tpu.ops import coo_kernels as j_ck
+from wormhole_tpu.ops import fused_update as j_fu
+from wormhole_tpu.ops import penalty as j_pen
+from wormhole_tpu_torch.ops import _cuda
+from wormhole_tpu_torch.ops import coo_kernels as t_ck
+from wormhole_tpu_torch.ops import fused_update as t_fu
+
+RTOL, ATOL = 1e-5, 1e-4
+DTYPES = {"f32": (jnp.float32, torch.float32),
+          "bf16": (jnp.bfloat16, torch.bfloat16)}
+T = torch.from_numpy
+
+
+def _close(got, want):
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+
+
+def _batch(num_rows, nnz, nb, seed, skew):
+    rng = np.random.default_rng(seed)
+    cap = num_rows * nnz
+    raw = rng.zipf(1.3, size=cap) if skew else rng.integers(0, nb, size=cap)
+    idx = (raw % nb).astype(np.int32)
+    seg = np.repeat(np.arange(num_rows, dtype=np.int32), nnz)
+    val = rng.normal(size=cap).astype(np.float32)
+    val[rng.random(cap) < 0.1] = 0.0  # padding-like entries
+    return seg, idx, val
+
+
+def _packed(p):
+    return [p.idx, p.seg, p.val, p.tmap, p.first]
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("skew", [False, True])
+def test_coo_spmv_plain_matches_pallas(skew, dt):
+    num_rows, nb = 256, 2 * t_ck.TILE
+    seg, idx, val = _batch(num_rows, 13, nb, seed=1, skew=skew)
+    w = np.random.default_rng(2).normal(size=nb).astype(np.float32)
+    p = t_ck.pack_sorted_coo(idx, seg, val, nb)
+    jd, td = DTYPES[dt]
+    want = j_ck.coo_spmv(jnp.asarray(w), *map(jnp.asarray, _packed(p)),
+                         num_rows, dtype=jd)
+    got = t_ck.coo_spmv(T(w), *map(T, _packed(p)), num_rows, dtype=td)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("skew", [False, True])
+def test_coo_spmv_t_plain_matches_pallas(skew, dt):
+    num_rows, nb = 256, 2 * t_ck.TILE
+    seg, idx, val = _batch(num_rows, 13, nb, seed=3, skew=skew)
+    d = np.random.default_rng(4).normal(size=num_rows).astype(np.float32)
+    p = t_ck.pack_sorted_coo(idx, seg, val, nb)
+    jd, td = DTYPES[dt]
+    want = j_ck.coo_spmv_t(jnp.asarray(d), *map(jnp.asarray, _packed(p)),
+                           nb, dtype=jd)
+    got = t_ck.coo_spmv_t(T(d), *map(T, _packed(p)), nb, dtype=td)
+    _close(got, want)
+
+
+def test_coo_spmv_t_empty_tiles_exactly_zero():
+    """All keys in tile 0, including key 0 itself, which the other tiles'
+    pad entries (idx = tile base, val 0) must not overwrite."""
+    nb, num_rows = 4 * t_ck.TILE, 128
+    rng = np.random.default_rng(7)
+    idx = rng.integers(0, 64, size=num_rows * 5).astype(np.int32)
+    seg = np.repeat(np.arange(num_rows, dtype=np.int32), 5)
+    val = rng.normal(size=len(idx)).astype(np.float32)
+    d = rng.normal(size=num_rows).astype(np.float32)
+    p = t_ck.pack_sorted_coo(idx, seg, val, nb)
+    got = t_ck.coo_spmv_t(T(d), *map(T, _packed(p)), nb).numpy()
+    want = j_ck.coo_spmv_t(jnp.asarray(d), *map(jnp.asarray, _packed(p)),
+                           nb)
+    _close(got, want)
+    assert not got[t_ck.TILE:].any()
+    assert got[0] != 0.0
+
+
+def _slots(nb, n_keys, u_blocks, seed):
+    rng = np.random.default_rng(seed)
+    uniq = np.unique(rng.integers(0, nb, size=n_keys))
+    return t_ck.assign_tile_slots(uniq, t_ck.TILE, u_blocks * t_ck.BLK_U,
+                                  nb)
+
+
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_tile_gather_plain_matches_pallas(dt):
+    nb = 4 * t_ck.TILE
+    ts = _slots(nb, 3000, 8, seed=5)
+    assert (ts.uniq == nb).any()  # sentinel slots present
+    table = np.random.default_rng(6).normal(size=nb).astype(np.float32)
+    jd, td = DTYPES[dt]
+    want = j_ck.tile_gather(jnp.asarray(table).reshape(-1, 128),
+                            jnp.asarray(ts.uniq), jnp.asarray(ts.tmap_u),
+                            dtype=jd)
+    got = t_ck.tile_gather(T(table).view(-1, 128), T(ts.uniq),
+                           T(ts.tmap_u), dtype=td)
+    _close(got, want)
+    assert not got.numpy()[ts.uniq == nb].any()
+
+
+HYPER = dict(lr_eta=0.5, lr_beta=1.0, lambda_l1=0.3, lambda_l2=0.1)
+
+
+def _update_inputs(algo, nb, seed):
+    """Slots over 4 tiles with sentinels, a compact gradient with some
+    exact zeros at live slots, and state tables where FTRL's w is the
+    pure function of (z, n) that the reference keeps."""
+    rng = np.random.default_rng(seed)
+    ts = _slots(nb, 3000, 8, seed)
+    live = ts.uniq < nb
+    g = np.where(live, rng.normal(size=ts.uniq.size), 0).astype(np.float32)
+    g[np.flatnonzero(live)[::7]] = 0.0
+    z = rng.normal(size=nb).astype(np.float32)
+    n = (rng.random(nb) * 3).astype(np.float32)
+    if algo == "ftrl":
+        eta = (HYPER["lr_beta"] + jnp.sqrt(n)) / HYPER["lr_eta"]
+        w = np.asarray(j_pen.l1l2_solve(-jnp.asarray(z), eta,
+                                        HYPER["lambda_l1"],
+                                        HYPER["lambda_l2"]))
+    else:
+        w = rng.normal(size=nb).astype(np.float32)
+        w[::5] = 0.0
+    names = {"ftrl": ("w", "z", "n"), "adagrad": ("w", "n"),
+             "sgd": ("w",)}[algo]
+    state = {k: v for k, v in (("w", w), ("z", z), ("n", n)) if k in names}
+    return ts, g, state
+
+
+@pytest.mark.parametrize("fixed_bytes", [0, 1, 2])
+@pytest.mark.parametrize("algo", ["ftrl", "adagrad", "sgd"])
+def test_scatter_update_plain_matches_pallas(algo, fixed_bytes):
+    nb = 4 * t_ck.TILE
+    ts, g, state = _update_inputs(algo, nb, seed=10 + fixed_bytes)
+    blocks = (ts.uniq, ts.tmap_u, ts.first_u, ts.last_u)
+    j_state, nw_j = j_fu.scatter_update(
+        algo, {k: jnp.asarray(v) for k, v in state.items()},
+        jnp.asarray(g), *map(jnp.asarray, blocks), fixed_bytes=fixed_bytes,
+        dtype=jnp.float32, **HYPER)
+    t_state = {k: T(v.copy()) for k, v in state.items()}
+    out, nw_t = t_fu.scatter_update(algo, t_state, T(g), *map(T, blocks),
+                                    fixed_bytes=fixed_bytes,
+                                    dtype=torch.float32, **HYPER)
+    assert out is t_state  # updated in place
+    for k in state:
+        _close(t_state[k], j_state[k])
+    assert int(nw_t) == int(nw_j)
+    # only live slots move
+    moved = t_state["w"].numpy() != state["w"]
+    assert not moved[np.setdiff1d(np.arange(nb), ts.uniq)].any()
+
+
+def test_scatter_update_additive_table_and_bf16():
+    nb = 4 * t_ck.TILE
+    ts, g, state = _update_inputs("ftrl", nb, seed=20)
+    cnt = np.random.default_rng(21).integers(0, 5, nb).astype(np.float32)
+    add = np.where(ts.uniq < nb, 3.0, 0.0).astype(np.float32)
+    state["cnt"] = cnt
+    blocks = (ts.uniq, ts.tmap_u, ts.first_u, ts.last_u)
+    j_state, nw_j = j_fu.scatter_update(
+        "ftrl", {k: jnp.asarray(v) for k, v in state.items()},
+        jnp.asarray(g), *map(jnp.asarray, blocks), dtype=jnp.bfloat16,
+        add_table="cnt", add_values=jnp.asarray(add), **HYPER)
+    t_state = {k: T(v.copy()) for k, v in state.items()}
+    _, nw_t = t_fu.scatter_update("ftrl", t_state, T(g), *map(T, blocks),
+                                  dtype=torch.bfloat16, add_table="cnt",
+                                  add_values=T(add), **HYPER)
+    for k in state:
+        _close(t_state[k], j_state[k])
+    assert int(nw_t) == int(nw_j)
+    live = ts.uniq[ts.uniq < nb]
+    np.testing.assert_array_equal(t_state["cnt"].numpy()[live],
+                                  cnt[live] + 3.0)
+
+
+def test_wrappers_reject_bad_arguments():
+    w = torch.zeros(2 * t_ck.TILE)
+    z = torch.zeros(4096, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        t_ck.coo_spmv(w, z, z, torch.zeros(4096), None, None, 100)
+    with pytest.raises(ValueError):
+        t_ck.coo_spmv(w, z, z, torch.zeros(4096), None, None, 128,
+                      dtype=torch.float16)
+    with pytest.raises(ValueError):
+        t_fu.scatter_update("ftrl", {"w": w, "z": w, "n": w},
+                            torch.zeros(8), z, None, None, None,
+                            fixed_bytes=3, **HYPER)
+
+
+def test_build_without_nvcc_raises():
+    if shutil.which("nvcc") or os.path.exists("/usr/local/cuda/bin/nvcc"):
+        pytest.skip("nvcc is installed: this checks the error without it")
+    missing = [n for n in _cuda.SOURCES if not _cuda.lib_path(n).exists()]
+    if not missing:
+        pytest.skip("kernel libraries are already built")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _cuda.build(missing)

@@ -1,0 +1,127 @@
+"""MinibatchIter: stream fixed-size RowBlock minibatches from file parts.
+
+Parity with reference learn/base/minibatch_iter.h:
+- fixed minibatch size with carry-over across parsed chunks (:75-131)
+- shuffle buffer: accumulate `shuf_buf` rows, random-permute, emit (:83-91)
+- negative downsampling with label-dependent keep probability (:103-107)
+
+Given the same seed, it draws the same random numbers in the same order
+as the JAX package's MinibatchIter, so both emit the same batches.
+"""
+
+from __future__ import annotations
+
+from typing import Iterator, Optional
+
+import numpy as np
+
+from wormhole_tpu_torch.data import parsers
+from wormhole_tpu_torch.data.rowblock import RowBlock
+
+
+def _iter_rowblocks(filename: str, part: int, num_parts: int,
+                    fmt: str) -> Iterator[RowBlock]:
+    for chunk in parsers.iter_file_chunks(filename, part, num_parts):
+        blk = parsers.parse_text(chunk, fmt)
+        if blk.size:
+            yield blk
+
+
+class MinibatchIter:
+    """Iterate fixed-size minibatches over (part k of n) of one file."""
+
+    def __init__(
+        self,
+        filename: str,
+        part: int = 0,
+        num_parts: int = 1,
+        fmt: str = "libsvm",
+        minibatch_size: int = 1024,
+        shuf_buf: int = 0,
+        neg_sampling: float = 1.0,
+        seed: int = 0,
+    ):
+        self.filename = filename
+        self.part = part
+        self.num_parts = num_parts
+        self.fmt = fmt
+        self.minibatch_size = int(minibatch_size)
+        self.shuf_buf = int(shuf_buf)
+        self.neg_sampling = float(neg_sampling)
+        self.rng = np.random.default_rng(seed)
+
+    def _transformed(self) -> Iterator[RowBlock]:
+        for blk in _iter_rowblocks(self.filename, self.part, self.num_parts,
+                                   self.fmt):
+            if self.neg_sampling < 1.0:
+                blk = self._neg_sample(blk)
+                if blk.size == 0:
+                    continue
+            yield blk
+
+    def _neg_sample(self, blk: RowBlock) -> RowBlock:
+        keep = (blk.label > 0) | (
+            self.rng.random(blk.size) < self.neg_sampling
+        )
+        if keep.all():
+            return blk
+        return _take_rows(blk, np.nonzero(keep)[0])
+
+    def __iter__(self) -> Iterator[RowBlock]:
+        mb = self.minibatch_size
+        if self.shuf_buf > 0:
+            buf: list[RowBlock] = []
+            buffered = 0
+            for blk in self._transformed():
+                buf.append(blk)
+                buffered += blk.size
+                if buffered >= max(self.shuf_buf, mb):
+                    yield from self._drain(buf, flush=False)
+                    buffered = sum(b.size for b in buf)
+            if buf:
+                yield from self._drain(buf, flush=True)
+        else:
+            # emit cursor-advanced slices of each parsed chunk; only the
+            # sub-minibatch tail is carried into the next chunk
+            tail: Optional[RowBlock] = None
+            for blk in self._transformed():
+                if tail is not None and tail.size:
+                    blk = RowBlock.concat([tail, blk])
+                    tail = None
+                pos = 0
+                while blk.size - pos >= mb:
+                    yield blk.slice(pos, pos + mb)
+                    pos += mb
+                tail = blk.slice(pos, blk.size) if pos < blk.size else None
+            if tail is not None and tail.size:
+                yield tail
+
+    def _drain(self, buf: list[RowBlock], flush: bool) -> Iterator[RowBlock]:
+        big = RowBlock.concat(buf)
+        perm = self.rng.permutation(big.size)
+        big = _take_rows(big, perm)
+        mb = self.minibatch_size
+        n_emit = big.size if flush else (big.size // mb) * mb
+        for b in range(0, n_emit, mb):
+            yield big.slice(b, min(b + mb, n_emit))
+        buf.clear()
+        if n_emit < big.size:
+            buf.append(big.slice(n_emit, big.size))
+
+
+def _take_rows(blk: RowBlock, rows: np.ndarray) -> RowBlock:
+    """Gather a subset/permutation of rows into a new RowBlock."""
+    lens = np.diff(blk.offset)[rows]
+    offset = np.zeros(len(rows) + 1, dtype=np.int64)
+    np.cumsum(lens, out=offset[1:])
+    starts = blk.offset[rows]
+    gather = np.concatenate(
+        [np.arange(s, s + l, dtype=np.int64) for s, l in zip(starts, lens)]
+    ) if len(rows) else np.zeros(0, dtype=np.int64)
+    return RowBlock(
+        label=blk.label[rows],
+        offset=offset,
+        index=blk.index[gather],
+        value=None if blk.value is None else blk.value[gather],
+        weight=None if blk.weight is None else blk.weight[rows],
+    )

@@ -1,0 +1,128 @@
+"""KVStore: the parameter server's state tables on one device.
+
+ps-lite's server group (reference OnlineServer + per-key Handle state,
+learn/linear/async_sgd.h:200-226) becomes a set of fixed-capacity hashed
+tables held as torch tensors on one device:
+
+- ZPull -> a gather of bucket entries inside the learner's step;
+- ZPush -> a scatter-add of per-nonzero contributions into table layout;
+- server Handle -> the learner's update, applied to the tables IN PLACE
+  (the JAX package threads immutable arrays through jitted steps);
+- message filters (fixed-point/compressing transfer,
+  async_sgd.h:290-301) -> quantize_push on the pushed gradient.
+
+Save/load uses one npz per model part with the reference's part naming
+(see utils/checkpoint.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from wormhole_tpu_torch.device import resolve_device
+
+
+@dataclasses.dataclass
+class TableSpec:
+    """One named state table: shape = (num_buckets, *tail).
+
+    `wire_cap` floors the wire encoding of this table's push deltas:
+    "bf16" means an int8/int4 wire still ships this table at bf16. Second
+    moment and count accumulators (FTRL n) need it: their deltas are
+    nonnegative with a huge dynamic range, which an absmax group code
+    would quantize at the hot neighbour's granularity."""
+
+    tail: tuple = ()
+    dtype: torch.dtype = torch.float32
+    # (generator, shape, dtype, device) -> tensor; zeros if None
+    init: Optional[Callable] = None
+    wire_cap: str = ""  # "" (no floor) or "bf16"
+
+
+class KVStore:
+    """Hashed parameter/optimizer state tables on one device."""
+
+    def __init__(self, num_buckets: int, specs: dict[str, TableSpec],
+                 device=None, seed: int = 0):
+        self.device = resolve_device(device)
+        self.num_buckets = int(num_buckets)
+        self.specs = dict(specs)
+        gen = torch.Generator(device="cpu").manual_seed(seed)
+        self.state: dict[str, torch.Tensor] = {}
+        for name, spec in self.specs.items():
+            shape = (self.num_buckets, *spec.tail)
+            if spec.init is None:
+                arr = torch.zeros(shape, dtype=spec.dtype, device=self.device)
+            else:
+                arr = spec.init(gen, shape, spec.dtype, self.device)
+            self.state[name] = arr
+
+    # -- sparse host<->device row access ------------------------------------
+    def _index(self, idx) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(idx, np.int64), device=self.device)
+
+    def gather_rows(self, name: str, idx: np.ndarray) -> np.ndarray:
+        """Fetch rows `idx` of a table to host: a device gather plus an
+        O(touched) transfer, never a full-table copy."""
+        return self.state[name][self._index(idx)].cpu().numpy()
+
+    def gather_rows_multi(self, names: list[str],
+                          idx: np.ndarray) -> dict[str, np.ndarray]:
+        """gather_rows for several same-height tables sharing one index
+        set (FTRL's z and n always do), with one index transfer."""
+        i = self._index(idx)
+        return {k: self.state[k][i].cpu().numpy() for k in names}
+
+    def scatter_rows(self, name: str, idx: np.ndarray,
+                     vals: np.ndarray) -> None:
+        """Overwrite rows `idx` with `vals`, in place on the device."""
+        if np.asarray(idx).size == 0:
+            return
+        t = self.state[name]
+        t[self._index(idx)] = torch.as_tensor(
+            np.asarray(vals), dtype=t.dtype).to(self.device)
+
+    def zero_init_names(self) -> set[str]:
+        """Tables created as zeros (spec.init is None)."""
+        return {k for k, s in self.specs.items() if s.init is None}
+
+    def wire_cap_names(self) -> set[str]:
+        """Tables whose push deltas must never drop below bf16 on the
+        wire (see TableSpec.wire_cap)."""
+        return {k for k, s in self.specs.items() if s.wire_cap}
+
+    # -- host-side views ----------------------------------------------------
+    def nnz(self, name: str = "w") -> int:
+        """|w|_0 — the model-sparsity column of the progress row."""
+        return int(torch.count_nonzero(self.state[name]))
+
+    def to_numpy(self) -> dict[str, np.ndarray]:
+        return {k: v.cpu().numpy() for k, v in self.state.items()}
+
+    def from_numpy(self, arrays: dict[str, np.ndarray]) -> None:
+        """Copy host arrays into the tables, in place."""
+        for k, v in arrays.items():
+            if k not in self.state:
+                raise ValueError(f"unknown table {k}")
+            if tuple(v.shape) != tuple(self.state[k].shape):
+                raise ValueError(f"table {k}: loaded shape {v.shape} != "
+                                 f"{tuple(self.state[k].shape)}")
+            self.state[k].copy_(torch.from_numpy(np.asarray(v)))
+
+
+def quantize_push(grad, nbytes: int = 0):
+    """Transfer-filter parity (fixed_bytes knob, reference
+    config.proto:126-133): round the pushed gradient to a lower precision
+    before aggregation. 0 = off, 2 = bfloat16 (half to even), 1 = int8
+    with a per-array absmax scale (torch.round is half to even too)."""
+    if nbytes == 0:
+        return grad
+    if nbytes >= 2:
+        return grad.to(torch.bfloat16).to(grad.dtype)
+    scale = torch.clamp(torch.max(torch.abs(grad)), min=1e-12) / 127.0
+    q = torch.clamp(torch.round(grad / scale), -127, 127).to(torch.int8)
+    return q.to(grad.dtype) * scale
