@@ -3,14 +3,17 @@
 
   python3 chip_smoke.py        (from the repo root; needs one CUDA card)
 
-Drives the port (wormhole_tpu_torch) through its main path at the bench's
-full width, linear FTRL logistic regression over 65,536-row minibatches
-of 39 Criteo-shaped features:
+Drives the port (wormhole_tpu_torch) through its two main paths at the
+bench's full width, over 65,536-row minibatches of 39 Criteo-shaped
+features: linear FTRL logistic regression, and the DiFacto factorization
+machine (dim 8, w over 2^22 buckets, V over 2^20 rows, threshold 2; the
+reference's learn/difacto/guide/criteo.conf, as bench.py runs it):
 
 0. builds the hand-written CUDA kernels from csrc/, one nvcc each, at once;
-1. holds every kernel of the path against its plain PyTorch version on
-   the card at the main path's shapes, in f32 and bf16, and times kernel,
-   plain version and one PyTorch library call (CUDA events);
+1. holds every kernel of both paths against its plain PyTorch version on
+   the card at the paths' shapes, in f32 and bf16, and times kernel,
+   plain version and one PyTorch library call (CUDA events); the DiFacto
+   half runs on a full-width batch packed by the learner's own pack;
 2. runs LinearLearner on the card at 2^22 buckets (dense tables, kernels
    coo_spmv + coo_spmv_t) and 2^26 buckets (compacted path, tile_gather +
    coo_spmv_t + scatter_update): train steps, eval, predict, each against
@@ -18,8 +21,13 @@ of 39 Criteo-shaped features:
    the kernels' launch counts taken over this run, the step time, and a
    torch.profiler pass over each learner's steps (device time per step by
    operation, the device's idle share);
-3. runs the linear app in-process on synthetic libsvm files at 2^26
-   buckets, with validation, predict_out and model_out.
+3. the same for DifactoLearner (compacted path: tile_gather,
+   row_tile_gather, coo_spmv_t, scatter_update with the additive count
+   table, fm_push_contrib, v_scatter_update), with its launch counts
+   taken over its own run;
+4. runs the linear app at 2^26 buckets and the difacto app at the
+   DiFacto width in-process on synthetic libsvm files, with validation,
+   predict_out and model_out.
 
 Every check raises on failure, so any failed phase exits non-zero. The
 last two lines are one JSON object of per-kernel numbers and the result
@@ -45,6 +53,8 @@ MINIBATCH = 1 << 16
 NNZ_PER_ROW = 39
 DENSE_BUCKETS = 1 << 22
 COMPACT_BUCKETS = 1 << 26
+V_BUCKETS = 1 << 20
+FM_DIM = 8
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 TRAIN_STEPS = 4
@@ -60,7 +70,16 @@ KERNELS = {
                     "wormhole_tpu/ops/coo_kernels.py:590"),
     "scatter_update": ("wormhole_tpu_torch/csrc/fused_update.cu",
                        "wormhole_tpu/ops/fused_update.py:329"),
+    "row_tile_gather": ("wormhole_tpu_torch/csrc/fused_update.cu",
+                        "wormhole_tpu/ops/fused_update.py:196"),
+    "fm_push_contrib": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
+                        "wormhole_tpu/ops/coo_kernels.py:674"),
+    "v_scatter_update": ("wormhole_tpu_torch/csrc/fused_update.cu",
+                         "wormhole_tpu/ops/fused_update.py:279"),
 }
+LINEAR_KERNELS = ("coo_spmv", "coo_spmv_t", "tile_gather", "scatter_update")
+FM_KERNELS = ("tile_gather", "row_tile_gather", "coo_spmv_t",
+              "fm_push_contrib", "scatter_update", "v_scatter_update")
 
 
 def log(msg: str) -> None:
@@ -119,6 +138,26 @@ def compare(name: str, got, want, rtol: float, atol: float,
     log(f"[kernel] {name}: max abs err {m:.3g} "
         f"(tolerance atol {atol} + rtol {rtol}) ok")
     return m
+
+
+def ftrl_z_terms(base: dict, g, uniq, dtype, lr_eta: float):
+    """|z0| + |g| + |sigma * w0| per bucket: the magnitudes of the terms
+    of FTRL's z update, which bound its rounding error when they cancel
+    (the plain version divides by lr_eta as a multiply by its reciprocal
+    on CUDA, so sigma differs by an ulp)."""
+    import torch
+
+    from wormhole_tpu_torch.ops.coo_kernels import round_to
+
+    z = base["z"]
+    live = uniq < z.numel()
+    k = uniq[live].long()
+    gq = round_to(g[live], dtype)
+    n0 = base["n"][k]
+    sigma = (torch.sqrt(n0 + gq * gq) - torch.sqrt(n0)) / lr_eta
+    out = z.abs()
+    out[k] += gq.abs() + (sigma * base["w"][k]).abs()
+    return out
 
 
 def batches(num_buckets: int, n: int, seed: int):
@@ -320,6 +359,218 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     return out
 
 
+def difacto_config(kernel: str, num_buckets=DENSE_BUCKETS,
+                   v_buckets=V_BUCKETS, **over):
+    """The bench's DiFacto configuration (bench.py bench_difacto, from the
+    reference's learn/difacto/guide/criteo.conf) at kernel_dtype f32."""
+    from wormhole_tpu_torch.models.difacto import DifactoConfig
+
+    kw = dict(minibatch=MINIBATCH, nnz_per_row=NNZ_PER_ROW,
+              num_buckets=num_buckets, v_buckets=v_buckets, dim=FM_DIM,
+              threshold=2, lr_eta=0.1, lambda_l1=1.0, kernel=kernel,
+              kernel_dtype="f32")
+    kw.update(over)
+    return DifactoConfig(**kw)
+
+
+def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
+                     v_buckets=V_BUCKETS) -> dict:
+    """The DiFacto path's kernels against their plain versions on one
+    full-width batch packed by the learner's own pack (the second batch
+    of a pass, so the count threshold admits part of the V rows).
+    Returns per-kernel numbers, as check_kernels does; scatter_update's
+    entry is the additive-table (cnt) variant."""
+    import torch
+
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.ops import coo_kernels as ck
+    from wormhole_tpu_torch.ops import fused_update as fu
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    dim = FM_DIM
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    lrn = DifactoLearner(difacto_config("pallas", num_buckets, v_buckets),
+                         device=device)
+    data = batches(num_buckets, 2, seed=7)
+    t0 = time.perf_counter()
+    for seg, idx, val, label, _ in data:
+        db = lrn.make_device_batch(to_rowblock(seg, idx, val, label))
+        pk = lrn._pack_fm(db, train=True)
+    pack_s = (time.perf_counter() - t0) / len(data)
+    (ts_w, wcnts, wcoo, ts_v, vtouched, vcoo, *_rest) = pk
+    uw_cap, uv_cap = lrn._fm_caps
+    if lrn.dropped_slot_nnz or lrn.dropped_row_nnz:
+        raise AssertionError("the pack dropped nonzeros")
+    P = vcoo.idx.shape[0]
+    vlive = vcoo.val != 0
+    n_vlive = int(vlive.sum())
+    n_rows = int((ts_v.uniq < v_buckets).sum())
+    n_touched = int(vtouched.sum())
+    n_w = int((ts_w.uniq < num_buckets).sum())
+    hot = int(np.bincount(vcoo.idx[vlive]).max())
+    tiles = np.unique(ts_v.uniq[ts_v.uniq < v_buckets].astype(np.int64)
+                      * dim // ck.TILE).size
+    log(f"[fm-kernel] batch: caps (uw_cap, uv_cap) = {(uw_cap, uv_cap)}, "
+        f"{n_w} unique w keys, {n_rows} V rows ({n_touched} admitted), "
+        f"V-side P={P} in {vcoo.tmap.shape[0]} blocks, {n_vlive} live, "
+        f"hottest row {hot} entries, {tiles} V tiles touched, w-side "
+        f"P={wcoo.idx.shape[0]}; host pack {pack_s:.3f} s/batch")
+    del lrn
+    gen = torch.Generator(device=device).manual_seed(13)
+    out: dict = {}
+
+    # row_tile_gather at the compact V rows
+    uniq_v, vtm = dev(ts_v.uniq), dev(ts_v.tmap_u)
+    V = 0.01 * torch.randn(v_buckets, dim, generator=gen, device=device)
+    V2 = V.view(-1, ck.LANES)
+    errs = []
+    for dt in (f32, bf16):
+        got = fu.row_tile_gather(V2, uniq_v, vtm, dim, dt)
+        want = fu.row_tile_gather_plain(V2, uniq_v, dim, dt)
+        errs.append(compare(f"row_tile_gather {dt}", got, want, 0.0, 0.0))
+    # uniq at every slot, V at each live row, the whole output
+    nb = uv_cap * 4 + n_rows * dim * 4 + uv_cap * dim * 4
+    uniq_c = uniq_v.clamp(max=v_buckets - 1)
+    out["row_tile_gather"] = dict(
+        max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
+                                          bound_ms(nb, 0))),
+        ms=time_ms(lambda: fu.row_tile_gather(V2, uniq_v, vtm, dim, f32),
+                   device),
+        plain_ms=time_ms(lambda: fu.row_tile_gather_plain(
+            V2, uniq_v, dim, f32), device),
+        library_ms=time_ms(lambda: V[uniq_c], device))
+
+    # fm_push_contrib on the learner's operands: a = c * xv[seg],
+    # b = c * val, c = d[seg] * val, from random xv and d
+    Vc = fu.row_tile_gather(V2, uniq_v, vtm, dim, f32)
+    sidx, vseg, vval = dev(vcoo.idx), dev(vcoo.seg), dev(vcoo.val)
+    xvd = torch.randn(MINIBATCH, dim + 1, generator=gen, device=device)
+    G = xvd.index_select(0, vseg)
+    c = G[:, dim] * vval
+    a = (c[:, None] * G[:, :dim]).contiguous()
+    b = (c * vval).contiguous()
+    errs = []
+    mag = ck.fm_push_contrib_plain(Vc.abs(), a.abs(), -b.abs(), sidx, f32)
+    for dt in (f32, bf16):
+        got = ck.fm_push_contrib(Vc, a, b, sidx, None, None, dt)
+        if not torch.equal(got, ck.fm_push_contrib(Vc, a, b, sidx, None,
+                                                   None, dt)):
+            raise AssertionError("fm_push_contrib: differs from run to run")
+        want = ck.fm_push_contrib_plain(Vc, a, b, sidx, dt)
+        # sums in another (fixed) order: atol 1e-4 + rtol 1e-5 * the sum
+        # of the terms' magnitudes
+        errs.append(compare(f"fm_push_contrib {dt}", got, want, 1e-5, 1e-4,
+                            mag))
+        touched = torch.zeros(uv_cap, dtype=torch.bool, device=device)
+        touched[sidx[vval != 0].long()] = True
+        if got[~touched].any():
+            raise AssertionError("fm_push_contrib: a row with no entry is "
+                                 "not exactly 0")
+    # sidx, a, b of each live entry, b of each pad, V at the live rows,
+    # the output; one add per term and the epilogue
+    nb = (n_vlive * (8 + dim * 4) + (P - n_vlive) * 4 + n_rows * dim * 4
+          + uv_cap * dim * 4)
+    fl = n_vlive * (dim + 1) + 2 * uv_cap * dim
+    ab = torch.cat([a, b[:, None]], dim=1)
+    sidx_l = sidx.long()
+
+    def library():
+        acc = torch.zeros(uv_cap, dim + 1, device=device).index_add_(
+            0, sidx_l, ab)
+        return acc[:, :dim] - acc[:, dim:] * Vc
+
+    out["fm_push_contrib"] = dict(
+        max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
+                                          bound_ms(nb, fl))),
+        ms=time_ms(lambda: ck.fm_push_contrib(Vc, a, b, sidx, None, None,
+                                              f32), device),
+        plain_ms=time_ms(lambda: ck.fm_push_contrib_plain(Vc, a, b, sidx,
+                                                          f32), device),
+        library_ms=time_ms(library, device))
+
+    # v_scatter_update with that gradient at the admitted rows
+    gV = ck.fm_push_contrib(Vc, a, b, sidx, None, None, f32)
+    vt = dev(vtouched)
+    nV = torch.rand(v_buckets, dim, generator=gen, device=device)
+    hyper = dict(V_lr_eta=0.01, V_lr_beta=1.0, lambda_V=0.01)
+    errs = []
+    for dt in (f32, bf16):
+        Vk, nVk, Vp, nVp = V.clone(), nV.clone(), V.clone(), nV.clone()
+        fu.v_scatter_update(Vk, nVk, gV, vt, uniq_v, vtm, None, None,
+                            dim=dim, dtype=dt, **hyper)
+        fu.v_scatter_update_plain(Vp, nVp, gV, vt, uniq_v, dim=dim,
+                                  dtype=dt, **hyper)
+        errs.append(compare(f"v_scatter_update {dt} V", Vk, Vp, 1e-5, 1e-6))
+        errs.append(compare(f"v_scatter_update {dt} nV", nVk, nVp, 1e-5,
+                            1e-6))
+        moved = (Vk != V).any(1)
+        moved[uniq_v[(uniq_v < v_buckets) & (vt > 0)].long()] = False
+        if moved.any():
+            raise AssertionError("v_scatter_update: an untouched row moved")
+    # uniq and vtouched at every slot; gV read, V and nV read and
+    # written at each admitted row; about 8 operations per entry
+    nb = uv_cap * 8 + n_touched * dim * 4 * 5
+    Vk, nVk = V.clone(), nV.clone()
+    out["v_scatter_update"] = dict(
+        max_abs_err=max(errs), library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(nb, 8 * n_touched * dim))),
+        ms=time_ms(lambda: fu.v_scatter_update(
+            Vk, nVk, gV, vt, uniq_v, vtm, None, None, dim=dim, dtype=f32,
+            **hyper), device),
+        plain_ms=time_ms(lambda: fu.v_scatter_update_plain(
+            Vk, nVk, gV, vt, uniq_v, dim=dim, dtype=f32, **hyper), device))
+
+    # scatter_update with the additive count table at uw_cap
+    uniq_w = dev(ts_w.uniq)
+    g = ck.coo_spmv_t(torch.randn(MINIBATCH, generator=gen, device=device),
+                      dev(wcoo.idx), dev(wcoo.seg), dev(wcoo.val), None,
+                      None, uw_cap, f32)
+    add = dev(wcnts)
+    base = {"w": torch.randn(num_buckets, generator=gen, device=device),
+            "z": torch.randn(num_buckets, generator=gen, device=device),
+            "n": 4 * torch.rand(num_buckets, generator=gen, device=device),
+            "cnt": torch.randint(0, 4, (num_buckets,), generator=gen,
+                                 device=device).float()}
+    hyper = dict(lr_eta=0.1, lr_beta=1.0, lambda_l1=1.0, lambda_l2=0.0)
+    errs = []
+    for dt in (f32, bf16):
+        sk = {k: v.clone() for k, v in base.items()}
+        sp = {k: v.clone() for k, v in base.items()}
+        _, nw_k = fu.scatter_update("ftrl", sk, g, uniq_w, None, None, None,
+                                    dtype=dt, add_table="cnt",
+                                    add_values=add, **hyper)
+        nw_p = fu.scatter_update_plain("ftrl", sp, g, uniq_w, dtype=dt,
+                                       add_table="cnt", add_values=add,
+                                       **hyper)
+        for k in base:
+            errs.append(compare(f"scatter_update add=cnt {dt} {k}", sk[k],
+                                sp[k], 1e-5, 1e-6,
+                                ftrl_z_terms(base, g, uniq_w, dt, 0.1)
+                                if k == "z" else None))
+        if not torch.equal(sk["cnt"], sp["cnt"]):
+            raise AssertionError("scatter_update: counts differ")
+        if abs(int(nw_k) - int(nw_p)) > 1 + n_w // 100000:
+            raise AssertionError(f"scatter_update add=cnt: |w|_0 delta "
+                                 f"{int(nw_k)} vs plain {int(nw_p)}")
+    sk = {k: v.clone() for k, v in base.items()}
+    # FTRL: uniq at every slot; g, the count, z, n, w read and the four
+    # tables written at each live slot
+    nb, fl = uw_cap * 4 + n_w * (4 + 4 + 2 * 16), n_w * 21
+    out["scatter_update"] = dict(
+        max_abs_err=max(errs), library_ms=None,
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, fl))),
+        ms=time_ms(lambda: fu.scatter_update(
+            "ftrl", sk, g, uniq_w, None, None, None, dtype=f32,
+            add_table="cnt", add_values=add, **hyper), device),
+        plain_ms=time_ms(lambda: fu.scatter_update_plain(
+            "ftrl", sk, g, uniq_w, dtype=f32, add_table="cnt",
+            add_values=add, **hyper), device))
+    for k, v in out.items():
+        log(f"[fm-kernel] {k}: {v}")
+    return out
+
+
 # ------------------------------------------------------------- phase 2
 def _device_us(evt) -> float:
     for name in ("self_device_time_total", "self_cuda_time_total"):
@@ -355,6 +606,23 @@ def profile_steps(lrn, staged, steps: int) -> dict:
             "device_idle_share": max(0.0, 1 - device_ms * steps / window_ms),
             "top": [{"op": k[:90], "calls_per_step": c / steps,
                      "us_per_step": us / steps} for k, c, us in rows[:12]]}
+
+
+def time_steps(lrn, staged, timed: int, windows: int, tag: str) -> float:
+    """Median seconds per train step over `windows` host-timed windows of
+    `timed` steps on pre-staged batches, logged with its range."""
+    per = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for i in range(timed):
+            lrn.train_batch(staged[i % len(staged)])
+        sync(lrn.device)
+        per.append((time.perf_counter() - t0) / timed)
+    dt = statistics.median(per)
+    log(f"[{tag}] {1e3 * dt:.3f} ms/step median of {windows} windows of "
+        f"{timed} steps (range {1e3 * min(per):.3f}-{1e3 * max(per):.3f}), "
+        f"{MINIBATCH / dt:.0f} examples/sec (staged batches)")
+    return dt
 
 
 def run_learners(device, dense_buckets=DENSE_BUCKETS,
@@ -405,22 +673,10 @@ def run_learners(device, dense_buckets=DENSE_BUCKETS,
                 f"eval logloss {ev['logloss'] / ev['nex']:.6f} auc "
                 f"{ev['auc'] / ev['nex']:.6f}")
             if device.type == "cuda":
-                # steady-state step time on pre-staged batches
-                per = []
-                for _ in range(windows):
-                    t0 = time.perf_counter()
-                    for i in range(timed):
-                        lrn.train_batch(staged[i % len(staged)])
-                    sync(device)
-                    per.append((time.perf_counter() - t0) / timed)
-                dt = statistics.median(per)
+                dt = time_steps(lrn, staged, timed, windows,
+                                f"learner {nbk} buckets kernel={kernel}")
                 rates[f"{kind if kernel == 'pallas' else 'xla'}_{nbk}"] = (
                     MINIBATCH / dt)
-                log(f"[learner] {nbk} buckets kernel={kernel}: "
-                    f"{1e3 * dt:.3f} ms/step median of {windows} windows "
-                    f"of {timed} steps (range {1e3 * min(per):.3f}-"
-                    f"{1e3 * max(per):.3f}), {MINIBATCH / dt:.0f} "
-                    f"examples/sec (staged batches)")
                 prof = profile_steps(lrn, staged, 2 * timed)
                 log(f"[profile] {nbk} buckets kernel={kernel}: "
                     f"{json.dumps(prof)}")
@@ -446,6 +702,82 @@ def run_learners(device, dense_buckets=DENSE_BUCKETS,
     return rates
 
 
+def run_difacto(device, num_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
+                steps=TRAIN_STEPS, timed=TIMED_STEPS,
+                windows=TIMED_WINDOWS) -> dict:
+    """DifactoLearner on the card through its entry points, the compacted
+    kernel path against kernel=xla on the same batches: train steps, one
+    eval, one predict, then the six tables. Then the step time and a
+    profiler pass (repeating staged train batches advances the device
+    count table past the host mirror, so the comparison comes first)."""
+    import torch
+
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+
+    data = batches(num_buckets, steps + 2, seed=8)
+    blks = [to_rowblock(s, i, v, y) for s, i, v, y, _ in data]
+    train, held = blks[:steps], blks[steps:]
+    runs, rates = {}, {}
+    for kernel in ("pallas", "xla"):
+        lrn = DifactoLearner(difacto_config(kernel, num_buckets, v_buckets),
+                             device=device)
+        if kernel == "pallas":
+            init = {k: v.clone() for k, v in lrn.ckpt_store.state.items()}
+        else:  # both start from the same tables
+            for k, v in init.items():
+                lrn.ckpt_store.state[k].copy_(v)
+            lrn.refresh_count_mirror()
+        t0 = time.perf_counter()
+        staged = [lrn.stage_batch(lrn.prepare_batch(b), train=True)
+                  for b in train]
+        prep_s = (time.perf_counter() - t0) / steps
+        if staged[0][1] != ("fm" if kernel == "pallas" else "xla"):
+            raise AssertionError(f"kernel={kernel}: kind {staged[0][1]}")
+        progs = [lrn.train_batch(b) for b in staged]
+        ev = lrn.eval_batch(held[0])
+        pred = lrn.predict_batch(held[1])
+        if lrn.dropped_slot_nnz or lrn.dropped_row_nnz:
+            raise AssertionError(
+                f"kernel={kernel}: dropped {lrn.dropped_slot_nnz} nonzeros "
+                f"to the slot caps, {lrn.dropped_row_nnz} to the row cap")
+        tables = {k: v.clone() for k, v in lrn.ckpt_store.state.items()}
+        log(f"[difacto] kernel={kernel}: prepare+stage {prep_s:.3f} "
+            f"s/batch, caps {lrn._fm_caps}, train logloss "
+            f"{[round(p['logloss'] / p['nex'], 6) for p in progs]}, eval "
+            f"logloss {ev['logloss'] / ev['nex']:.6f} auc "
+            f"{ev['auc'] / ev['nex']:.6f}, admitted {lrn.num_admitted()}")
+        runs[kernel] = (progs, ev, pred, tables)
+        if device.type == "cuda":
+            dt = time_steps(lrn, staged, timed, windows,
+                            f"difacto kernel={kernel}")
+            rates[f"difacto_{kernel}"] = MINIBATCH / dt
+            prof = profile_steps(lrn, staged, 2 * timed)
+            log(f"[profile] difacto kernel={kernel}: {json.dumps(prof)}")
+        del lrn, staged
+    (pk, ek, yk, tk), (px, ex, yx, tx) = runs["pallas"], runs["xla"]
+    for a, b in zip(pk, px):
+        if abs(a["logloss"] - b["logloss"]) / a["nex"] > 1e-3:
+            raise AssertionError("difacto train logloss differs from xla")
+    if abs(ek["logloss"] - ex["logloss"]) / ek["nex"] > 1e-3:
+        raise AssertionError("difacto eval logloss differs from xla")
+    if not (np.isfinite(yk).all() and yk.shape == (MINIBATCH,)):
+        raise AssertionError("difacto predictions not finite / wrong shape")
+    np.testing.assert_allclose(yk, yx, rtol=1e-4, atol=1e-5)
+    diffs = {}
+    for k in tk:
+        # the JAX package's bar between these two paths
+        # (tests/test_difacto.py:205-206)
+        if not torch.allclose(tk[k], tx[k], rtol=2e-3, atol=2e-5):
+            raise AssertionError(
+                f"difacto table {k} differs from kernel=xla, max abs "
+                f"{float((tk[k] - tx[k]).abs().max())}")
+        diffs[k] = float((tk[k] - tx[k]).abs().max())
+    log(f"[difacto] kernel path matches kernel=xla: table max abs diffs "
+        f"{json.dumps(diffs)}, predictions max abs diff "
+        f"{float(np.abs(yk - yx).max()):.3g}")
+    return rates
+
+
 # ------------------------------------------------------------- phase 3
 def write_libsvm(path: str, num_buckets: int, rows: int, seed: int) -> None:
     from wormhole_tpu_torch.data.synth import synth_criteo_batch
@@ -458,42 +790,78 @@ def write_libsvm(path: str, num_buckets: int, rows: int, seed: int) -> None:
         f.write("\n".join(lines) + "\n")
 
 
-def run_app(device, num_buckets=COMPACT_BUCKETS, minibatch=MINIBATCH,
-            train_rows=2 * MINIBATCH, val_rows=MINIBATCH) -> dict:
-    """The linear app in-process on synthetic libsvm files."""
-    from wormhole_tpu_torch.apps import linear as app
+def drive_app(app, args: list, num_buckets: int, train_rows: int,
+              val_rows: int, seed: int):
+    """An app's main() in-process on synthetic libsvm train and val files,
+    with predict_out and model_out. Checks one finite prediction per val
+    row; returns (val logloss from the predictions, the saved tables)."""
     from wormhole_tpu_torch.utils import checkpoint as ckpt
 
     with tempfile.TemporaryDirectory() as tmp:
-        tr, va = os.path.join(tmp, "train.libsvm"), os.path.join(
-            tmp, "val.libsvm")
-        write_libsvm(tr, num_buckets, train_rows, seed=5)
-        write_libsvm(va, num_buckets, val_rows, seed=6)
+        tr, va = (os.path.join(tmp, "train.libsvm"),
+                  os.path.join(tmp, "val.libsvm"))
+        write_libsvm(tr, num_buckets, train_rows, seed=seed)
+        write_libsvm(va, num_buckets, val_rows, seed=seed + 1)
         pred, model = os.path.join(tmp, "pred"), os.path.join(tmp, "model")
         rc = app.main([f"train_data={tr}", f"val_data={va}",
-                       f"minibatch={minibatch}",
                        f"nnz_per_row={NNZ_PER_ROW}",
-                       f"num_buckets={num_buckets}", "algo=ftrl",
-                       "lr_eta=0.1", "lambda_l1=1", "max_data_pass=1",
+                       f"num_buckets={num_buckets}", "lr_eta=0.1",
+                       "lambda_l1=1", "max_data_pass=1",
                        "num_parts_per_file=1", "max_concurrency=2",
-                       f"predict_out={pred}", f"model_out={model}",
-                       f"device={device}"])
+                       f"predict_out={pred}", f"model_out={model}", *args])
         if rc != 0:
-            raise AssertionError(f"linear app returned {rc}")
+            raise AssertionError(f"{app.__name__} returned {rc}")
         margins = np.loadtxt(pred + "_part-0", dtype=np.float64, ndmin=1)
         labels = np.array([float(l.split(" ", 1)[0])
                            for l in open(va).read().splitlines()])
         if margins.shape != (val_rows,) or not np.isfinite(margins).all():
-            raise AssertionError(f"predictions: shape {margins.shape}, "
-                                 f"finite {np.isfinite(margins).all()}")
+            raise AssertionError(f"{app.__name__} predictions: shape "
+                                 f"{margins.shape}, finite "
+                                 f"{np.isfinite(margins).all()}")
         ll = float(np.mean(np.logaddexp(0.0, margins) - labels * margins))
-        w = ckpt.load_parts(model)["w"]
-        if not math.isfinite(ll) or w.shape != (num_buckets,):
-            raise AssertionError(f"logloss {ll}, model w {w.shape}")
-        log(f"[app] rc {rc}, {margins.shape[0]} predictions, val logloss "
-            f"from predictions {ll:.6f}, model |w|_0 "
-            f"{int(np.count_nonzero(w))}")
-        return {"val_logloss": ll, "predictions": int(margins.shape[0])}
+        if not math.isfinite(ll):
+            raise AssertionError(f"{app.__name__}: val logloss {ll}")
+        return ll, ckpt.load_parts(model)
+
+
+def run_app(device, num_buckets=COMPACT_BUCKETS, minibatch=MINIBATCH,
+            train_rows=2 * MINIBATCH, val_rows=MINIBATCH) -> float:
+    """The linear app at 2^26 buckets."""
+    from wormhole_tpu_torch.apps import linear as app
+
+    ll, saved = drive_app(app, [f"minibatch={minibatch}", "algo=ftrl",
+                                f"device={device}"],
+                          num_buckets, train_rows, val_rows, seed=5)
+    w = saved["w"]
+    if w.shape != (num_buckets,):
+        raise AssertionError(f"model w {w.shape}")
+    log(f"[app] {val_rows} predictions, val logloss from predictions "
+        f"{ll:.6f}, model |w|_0 {int(np.count_nonzero(w))}")
+    return ll
+
+
+def run_difacto_app(device, num_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
+                    minibatch=MINIBATCH, train_rows=2 * MINIBATCH,
+                    val_rows=MINIBATCH) -> float:
+    """The difacto app at the DiFacto width; model_out must hold both
+    table groups."""
+    from wormhole_tpu_torch.apps import difacto as app
+
+    ll, saved = drive_app(app, [f"minibatch={minibatch}",
+                                f"v_buckets={v_buckets}", f"dim={FM_DIM}",
+                                "threshold=2", "kernel=pallas",
+                                f"device={device}"],
+                          num_buckets, train_rows, val_rows, seed=9)
+    shapes = {k: v.shape for k, v in saved.items()}
+    want = {"w": (num_buckets,), "z": (num_buckets,), "n": (num_buckets,),
+            "cnt": (num_buckets,), "V": (v_buckets, FM_DIM),
+            "nV": (v_buckets, FM_DIM)}
+    if shapes != want:
+        raise AssertionError(f"difacto model tables {shapes}")
+    log(f"[difacto-app] {val_rows} predictions, val logloss from "
+        f"predictions {ll:.6f}, model tables {shapes}, admitted "
+        f"{int((saved['cnt'] >= 2).sum())}")
+    return ll
 
 
 # ---------------------------------------------------------------- main
@@ -525,30 +893,50 @@ def main() -> int:
 
     t = time.perf_counter()
     knums = check_kernels(device)
+    fm_nums = check_fm_kernels(device)
+    # scatter_update's row keeps the linear path's numbers; the
+    # additive-table variant's error counts against it too
+    fm_nums["scatter_update"] = dict(
+        knums["scatter_update"],
+        max_abs_err=max(knums["scatter_update"]["max_abs_err"],
+                        fm_nums["scatter_update"]["max_abs_err"]))
+    knums.update(fm_nums)
     log(f"[phase] kernels {time.perf_counter() - t:.1f}s")
 
-    t = time.perf_counter()
-    _cuda.reset_launches()
-    rates = run_learners(device)
-    launches = dict(_cuda.LAUNCHES)
-    log(f"[learner] launches on the main path: {launches}")
-    missing = [k for k in KERNELS if launches[k] == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: "
-                             f"{missing}")
-    log(f"[learner] examples/sec on {smi}: "
-        f"{json.dumps({k: round(v) for k, v in rates.items()})}")
-    log(f"[phase] learner {time.perf_counter() - t:.1f}s")
+    # each main path is driven with the counts set to 0 just before it
+    # and read just after
+    launches = dict.fromkeys(KERNELS, 0)
+    paths = {"linear": (run_learners, LINEAR_KERNELS),
+             "difacto": (run_difacto, FM_KERNELS)}
+    for name, (run, path_kernels) in paths.items():
+        t = time.perf_counter()
+        _cuda.reset_launches()
+        rates = run(device)
+        counts = dict(_cuda.LAUNCHES)
+        log(f"[{name}] launches on the main path: {counts}")
+        missing = [k for k in path_kernels if counts[k] == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {name} "
+                                 f"path: {missing}")
+        for k in KERNELS:
+            launches[k] += counts[k]
+        log(f"[{name}] examples/sec on {smi}: "
+            f"{json.dumps({k: round(v) for k, v in rates.items()})}")
+        log(f"[phase] {name} learner {time.perf_counter() - t:.1f}s")
 
-    t = time.perf_counter()
-    _cuda.reset_launches()
-    run_app(device)
-    app_launches = dict(_cuda.LAUNCHES)
-    log(f"[app] launches: {app_launches}")
-    for k in ("tile_gather", "coo_spmv_t", "scatter_update"):
-        if app_launches[k] == 0:
-            raise AssertionError(f"app run launched no {k}")
-    log(f"[phase] app {time.perf_counter() - t:.1f}s")
+    for name, run, want in (
+            ("app", run_app, ("tile_gather", "coo_spmv_t",
+                              "scatter_update")),
+            ("difacto-app", run_difacto_app, FM_KERNELS)):
+        t = time.perf_counter()
+        _cuda.reset_launches()
+        run(device)
+        app_launches = dict(_cuda.LAUNCHES)
+        log(f"[{name}] launches: {app_launches}")
+        for k in want:
+            if app_launches[k] == 0:
+                raise AssertionError(f"{name} run launched no {k}")
+        log(f"[phase] {name} {time.perf_counter() - t:.1f}s")
 
     rows = []
     for name, (src, repl) in KERNELS.items():

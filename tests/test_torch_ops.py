@@ -1,5 +1,6 @@
 """The port's plain torch ops against the JAX package's, on shared numpy
-inputs: penalty, spmv, metrics, the push filter and the loss dual."""
+inputs: penalty, spmv and spmm, metrics, the push filter and the loss
+dual."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -51,6 +52,25 @@ def test_spmv_and_spmv_t():
            j_spmv.spmv_t(jnp.asarray(seg), jnp.asarray(idx),
                          jnp.asarray(val), jnp.asarray(d), nb),
            rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("fn", ["spmm", "spmm_t", "row_squares"])
+def test_spmm_family(fn):
+    rng = np.random.default_rng(3)
+    n_rows, cap, nb, k = 64, 640, 200, 8
+    seg = np.sort(rng.integers(0, n_rows, size=cap)).astype(np.int32)
+    idx = rng.integers(0, nb, size=cap).astype(np.int32)
+    val = rng.normal(size=cap).astype(np.float32)
+    val[::9] = 0.0  # padding entries contribute nothing
+    V = rng.normal(size=(nb, k)).astype(np.float32)
+    D = rng.normal(size=(n_rows, k)).astype(np.float32)
+    tab, size = (D, nb) if fn == "spmm_t" else (V, n_rows)
+    got = getattr(t_spmv, fn)(T(seg), T(idx), T(val), T(tab), size)
+    want = getattr(j_spmv, fn)(jnp.asarray(seg), jnp.asarray(idx),
+                               jnp.asarray(val), jnp.asarray(tab), size)
+    assert got.shape == (size, k)
+    # summation order differs between index_add_ and segment_sum
+    _close(got, want, rtol=1e-5, atol=1e-5)
 
 
 def _scores(kind, n=500, seed=2):

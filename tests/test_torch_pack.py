@@ -37,9 +37,10 @@ def _coo(n_rows, nnz, nb, seed, skew):
 
 
 def test_geometry_constants_equal():
-    for name in ("TILE_HI", "LANES", "TILE", "BLK", "BLK_U"):
+    for name in ("TILE_HI", "LANES", "TILE", "BLK", "BLK_U", "FM_BLK"):
         assert getattr(t_ck, name) == getattr(j_ck, name), name
     assert t_ck.TILE == 512 * 128 and t_ck.BLK == 4096 and t_ck.BLK_U == 1024
+    assert t_ck.FM_BLK == 1024
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -1,11 +1,16 @@
-// The linear learner's optimizer update at the batch's unique keys, in
-// place, written by hand for Hopper (sm_90a).
+// The optimizer updates at the batch's unique keys, in place, and the
+// embedding-row gather, written by hand for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel scatter_update of
-// wormhole_tpu/ops/fused_update.py (_kernel, :85; wrapper :329). That kernel
-// walks each touched (512, 128) table tile, scatters the compact gradient
-// into it with a one-hot MXU matmul, applies the FTRL / AdaGrad / SGD handle
-// to the whole tile and writes the tile back. Here uniq names each key at
+// Replaces three Pallas TPU kernels of wormhole_tpu/ops/fused_update.py:
+//   scatter_update   (_kernel, :85; wrapper :329)
+//   row_tile_gather  (_row_gather_kernel, :184; wrapper :196)
+//   v_scatter_update (_v_update_kernel, :225; wrapper :279)
+// The last two come after scatter_update, below.
+//
+// scatter_update: the TPU kernel walks each touched (512, 128) table tile,
+// scatters the compact gradient into it with a one-hot MXU matmul, applies
+// the FTRL / AdaGrad / SGD handle to the whole tile and writes the tile
+// back. Here uniq names each key at
 // most once, so one thread per compact slot reads the key's state, applies
 // the handle and writes it back: no scatter, no collisions, and the
 // untouched entries of a touched tile are never read (in the TPU kernel
@@ -145,6 +150,64 @@ bool launch_fixed(const Args& a, int fixed_bytes, bool bf16) {
   }
 }
 
+// ------------------------------------------------ embedding-row kernels
+// DiFacto's V table is (rows, dim) f32, row-major, dim a power of two
+// dividing 128 (dim_shift = log2 dim). The TPU kernels stream each touched
+// (512, 128) flat tile through VMEM and pick rows out of it with one-hot
+// matmuls (Mosaic has no sublane gather). Here each thread owns one
+// (compact slot, channel) pair and reads or updates its entry directly:
+// the dim threads of a slot read one row's dim consecutive floats (at dim
+// 8, one 32-byte sector), and each row appears at one slot only, so no two
+// threads write one entry. Both are bound by device memory: the slot list
+// is read once, and the table only at the rows the slots name. Flat
+// offsets are 64-bit.
+
+// Gather: out[s, j] = V[uniq[s], j], 0.0 at sentinel slots (uniq == rows),
+// as the TPU kernel's all-zero one-hot rows give. bf16 mode rounds the
+// value, where the TPU kernel's row-fetch matmul operand rounds.
+template <bool kBf16>
+__global__ void row_gather_kernel(const float* __restrict__ V,
+                                  const int* __restrict__ uniq,
+                                  float* __restrict__ out, int64_t u_cap,
+                                  int64_t rows, int dim_shift) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= (u_cap << dim_shift)) return;
+  const int r = uniq[i >> dim_shift];
+  float v = 0.0f;
+  if (r >= 0 && r < rows) {
+    v = __ldg(&V[(static_cast<int64_t>(r) << dim_shift) + (i & ((1 << dim_shift) - 1))]);
+    if (kBf16) v = round_bf16(v);
+  }
+  out[i] = v;
+}
+
+// AdaGrad V handle (difacto async_sgd.h:289-296) at the touched slots, in
+// the JAX operation order: nV += g * g; eta = (beta + sqrt(nV)) / eta0;
+// V -= (g + lambda_V * V) / eta. Untouched slots (vtouched == 0) and
+// sentinel slots change nothing. bf16 mode rounds g first, where the TPU
+// kernel's scatter matmul rounds it.
+template <bool kBf16>
+__global__ void v_update_kernel(float* __restrict__ V, float* __restrict__ nV,
+                                const float* __restrict__ gV,
+                                const float* __restrict__ vtouched,
+                                const int* __restrict__ uniq, int64_t u_cap,
+                                int64_t rows, int dim_shift, float V_lr_eta,
+                                float V_lr_beta, float lambda_V) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= (u_cap << dim_shift)) return;
+  const int64_t s = i >> dim_shift;
+  const int r = uniq[s];
+  if (r < 0 || r >= rows || !(vtouched[s] > 0.0f)) return;
+  float g = gV[i];
+  if (kBf16) g = round_bf16(g);
+  const int64_t k = (static_cast<int64_t>(r) << dim_shift) + (i & ((1 << dim_shift) - 1));
+  const float v0 = V[k];
+  const float n2 = nV[k] + g * g;
+  const float eta = (V_lr_beta + sqrtf(n2)) / V_lr_eta;
+  V[k] = v0 - (g + lambda_V * v0) / eta;
+  nV[k] = n2;
+}
+
 }  // namespace
 
 extern "C" {
@@ -187,6 +250,42 @@ int wh_scatter_update(int algo, int fixed_bytes, int bf16, void* z, void* n,
     default: break;
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// V: (rows, dim) f32 flat; uniq: (u_cap,) int32; out: (u_cap, dim) f32.
+int wh_row_tile_gather(const void* V, const void* uniq, void* out,
+                       int64_t u_cap, int64_t rows, int dim_shift, int bf16,
+                       void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim_shift < 0 || dim_shift > 7) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = u_cap << dim_shift;
+  if (n > 0) {
+    auto kern = bf16 ? row_gather_kernel<true> : row_gather_kernel<false>;
+    kern<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+        static_cast<const float*>(V), static_cast<const int*>(uniq),
+        static_cast<float*>(out), u_cap, rows, dim_shift);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// V, nV: (rows, dim) f32 flat, updated in place; gV: (u_cap, dim) f32;
+// vtouched: (u_cap,) f32; uniq: (u_cap,) int32.
+int wh_v_scatter_update(void* V, void* nV, const void* gV,
+                        const void* vtouched, const void* uniq, int64_t u_cap,
+                        int64_t rows, int dim_shift, int bf16, float V_lr_eta,
+                        float V_lr_beta, float lambda_V, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dim_shift < 0 || dim_shift > 7) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t n = u_cap << dim_shift;
+  if (n > 0) {
+    auto kern = bf16 ? v_update_kernel<true> : v_update_kernel<false>;
+    kern<<<static_cast<unsigned>((n + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+        static_cast<float*>(V), static_cast<float*>(nV),
+        static_cast<const float*>(gV), static_cast<const float*>(vtouched),
+        static_cast<const int*>(uniq), u_cap, rows, dim_shift, V_lr_eta,
+        V_lr_beta, lambda_V);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"coo_spmv": 0, "coo_spmv_t": 0, "tile_gather": 0,
-            "scatter_update": 0}
+            "scatter_update": 0, "row_tile_gather": 0,
+            "fm_push_contrib": 0, "v_scatter_update": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -44,10 +45,15 @@ _SIGNATURES = {
         "wh_coo_spmv": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _P],
         "wh_coo_spmv_t": [_P, _P, _P, _P, _P, _I64, _I64, _I64, _I, _P],
         "wh_tile_gather": [_P, _P, _P, _I64, _I64, _I, _P],
+        "wh_fm_push_contrib": [_P, _P, _P, _P, _P, _P, _P, _P, _I64, _I64,
+                               _I, _I, _I, _P],
     },
     "fused_update": {
         "wh_scatter_update": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I64, _I64, _F, _F, _F, _F, _F, _P, _P],
+        "wh_row_tile_gather": [_P, _P, _P, _I64, _I64, _I, _I, _P],
+        "wh_v_scatter_update": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
+                                _F, _F, _F, _P],
     },
 }
 _ERROR_STRING = {"coo_kernels": "wh_coo_error_string",

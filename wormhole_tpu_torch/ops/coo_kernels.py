@@ -6,12 +6,13 @@ same tile-aligned compact slot space (``TileCOO``, ``pack_tile_coo``),
 with the same geometry constants, so both packages feed identical arrays
 to their kernels.
 
-Device side: three kernels written by hand in CUDA
+Device side: four kernels written by hand in CUDA
 (``csrc/coo_kernels.cu``), each beside a plain PyTorch version:
 
-- ``coo_spmv``    xw = X w      (pull)
-- ``coo_spmv_t``  g = Xᵀ d      (push, in table layout)
-- ``tile_gather`` w at the compact slots
+- ``coo_spmv``        xw = X w      (pull)
+- ``coo_spmv_t``      g = Xᵀ d      (push, in table layout)
+- ``tile_gather``     w at the compact slots
+- ``fm_push_contrib`` the FM embedding gradient at the compact V rows
 
 A wrapper runs the plain version only for tensors on the CPU. For CUDA
 tensors it launches its kernel or raises. ``dtype`` is the kernel's
@@ -37,6 +38,7 @@ LANES = 128
 TILE = TILE_HI * LANES  # buckets per table tile
 BLK = 4096  # packed entries per block
 BLK_U = 1024  # compact slots per update block
+FM_BLK = 1024  # packed entries per block of the FM (V-side) stream
 assert TILE % BLK_U == 0, "BLK_U must divide TILE (block map alignment)"
 
 
@@ -418,4 +420,67 @@ def tile_gather(table2, uniq, tmap_u, dtype=None):
         table2.numel(), int(dtype == torch.bfloat16), _cuda.stream(table2))
     _cuda.check("coo_kernels", rc, "tile_gather")
     _cuda.LAUNCHES["tile_gather"] += 1
+    return out
+
+
+def check_dim(dim: int) -> None:
+    """The embedding kernels take dim a power of two dividing 128."""
+    if dim <= 0 or dim & (dim - 1) or LANES % dim:
+        raise ValueError(f"dim must be a power of two dividing {LANES}, "
+                         f"got {dim}")
+
+
+def fm_push_contrib_plain(V, a, b, sidx, dtype):
+    """Plain version of fm_push_contrib: index_add_ of [a | b] into
+    (rows, dim + 1), then the epilogue."""
+    rows, dim = V.shape
+    ab = round_to(torch.cat([a, b[:, None]], dim=1), dtype)
+    acc = torch.zeros(rows, dim + 1, dtype=torch.float32, device=V.device)
+    acc.index_add_(0, sidx, ab)
+    return acc[:, :dim] - acc[:, dim:] * V
+
+
+# stream entries per CTA of csrc/coo_kernels.cu fm_push_local_kernel; the
+# wrapper sizes the per-chunk scratch with it
+_FM_CHUNK = 1024
+
+
+def fm_push_contrib(V, a, b, sidx, tmap, first, dtype=None):
+    """FM embedding gradient from precomputed per-entry contributions:
+    returns (rows, dim) f32 with out[j] = sum a[e] - (sum b[e]) * V[j],
+    both sums over the entries e with sidx[e] == j; exactly 0 at rows
+    with no entry. V is the compact (rows, dim) embedding block (rows a
+    multiple of TILE_HI); a (P, dim) and b (P,) are f32, sidx (P,) int32
+    the slot-sorted COO of pack_sorted_coo(tile=TILE_HI, blk=FM_BLK),
+    whose pad entries carry a = b = 0. tmap and first are the TPU
+    layout's block maps, kept for signature parity.
+
+    Replaces wormhole_tpu/ops/coo_kernels.py fm_push_contrib
+    (_fm_push_contrib_kernel). Kernel: csrc/coo_kernels.cu
+    fm_push_local_kernel + fm_push_combine_kernel."""
+    dtype = kernel_dtype(dtype, V)
+    rows, dim = V.shape
+    check_dim(dim)
+    if rows % TILE_HI:
+        raise ValueError(f"V must have a multiple of {TILE_HI} rows; got "
+                         f"{rows}")
+    if a.shape != (sidx.shape[0], dim) or b.shape != sidx.shape:
+        raise ValueError("fm_push_contrib: a must be (P, dim) and b (P,) "
+                         "for P = len(sidx)")
+    if not V.is_cuda:
+        return fm_push_contrib_plain(V, a, b, sidx, dtype)
+    _cuda.require("fm_push_contrib", V.device, V=V, a=a, b=b, sidx=sidx)
+    n = sidx.numel()
+    nchunks = -(-n // _FM_CHUNK)
+    out = torch.empty(rows, dim, dtype=torch.float32, device=V.device)
+    part = torch.empty(2, max(nchunks, 1), dim + 1, dtype=torch.float32,
+                       device=V.device)
+    flags = torch.empty(max(nchunks, 1), dtype=torch.int32, device=V.device)
+    rc = _cuda.lib("coo_kernels").wh_fm_push_contrib(
+        V.data_ptr(), a.data_ptr(), b.data_ptr(), sidx.data_ptr(),
+        out.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
+        flags.data_ptr(), n, rows, dim, _FM_CHUNK,
+        int(dtype == torch.bfloat16), _cuda.stream(V))
+    _cuda.check("coo_kernels", rc, "fm_push_contrib")
+    _cuda.LAUNCHES["fm_push_contrib"] += 1
     return out

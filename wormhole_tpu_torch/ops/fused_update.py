@@ -16,7 +16,12 @@ Semantics match models/linear._update:
   outside the kernel, so it equals parallel.kvstore.quantize_push's.
 - An optional additive table (difacto's cnt) gets table[uniq] += values.
 
-Kernel: csrc/fused_update.cu, beside the plain version below.
+The DiFacto embedding table V (rows, dim) gets the same treatment at its
+compact row slots: ``row_tile_gather`` reads the rows, and
+``v_scatter_update`` applies the AdaGrad V handle to the touched rows in
+place.
+
+Kernels: csrc/fused_update.cu, each beside its plain version below.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from wormhole_tpu_torch.ops import _cuda
-from wormhole_tpu_torch.ops.coo_kernels import kernel_dtype, round_to
+from wormhole_tpu_torch.ops.coo_kernels import check_dim, kernel_dtype, round_to
 from wormhole_tpu_torch.ops.penalty import l1l2_solve
 
 _ORDER = {"ftrl": ("z", "n", "w"), "adagrad": ("n", "w"), "sgd": ("w",)}
@@ -148,3 +153,98 @@ def scatter_update(algo: str, state: dict, g, uniq, tmap_u, first_u,
     _cuda.check("fused_update", rc, "scatter_update")
     _cuda.LAUNCHES["scatter_update"] += 1
     return state, nw
+
+
+# ---------------------------------------------- embedding-row variants
+def row_tile_gather_plain(flat2, uniq_rows, dim: int, dtype):
+    """Plain version of row_tile_gather: masked row indexing."""
+    V = flat2.reshape(-1, dim)
+    live = uniq_rows < V.shape[0]
+    got = V.index_select(0, torch.where(live, uniq_rows,
+                                        torch.zeros_like(uniq_rows)))
+    return torch.where(live[:, None], round_to(got, dtype),
+                       torch.zeros_like(got))
+
+
+def row_tile_gather(flat2, uniq_rows, tmap_u, dim: int, dtype=None):
+    """Gather (rows, dim) table rows at the tile-aligned compact row slots
+    from the flat row-major table viewed (rows * dim // 128, 128): returns
+    (u_cap, dim) f32 with out[s] = V[uniq_rows[s]] (0.0 at sentinel
+    slots, uniq_rows == rows). tmap_u is kept for signature parity.
+
+    Replaces wormhole_tpu/ops/fused_update.py row_tile_gather
+    (_row_gather_kernel). Kernel: csrc/fused_update.cu row_gather_kernel."""
+    check_dim(dim)
+    dtype = kernel_dtype(dtype, flat2)
+    if not flat2.is_cuda:
+        return row_tile_gather_plain(flat2, uniq_rows, dim, dtype)
+    _cuda.require("row_tile_gather", flat2.device, flat2=flat2,
+                  uniq=uniq_rows)
+    out = torch.empty(uniq_rows.numel(), dim, dtype=torch.float32,
+                      device=flat2.device)
+    rc = _cuda.lib("fused_update").wh_row_tile_gather(
+        flat2.data_ptr(), uniq_rows.data_ptr(), out.data_ptr(),
+        uniq_rows.numel(), flat2.numel() // dim, dim.bit_length() - 1,
+        int(dtype == torch.bfloat16), _cuda.stream(flat2))
+    _cuda.check("fused_update", rc, "row_tile_gather")
+    _cuda.LAUNCHES["row_tile_gather"] += 1
+    return out
+
+
+def v_scatter_update_plain(V, nV, gV, vtouched, uniq_rows, *, dim: int,
+                           V_lr_eta, V_lr_beta, lambda_V, dtype):
+    """Plain version of v_scatter_update: gather the touched rows, apply
+    the handle with torch ops, write back with index_put_."""
+    V2, nV2 = V.view(-1, dim), nV.view(-1, dim)
+    sel = (uniq_rows < V2.shape[0]) & (vtouched > 0)
+    rows = uniq_rows[sel].long()
+    g = round_to(gV[sel], dtype)
+    v0 = V2[rows]
+    n2 = nV2[rows] + g * g
+    eta = (V_lr_beta + torch.sqrt(n2)) / V_lr_eta
+    V2[rows] = v0 - (g + lambda_V * v0) / eta
+    nV2[rows] = n2
+    return V, nV
+
+
+def v_scatter_update(Vflat, nVflat, gV, vtouched, uniq_rows, tmap_u,
+                     first_u, last_u, *, dim: int, V_lr_eta, V_lr_beta,
+                     lambda_V, dtype=None):
+    """AdaGrad update of the embedding table at the touched compact rows,
+    IN PLACE (difacto AdaGradHandle V branch, async_sgd.h:289-296): for
+    each slot s with r = uniq_rows[s] a real row and vtouched[s] > 0,
+    nV[r] += g * g, then V[r] -= (g + lambda_V * V[r]) / eta with
+    eta = (V_lr_beta + sqrt(nV[r])) / V_lr_eta, g = gV[s]. Other rows
+    are not touched. Returns (Vflat, nVflat), the same tensors.
+
+    Vflat, nVflat hold rows * dim f32 (any shape); gV is (u_cap, dim),
+    vtouched (u_cap,) f32, uniq_rows (u_cap,) int32 with sentinel rows.
+    tmap_u, first_u and last_u are the TPU layout's block maps, kept for
+    signature parity.
+
+    Replaces wormhole_tpu/ops/fused_update.py v_scatter_update
+    (_v_update_kernel). Kernel: csrc/fused_update.cu v_update_kernel."""
+    check_dim(dim)
+    dtype = kernel_dtype(dtype, Vflat)
+    if gV.shape != (uniq_rows.shape[0], dim) or \
+            vtouched.shape != uniq_rows.shape:
+        raise ValueError("v_scatter_update: gV must be (u_cap, dim) and "
+                         "vtouched (u_cap,)")
+    if nVflat.numel() != Vflat.numel():
+        raise ValueError("v_scatter_update: V and nV differ in size")
+    hyper = dict(V_lr_eta=V_lr_eta, V_lr_beta=V_lr_beta, lambda_V=lambda_V)
+    if not Vflat.is_cuda:
+        return v_scatter_update_plain(Vflat, nVflat, gV, vtouched,
+                                      uniq_rows, dim=dim, dtype=dtype,
+                                      **hyper)
+    _cuda.require("v_scatter_update", Vflat.device, Vflat=Vflat,
+                  nVflat=nVflat, gV=gV, vtouched=vtouched, uniq=uniq_rows)
+    rc = _cuda.lib("fused_update").wh_v_scatter_update(
+        Vflat.data_ptr(), nVflat.data_ptr(), gV.data_ptr(),
+        vtouched.data_ptr(), uniq_rows.data_ptr(), uniq_rows.numel(),
+        Vflat.numel() // dim, dim.bit_length() - 1,
+        int(dtype == torch.bfloat16), V_lr_eta, V_lr_beta, lambda_V,
+        _cuda.stream(Vflat))
+    _cuda.check("fused_update", rc, "v_scatter_update")
+    _cuda.LAUNCHES["v_scatter_update"] += 1
+    return Vflat, nVflat

@@ -4,7 +4,12 @@ Parity with reference learn/solver/minibatch_solver.h + iter_solver.h and
 the JAX package's single-process MinibatchSolver:
 - `run()` drives `max_data_pass` passes of TRAIN then VAL, with model
   load before (model_in / load_iter) and saves during (save_iter) and
-  after (model_out), then the predict pass (predict_out);
+  after (model_out), then the predict pass (predict_out); checkpoints go
+  through the learner's `ckpt_store` where it has one (DiFacto keeps its
+  w and V tables in two stores);
+- the learner's `on_pass_start` hook, where it has one, runs at the start
+  of every pass; `stop_hook(pass progress, data_pass, "val" | "train")`
+  may end the run early after a pass;
 - each pass splits the matched files into virtual parts; loader threads
   (max_concurrency of them) parse, pack and stage minibatches into a
   bounded queue while the main thread runs the device steps;
@@ -19,6 +24,7 @@ import queue
 import re
 import threading
 import time
+from typing import Callable, Optional
 
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
 from wormhole_tpu_torch.solver.progress import Progress
@@ -63,10 +69,17 @@ class MinibatchSolver:
         self.num_loaders = max(1, int(cfg.max_concurrency))
         self.verbose = verbose
         self.t0 = time.time()
+        # early-stop hook: (pass progress, data_pass, key) -> bool
+        self.stop_hook: Optional[Callable] = None
+
+    @property
+    def _ckpt_store(self):
+        # learners with several KV stores expose a combined adapter
+        return getattr(self.learner, "ckpt_store", None) or self.learner.store
 
     def run(self) -> dict:
         cfg = self.cfg
-        store = self.learner.store
+        store = self._ckpt_store
         if cfg.model_in:
             ckpt.load_model(store, cfg.model_in,
                             cfg.load_iter if cfg.load_iter >= 0 else None)
@@ -79,16 +92,28 @@ class MinibatchSolver:
                 (dp + 1) % cfg.save_iter == 0 and dp + 1 < cfg.max_data_pass
             ):
                 ckpt.save_model(store, cfg.model_out, dp)
+            if self._should_stop(result, dp):
+                self._log(f"early stop after pass {dp}")
+                break
         if cfg.model_out:
             ckpt.save_model(store, cfg.model_out)
         if cfg.predict_out:
             self.predict(cfg.val_data or cfg.train_data, cfg.predict_out)
         return result
 
+    def _should_stop(self, result: dict, dp: int) -> bool:
+        if self.stop_hook is None:
+            return False
+        key = "val" if "val" in result else "train"
+        return bool(self.stop_hook(result[key], dp, key))
+
     def iterate(self, data: str, train: bool, data_pass: int = 0) -> Progress:
         """One TRAIN (train=True) or VAL pass over `data`."""
         cfg = self.cfg
         lrn = self.learner
+        hook = getattr(lrn, "on_pass_start", None)
+        if hook:
+            hook()
         parts = list(enumerate(list_parts(data, cfg.num_parts_per_file)))
         prog = Progress()
         # seed the pass with the model's standing |w|_0 so the sparsity

@@ -5,6 +5,10 @@ utils/checkpoint.py: a model is `<base>[_iter-K].npz` when written as one
 part, or `<base>[_iter-K]_part-<rank>.npz` files concatenated on the
 bucket axis. The port writes one part (one device); it reads either
 form, so a `model_out` of the JAX app loads here. Local paths only.
+
+`store` is anything with to_numpy / from_numpy: a KVStore, or DiFacto's
+_CombinedStore, which saves both of its table groups and, after a load,
+fires its on_load callback (the learner's count-mirror resync).
 """
 
 from __future__ import annotations
