@@ -3,17 +3,22 @@
 
   python3 chip_smoke.py        (from the repo root; needs one CUDA card)
 
-Drives the port (wormhole_tpu_torch) through its two main paths at the
-bench's full width, over 65,536-row minibatches of 39 Criteo-shaped
-features: linear FTRL logistic regression, and the DiFacto factorization
-machine (dim 8, w over 2^22 buckets, V over 2^20 rows, threshold 2; the
-reference's learn/difacto/guide/criteo.conf, as bench.py runs it):
+Drives the port (wormhole_tpu_torch) through its three main paths at the
+bench's full width. Two run over 65,536-row minibatches of 39
+Criteo-shaped features: linear FTRL logistic regression, and the DiFacto
+factorization machine (dim 8, w over 2^22 buckets, V over 2^20 rows,
+threshold 2; the reference's learn/difacto/guide/criteo.conf, as bench.py
+runs it). The third is the histogram GBDT at the bench's HIGGS shape
+(2,000,000 dense rows of 28 features, 256 bins, depth 6):
 
 0. builds the hand-written CUDA kernels from csrc/, one nvcc each, at once;
-1. holds every kernel of both paths against its plain PyTorch version on
-   the card at the paths' shapes, in f32 and bf16, and times kernel,
-   plain version and one PyTorch library call (CUDA events); the DiFacto
-   half runs on a full-width batch packed by the learner's own pack;
+1. holds every kernel of the paths against its plain PyTorch version on
+   the card at the paths' shapes (the COO and FM kernels in f32 and
+   bf16), and times kernel, plain version and one PyTorch library call
+   (CUDA events); the DiFacto half runs on a full-width batch packed by
+   the learner's own pack; level_hist runs on the inputs a real round
+   gives it at each of its six levels, with quantile bins and with the
+   same rows in 0/1 bins;
 2. runs LinearLearner on the card at 2^22 buckets (dense tables, kernels
    coo_spmv + coo_spmv_t) and 2^26 buckets (compacted path, tile_gather +
    coo_spmv_t + scatter_update): train steps, eval, predict, each against
@@ -25,9 +30,15 @@ reference's learn/difacto/guide/criteo.conf, as bench.py runs it):
    row_tile_gather, coo_spmv_t, scatter_update with the additive count
    table, fm_push_contrib, v_scatter_update), with its launch counts
    taken over its own run;
-4. runs the linear app at 2^26 buckets and the difacto app at the
-   DiFacto width in-process on synthetic libsvm files, with validation,
-   predict_out and model_out.
+4. the same for GbdtLearner: a few rounds through fit_prepared with an
+   eval set, hist_kernel=mxu (the level_hist kernel) against
+   hist_kernel=xla (the plain scatter) on the card, trees compared node
+   by node, then margins, metrics and predict_margin, the time per
+   round and the profiler pass;
+5. runs the linear app at 2^26 buckets, the difacto app at the DiFacto
+   width and the gbdt app (task=train, then task=pred) at 28 features,
+   256 bins, depth 6, in-process on synthetic libsvm files, with
+   validation data and model_out.
 
 Every check raises on failure, so any failed phase exits non-zero. The
 last two lines are one JSON object of per-kernel numbers and the result
@@ -60,6 +71,15 @@ F32_FLOPS = 67e12          # H100 SXM data sheet, f32 outside tensor cores
 TRAIN_STEPS = 4
 TIMED_STEPS = 10
 TIMED_WINDOWS = 5
+HIGGS_ROWS = 2_000_000
+HIGGS_EVAL_ROWS = 200_000
+HIGGS_DIM = 28
+GBDT_BINS = 256
+GBDT_DEPTH = 6
+GBDT_ROUNDS = 4
+GBDT_TIMED_ROUNDS = 3
+LEAF_ATOL = 1e-5   # the kernel path's leaves against f64 sums of their rows
+GBDT_APP_ROWS = (65_536, 16_384)  # train, eval rows of the app's files
 
 KERNELS = {
     "coo_spmv": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
@@ -76,10 +96,13 @@ KERNELS = {
                         "wormhole_tpu/ops/coo_kernels.py:674"),
     "v_scatter_update": ("wormhole_tpu_torch/csrc/fused_update.cu",
                          "wormhole_tpu/ops/fused_update.py:279"),
+    "level_hist": ("wormhole_tpu_torch/csrc/hist.cu",
+                   "wormhole_tpu/ops/hist.py:79"),
 }
 LINEAR_KERNELS = ("coo_spmv", "coo_spmv_t", "tile_gather", "scatter_update")
 FM_KERNELS = ("tile_gather", "row_tile_gather", "coo_spmv_t",
               "fm_push_contrib", "scatter_update", "v_scatter_update")
+GBDT_KERNELS = ("level_hist",)
 
 
 def log(msg: str) -> None:
@@ -580,10 +603,11 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def profile_steps(lrn, staged, steps: int) -> dict:
-    """torch.profiler over `steps` train steps on staged batches: device
-    time per step, its largest operations, and the device's idle share
-    of the window (the profiler slows the host, so an upper estimate)."""
+def profile_steps(step, steps: int) -> dict:
+    """torch.profiler over `steps` calls of step(i) (one train step on a
+    staged batch, or one boosting round): device time per step, its
+    largest operations, and the device's idle share of the window (the
+    profiler slows the host, so an upper estimate)."""
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -591,7 +615,7 @@ def profile_steps(lrn, staged, steps: int) -> dict:
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
-            lrn.train_batch(staged[i % len(staged)])
+            step(i)
         torch.cuda.synchronize()
         window_ms = (time.perf_counter() - t0) * 1e3
     # device-side events only (kernels and memsets): the CPU ops that
@@ -677,7 +701,9 @@ def run_learners(device, dense_buckets=DENSE_BUCKETS,
                                 f"learner {nbk} buckets kernel={kernel}")
                 rates[f"{kind if kernel == 'pallas' else 'xla'}_{nbk}"] = (
                     MINIBATCH / dt)
-                prof = profile_steps(lrn, staged, 2 * timed)
+                prof = profile_steps(
+                    lambda i: lrn.train_batch(staged[i % len(staged)]),
+                    2 * timed)
                 log(f"[profile] {nbk} buckets kernel={kernel}: "
                     f"{json.dumps(prof)}")
         (lk, pk, ek, yk), (lx, px, ex, yx) = runs["pallas"], runs["xla"]
@@ -751,7 +777,8 @@ def run_difacto(device, num_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
             dt = time_steps(lrn, staged, timed, windows,
                             f"difacto kernel={kernel}")
             rates[f"difacto_{kernel}"] = MINIBATCH / dt
-            prof = profile_steps(lrn, staged, 2 * timed)
+            prof = profile_steps(
+                lambda i: lrn.train_batch(staged[i % len(staged)]), 2 * timed)
             log(f"[profile] difacto kernel={kernel}: {json.dumps(prof)}")
         del lrn, staged
     (pk, ek, yk, tk), (px, ex, yx, tx) = runs["pallas"], runs["xla"]
@@ -864,6 +891,417 @@ def run_difacto_app(device, num_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
     return ll
 
 
+# ---------------------------------------------------------------- gbdt
+def make_higgs(rows=HIGGS_ROWS, eval_rows=HIGGS_EVAL_ROWS, dim=HIGGS_DIM,
+               max_bin=GBDT_BINS):
+    """The bench's HIGGS-shaped data (bench.py bench_gbdt: seed 3, edges
+    from the first 2^17 rows, binned on the host in chunks), plus
+    eval_rows more rows from the same generator. Returns (edges, train
+    bins, train labels, eval bins, eval labels) as numpy arrays."""
+    from wormhole_tpu_torch.data.synth import synth_higgs
+    from wormhole_tpu_torch.models.gbdt import bin_matrix, quantile_edges
+
+    rng = np.random.default_rng(3)
+    X, y = synth_higgs(rng, rows, dim)
+    edges = quantile_edges(X[: 1 << 17], max_bin)
+
+    def bins(X):
+        out = np.empty(X.shape, np.uint8)
+        for lo in range(0, X.shape[0], 1 << 18):
+            out[lo:lo + (1 << 18)] = bin_matrix(X[lo:lo + (1 << 18)], edges)
+        return out
+
+    binned = bins(X)
+    Xe, ye = synth_higgs(rng, eval_rows, dim)
+    return edges, binned, y, bins(Xe), ye
+
+
+def gbdt_learner(device, hist_kernel: str, edges, dim: int,
+                 depth=GBDT_DEPTH, rounds=GBDT_ROUNDS, max_bin=GBDT_BINS):
+    """The bench's GBDT configuration (bench.py bench_gbdt)."""
+    from wormhole_tpu_torch.models.gbdt import GbdtConfig, GbdtLearner
+
+    lrn = GbdtLearner(GbdtConfig(dim=dim, max_depth=depth, num_round=rounds,
+                                 eta=0.3, max_bin=max_bin,
+                                 hist_kernel=hist_kernel), device=device)
+    lrn.edges = edges
+    return lrn
+
+
+def binned_dataset(device, binned, label):
+    import torch
+
+    from wormhole_tpu_torch.models.gbdt import BinnedDataset
+
+    return BinnedDataset(
+        binned=torch.from_numpy(binned).to(device),
+        label=torch.from_numpy(label).to(device),
+        mask=torch.ones(label.shape[0], device=device),
+        num_real=label.shape[0])
+
+
+def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
+                      max_bin=GBDT_BINS) -> dict:
+    """level_hist against its plain version (with f64 accumulators) on
+    the inputs the main path gives it: the (g, h, rel, num_nodes) of every
+    level of a real boosting round (the second round of the learner, so g
+    and h are not constant), once with the quantile bins and once with the same rows in 0/1 bins
+    (every row of a feature in one of two cells, the mushroom data's
+    shape). Returns the kernel's numbers over the levels of a round with
+    quantile bins (times and bound averaged, the largest error), and each
+    level's, of both kinds of bins, under `per_level`."""
+    import torch
+
+    from wormhole_tpu_torch.models import gbdt
+    from wormhole_tpu_torch.ops import hist as hk
+
+    edges, binned_np, y, _, _ = higgs
+    rows, F = binned_np.shape
+    B = max_bin
+    lrn = gbdt_learner(device, "mxu", edges, F, depth=depth, rounds=2,
+                       max_bin=B)
+    ds = binned_dataset(device, binned_np, y)
+    calls = []
+    real = gbdt.level_hist
+
+    def recording(binned, g, h, rel, num_nodes, B):
+        calls.append((g, h, rel, num_nodes))
+        return real(binned, g, h, rel, num_nodes, B)
+
+    gbdt.level_hist = recording
+    try:
+        margin = lrn._base_margins(ds)
+        _, _, margin = lrn._round(ds, margin)
+        calls.clear()
+        lrn._round(ds, margin)
+    finally:
+        gbdt.level_hist = real
+    if [c[3] for c in calls] != [1] + [2 ** d for d in range(depth - 1)]:
+        raise AssertionError(f"levels of a round: {[c[3] for c in calls]}")
+
+    binary = (ds.binned >= B // 2).to(torch.uint8)
+    ones = torch.ones(rows, device=device)
+    levels = []
+    # rtol 1e-5 with quantile bins (a cell sums a few thousand rows). With
+    # 0/1 bins a cell sums up to a million rows, a CTA's share of them
+    # thousands: an f32 accumulator that takes n adds is off by up to
+    # n * 2^-24 of the magnitudes, and g's few distinct values make the
+    # roundings share a sign, so the bar there is rtol 2e-4.
+    for kind, bins, rtol in (("quantile", ds.binned, 1e-5),
+                             ("binary", binary, 2e-4)):
+        for d, (g, h, rel, nodes) in enumerate(calls):
+            n_active = int(((rel >= 0) & (rel < nodes)).sum())
+            tag = f"level_hist {kind} bins level {d} nodes {nodes}"
+            G, H = hk.level_hist(bins, g, h, rel, nodes, B)
+            G2, H2 = hk.level_hist(bins, g, h, rel, nodes, B)
+            same_bits = bool(torch.equal(G, G2) and torch.equal(H, H2))
+            # the plain version with f64 accumulators; float atomics sum
+            # in another order: atol 1e-4 + rtol * the sum of the terms'
+            # magnitudes (h is not negative)
+            Gp, Hp = hk.level_hist_plain(bins, g, h, rel, nodes, B,
+                                         acc_dtype=torch.float64)
+            Gmag, cnt = hk.level_hist_plain(bins, g.abs(), ones, rel, nodes,
+                                            B, acc_dtype=torch.float64)
+            share = max(float(((G - Gp).abs() / Gmag.clamp(min=1)).max()),
+                        float(((H - Hp).abs() / Hp.clamp(min=1)).max()))
+            log(f"[hist-kernel] {tag}: largest error over the sum of its "
+                f"cell's magnitudes {share:.3g}")
+            e = max(compare(f"{tag} G", G, Gp, rtol, 1e-4, Gmag),
+                    compare(f"{tag} H", H, Hp, rtol, 1e-4, Hp))
+            # the plain version as hist_kernel=xla runs it (f32 running
+            # sums, the JAX package's scatter) drifts further
+            G32, H32 = hk.level_hist_plain(bins, g, h, rel, nodes, B)
+            drift = max(float((G32 - Gp).abs().max()),
+                        float((H32 - Hp).abs().max()))
+            del G32, H32
+            if G[cnt == 0].any() or H[cnt == 0].any():
+                raise AssertionError(f"{tag}: a cell no row reaches is not "
+                                     f"exactly 0")
+            # least traffic: rel of every row; g, h and the F bin bytes of
+            # each row in the level; the output once. Two adds per (row,
+            # feature).
+            nb = rows * 4 + n_active * (8 + F) + 2 * nodes * F * B * 4
+            flat = hk.hist_index(bins, rel, nodes, B)
+            gsrc = g[:, None].expand(rows, F).reshape(-1)
+            hsrc = h[:, None].expand(rows, F).reshape(-1)
+            cells = (nodes + 1) * F * B
+
+            def library():
+                torch.zeros(cells, device=device).index_add_(0, flat, gsrc)
+                torch.zeros(cells, device=device).index_add_(0, flat, hsrc)
+
+            lv = dict(
+                bins=kind, level=d, num_nodes=nodes, active_rows=n_active,
+                max_abs_err=e, max_err_over_magnitudes=share,
+                plain_f32_max_abs_err=drift,
+                equal_bits_in_two_launches=same_bits,
+                **dict(zip(("bound_ms", "bound_by"),
+                           bound_ms(nb, 2 * n_active * F))),
+                ms=time_ms(lambda: hk.level_hist(bins, g, h, rel, nodes, B),
+                           device, iters=10),
+                plain_ms=time_ms(lambda: hk.level_hist_plain(
+                    bins, g, h, rel, nodes, B), device, iters=5, warmup=1),
+                library_ms=time_ms(library, device, iters=5, warmup=1))
+            log(f"[hist-kernel] {json.dumps(lv)}")
+            levels.append(lv)
+            del flat, gsrc, hsrc, Gp, Hp, Gmag, cnt
+    q = [lv for lv in levels if lv["bins"] == "quantile"]
+    mean = lambda k: (None if q[0][k] is None  # noqa: E731
+                      else sum(lv[k] for lv in q) / len(q))
+    out = dict(max_abs_err=max(lv["max_abs_err"] for lv in q), ms=mean("ms"),
+               plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
+               bound_ms=mean("bound_ms"), bound_by=q[0]["bound_by"],
+               per_level=levels)
+    log(f"[hist-kernel] level_hist, mean over the {len(q)} levels of a "
+        f"round: " + json.dumps({k: v for k, v in out.items()
+                                 if k != "per_level"}))
+    return out
+
+
+def tree_walk(trees: dict, r: int, binned: np.ndarray) -> np.ndarray:
+    """Leaf value of round r's tree for each row, walked on the host."""
+    sf, sb, isp, lv = (trees[k][r] for k in ("split_feat", "split_bin",
+                                             "is_split", "leaf_value"))
+    node = np.zeros(binned.shape[0], np.int64)
+    for _ in range(int(np.log2(sf.shape[0] + 1))):
+        bv = binned[np.arange(binned.shape[0]), sf[node]]
+        node = np.where(isp[node], 2 * node + 1 + (bv > sb[node]), node)
+    return lv[node]
+
+
+def split_gains(lrn, ds, r: int, t: int, candidates) -> list:
+    """Gain of each (feature, bin) candidate at node t of round r of
+    lrn's model, from the sums over the rows that reach t, in f64."""
+    import torch
+
+    cfg = lrn.cfg
+    margin = torch.from_numpy(lrn.predict_margin(ds, num_round=r)).to(
+        ds.label.device)
+    g, h = lrn._grad_hess(margin, ds.label, ds.mask)
+    path = [t]
+    while path[-1] > 0:
+        path.append((path[-1] - 1) // 2)
+    tree = lrn._tree_tensors(r)
+    here = torch.ones_like(ds.label, dtype=torch.bool)
+    for child, parent in zip(path[:-1], path[1:]):   # root-ward pairs
+        bv = ds.binned[:, int(tree["split_feat"][parent])]
+        right = bv > int(tree["split_bin"][parent])
+        here &= right if child == 2 * parent + 2 else ~right
+    g, h = g[here].double(), h[here].double()
+    Gt, Ht, lam = g.sum(), h.sum(), cfg.reg_lambda
+    out = []
+    for f, b in candidates:
+        left = ds.binned[here, f] <= b
+        GL, HL = g[left].sum(), h[left].sum()
+        GR, HR = Gt - GL, Ht - HL
+        out.append(float(0.5 * (GL * GL / (HL + lam) + GR * GR / (HR + lam)
+                                - Gt * Gt / (Ht + lam)) - cfg.gamma))
+    return out
+
+
+def leaf_reference(lrn, ds, r: int):
+    """Round r's leaf values recomputed from the rows that end in each
+    node under lrn's own tree, with f64 sums: (values, reached), both
+    over the heap's nodes."""
+    import torch
+
+    cfg = lrn.cfg
+    margin = torch.from_numpy(lrn.predict_margin(ds, num_round=r)).to(
+        ds.label.device)
+    g, h = lrn._grad_hess(margin, ds.label, ds.mask)
+    tree = lrn._tree_tensors(r)
+    node = lrn._route(ds, tree).long()
+    T = tree["leaf_value"].shape[0]
+    G, H = (torch.zeros(T, dtype=torch.float64, device=node.device
+                        ).index_add_(0, node, x.double()) for x in (g, h))
+    reached = torch.bincount(node, minlength=T) > 0
+    want = -G / (H + cfg.reg_lambda) * cfg.eta
+    return want.cpu().numpy(), reached.cpu().numpy()
+
+
+def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
+             timed=GBDT_TIMED_ROUNDS, windows=TIMED_WINDOWS,
+             max_bin=GBDT_BINS) -> dict:
+    """GbdtLearner on the card through fit_prepared with an eval set and
+    the training set, hist_kernel=mxu (the level_hist kernel) against
+    hist_kernel=xla (the plain scatter) on the same data: trees node by
+    node, last-round metrics, predict_margin. A split may differ only at
+    a near tie (gains within 1e-4 relative, taken in f64 from the rows of
+    the node); the rounds after one are then not comparable. Then the
+    time per round and a profiler pass, for each path. Returns rounds per
+    second."""
+    import torch
+
+    edges, binned_np, y, ebinned_np, ye = higgs
+    rows, F = binned_np.shape
+    train = binned_dataset(device, binned_np, y)
+    held = binned_dataset(device, ebinned_np, ye)
+    runs, rates = {}, {}
+    for hk in ("mxu", "xla"):
+        lrn = gbdt_learner(device, hk, edges, F, depth, rounds, max_bin)
+        t0 = time.perf_counter()
+        last = lrn.fit_prepared(train, [("test", held), ("train", train)])
+        sync(device)
+        fit_s = time.perf_counter() - t0
+        pred = lrn.predict_margin(held)
+        log(f"[gbdt] hist_kernel={hk}: {rounds} rounds with 2 eval sets in "
+            f"{fit_s:.3f} s, last {json.dumps(last)}")
+        runs[hk] = (lrn, last, pred)
+        if device.type == "cuda":
+            margin = lrn._base_margins(train)
+            state = [margin]
+
+            def one_round(_i, lrn=lrn, state=state):
+                state[0] = lrn._round(train, state[0])[2]
+
+            one_round(0)
+            sync(device)
+            per = []
+            for _ in range(windows):
+                t0 = time.perf_counter()
+                for i in range(timed):
+                    one_round(i)
+                sync(device)
+                per.append((time.perf_counter() - t0) / timed)
+            dt = statistics.median(per)
+            log(f"[gbdt hist_kernel={hk}] {1e3 * dt:.3f} ms/round median of "
+                f"{windows} windows of {timed} rounds (range "
+                f"{1e3 * min(per):.3f}-{1e3 * max(per):.3f}), "
+                f"{1 / dt:.2f} rounds/sec, {rows / dt:.0f} rows/sec "
+                f"({rows} rows, depth {depth})")
+            rates[f"gbdt_{hk}_rounds_per_sec"] = 1 / dt
+            prof = profile_steps(one_round, 2 * timed)
+            log(f"[profile] gbdt hist_kernel={hk}: {json.dumps(prof)}")
+    (lk, mk, pk), (lx, mx, px) = runs["mxu"], runs["xla"]
+
+    # small-input reference: margins of 128 held rows from a host walk of
+    # the kernel path's trees
+    want = np.full(128, lk._base_margin(), np.float32)
+    for r in range(rounds):
+        want += tree_walk(lk.trees, r, ebinned_np[:128])
+    np.testing.assert_allclose(pk[:128], want, rtol=1e-5, atol=1e-5)
+    if not (np.isfinite(pk).all() and pk.shape == (ye.shape[0],)):
+        raise AssertionError("gbdt predictions not finite / wrong shape")
+
+    differing, tie_round = 0, None
+    for r in range(rounds):
+        for t in np.nonzero(lk.trees["is_split"][r]
+                            | lx.trees["is_split"][r])[0]:
+            a = tuple(int(lk.trees[k][r][t])
+                      for k in ("is_split", "split_feat", "split_bin"))
+            b = tuple(int(lx.trees[k][r][t])
+                      for k in ("is_split", "split_feat", "split_bin"))
+            if a == b:
+                continue
+            differing += 1
+            ga, gb = split_gains(lx, train, r, int(t), [a[1:], b[1:]])
+            log(f"[gbdt] round {r} node {t}: kernel path (split, feature, "
+                f"bin) {a}, xla path {b}; gains in the xla path's node "
+                f"{ga!r} vs {gb!r}")
+            if a[0] != b[0] or abs(ga - gb) > 1e-4 * max(abs(ga), abs(gb)):
+                raise AssertionError(
+                    f"round {r} node {t}: the paths split differently and "
+                    f"not at a near tie")
+            tie_round = r
+            break
+        if tie_round is not None:
+            break
+    log(f"[gbdt] splits that differ between the kernel path and "
+        f"hist_kernel=xla: {differing}"
+        + ("" if tie_round is None else
+           f" (a near tie in round {tie_round}; later rounds not compared)"))
+    same_rounds = rounds if tie_round is None else tie_round
+    leaf_diff = float(np.abs(lk.trees["leaf_value"][:same_rounds]
+                             - lx.trees["leaf_value"][:same_rounds]).max()
+                      ) if same_rounds else 0.0
+    # the xla path's f32 running sums drift by up to 3e-5 of a cell
+    # (plain_f32_max_abs_err above), and its leaves and margins with them
+    if leaf_diff > 5e-4:
+        raise AssertionError(f"leaf values differ by {leaf_diff}")
+    # each path's leaves against f64 sums over the rows of its own leaves
+    off = {}
+    for hk, (lrn, _, _) in runs.items():
+        off[hk] = 0.0
+        for r in range(rounds):
+            want, reached = leaf_reference(lrn, train, r)
+            off[hk] = max(off[hk], float(np.abs(
+                lrn.trees["leaf_value"][r] - want)[reached].max()))
+    log(f"[gbdt] leaf_value max abs distance from f64 sums over each "
+        f"leaf's rows: kernel path {off['mxu']:.3g}, hist_kernel=xla "
+        f"{off['xla']:.3g}")
+    if off["mxu"] > LEAF_ATOL:
+        raise AssertionError(f"kernel path's leaf values are {off['mxu']} "
+                             f"from the f64 sums")
+    # metrics: within 1e-4 when the trees agree, 1e-3 after a near tie
+    bar = 1e-4 if tie_round is None else 1e-3
+    for name in mk:
+        for k in mk[name]:
+            if abs(mk[name][k] - mx[name][k]) > bar:
+                raise AssertionError(
+                    f"gbdt {name}-{k}: {mk[name][k]} vs xla {mx[name][k]}")
+    if tie_round is None:
+        np.testing.assert_allclose(pk, px, rtol=1e-4, atol=5e-4)
+    log(f"[gbdt] kernel path matches hist_kernel=xla: leaf_value max abs "
+        f"diff {leaf_diff:.3g} over {same_rounds} rounds, predictions max "
+        f"abs diff {float(np.abs(pk - px).max()):.3g}, metrics within {bar}")
+    return rates
+
+
+def write_higgs_libsvm(path: str, rows: int, dim: int, seed: int) -> None:
+    from wormhole_tpu_torch.data.synth import synth_higgs
+
+    X, y = synth_higgs(np.random.default_rng(seed), rows, dim)
+    cols = [np.char.add(f"{f}:", np.char.mod("%.5f", X[:, f]))
+            for f in range(dim)]
+    lines = [f"{int(t)} " + " ".join(c) for t, c in zip(y, zip(*cols))]
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
+                 depth=GBDT_DEPTH, max_bin=GBDT_BINS, rounds=3) -> float:
+    """The gbdt app in-process on synthetic HIGGS-shaped libsvm files:
+    task=train with eval data and model_out, then task=pred from that
+    model. Checks one probability per eval row; returns their logloss."""
+    from wormhole_tpu_torch.apps import gbdt as app
+
+    train_rows, eval_rows = rows
+    with tempfile.TemporaryDirectory() as tmp:
+        tr, va = (os.path.join(tmp, "train.libsvm"),
+                  os.path.join(tmp, "eval.libsvm"))
+        write_higgs_libsvm(tr, train_rows, dim, seed=21)
+        write_higgs_libsvm(va, eval_rows, dim, seed=22)
+        model, pred = os.path.join(tmp, "model"), os.path.join(tmp, "pred")
+        t0 = time.perf_counter()
+        rc = app.main([f"train_data={tr}", f"eval_data={va}",
+                       f"model_out={model}", f"max_depth={depth}",
+                       f"max_bin={max_bin}", f"num_round={rounds}",
+                       "hist_kernel=mxu", f"device={device}"])
+        train_s = time.perf_counter() - t0
+        if rc != 0 or not os.path.exists(model + ".npz"):
+            raise AssertionError(f"gbdt app task=train returned {rc}")
+        rc = app.main(["task=pred", f"model_in={model}", f"test_data={va}",
+                       f"pred_out={pred}", f"device={device}"])
+        if rc != 0:
+            raise AssertionError(f"gbdt app task=pred returned {rc}")
+        p = np.loadtxt(pred, dtype=np.float64, ndmin=1)
+        labels = np.array([float(l.split(" ", 1)[0])
+                           for l in open(va).read().splitlines()])
+    if p.shape != (eval_rows,) or not ((p > 0) & (p < 1)).all():
+        raise AssertionError(f"gbdt app predictions: shape {p.shape}, "
+                             f"range {p.min()}..{p.max()}")
+    ll = float(-np.mean(labels * np.log(p) + (1 - labels) * np.log1p(-p)))
+    # the labels follow the first four features: three rounds must beat
+    # the constant prediction's log 2
+    if not ll < 0.6:
+        raise AssertionError(f"gbdt app: eval logloss {ll}")
+    log(f"[gbdt-app] {train_rows} train rows and {eval_rows} eval rows of "
+        f"{dim} features through the libsvm parser, {rounds} rounds at "
+        f"depth {depth}, {max_bin} bins: task=train {train_s:.1f} s, "
+        f"{eval_rows} predictions, eval logloss from predictions {ll:.6f}")
+    return ll
+
+
 # ---------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -902,12 +1340,20 @@ def main() -> int:
                         fm_nums["scatter_update"]["max_abs_err"]))
     knums.update(fm_nums)
     log(f"[phase] kernels {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    higgs = make_higgs()
+    log(f"[phase] HIGGS-shaped data {higgs[1].shape} + {higgs[3].shape} "
+        f"on the host {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    knums["level_hist"] = check_hist_kernel(device, higgs)
+    log(f"[phase] level_hist kernel {time.perf_counter() - t:.1f}s")
 
     # each main path is driven with the counts set to 0 just before it
     # and read just after
     launches = dict.fromkeys(KERNELS, 0)
     paths = {"linear": (run_learners, LINEAR_KERNELS),
-             "difacto": (run_difacto, FM_KERNELS)}
+             "difacto": (run_difacto, FM_KERNELS),
+             "gbdt": (lambda dev: run_gbdt(dev, higgs), GBDT_KERNELS)}
     for name, (run, path_kernels) in paths.items():
         t = time.perf_counter()
         _cuda.reset_launches()
@@ -920,14 +1366,15 @@ def main() -> int:
                                  f"path: {missing}")
         for k in KERNELS:
             launches[k] += counts[k]
-        log(f"[{name}] examples/sec on {smi}: "
-            f"{json.dumps({k: round(v) for k, v in rates.items()})}")
+        log(f"[{name}] rates on {smi}: "
+            f"{json.dumps({k: round(v, 2) for k, v in rates.items()})}")
         log(f"[phase] {name} learner {time.perf_counter() - t:.1f}s")
 
     for name, run, want in (
             ("app", run_app, ("tile_gather", "coo_spmv_t",
                               "scatter_update")),
-            ("difacto-app", run_difacto_app, FM_KERNELS)):
+            ("difacto-app", run_difacto_app, FM_KERNELS),
+            ("gbdt-app", run_gbdt_app, GBDT_KERNELS)):
         t = time.perf_counter()
         _cuda.reset_launches()
         run(device)
@@ -947,6 +1394,8 @@ def main() -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
+        if "per_level" in k:
+            rows[-1]["per_level"] = k["per_level"]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,7 +9,9 @@ Tolerances: the pull and push sum in another order (float atomics), and
 the FM push in another order (a fixed tree), so they hold to atol 1e-4 +
 rtol 1e-5 * (sum of the terms' magnitudes); the gathers are exact; the
 updates hold to rtol 1e-5 / atol 1e-6 (the plain version divides by a
-scalar as a multiply by its reciprocal on CUDA).
+scalar as a multiply by its reciprocal on CUDA); level_hist sums with
+float atomics too and holds to the same bar as the pull and push, with
+every cell that no row reaches exactly 0.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ import torch
 from wormhole_tpu_torch.ops import _cuda
 from wormhole_tpu_torch.ops import coo_kernels as ck
 from wormhole_tpu_torch.ops import fused_update as fu
+from wormhole_tpu_torch.ops import hist as hk
 
 DTYPES = [torch.float32, torch.bfloat16]
 HYPER = dict(lr_eta=0.5, lr_beta=1.0, lambda_l1=0.3, lambda_l2=0.1)
@@ -210,3 +213,88 @@ def test_scatter_update_additive_table(cuda, dtype):
         torch.testing.assert_close(sk[k], sp[k], rtol=1e-5, atol=1e-6)
     assert torch.equal(sk["cnt"], sp["cnt"])  # integer counts: exact
     assert int(nw_k) == int(nw_p)
+
+
+def _hist_inputs(cuda, rows, F, B, nodes, seed, binary=False, inactive=0.3):
+    rng = np.random.default_rng(seed)
+    binned = rng.integers(0, 2 if binary else B, (rows, F)).astype(np.uint8)
+    rel = rng.integers(0, nodes, rows).astype(np.int32)
+    rel[rng.random(rows) < inactive] = nodes
+    return (torch.from_numpy(binned).to(cuda),
+            torch.from_numpy(rng.standard_normal(rows).astype(np.float32)
+                             ).to(cuda),
+            torch.from_numpy(rng.random(rows).astype(np.float32)).to(cuda),
+            torch.from_numpy(rel).to(cuda))
+
+
+# rows, F, B, nodes: one row; ragged rows; several rows to a warp pass
+# (F <= 16); the HIGGS width over node tiles; features over 32 lanes and
+# over feature tiles; 0/1 bins at the mushroom width
+HIST_SHAPES = [(1, 1, 16, 1), (600, 5, 16, 4), (5000, 1, 256, 4),
+               (5000, 16, 32, 3), (70001, 28, 256, 1), (70001, 28, 256, 16),
+               (20000, 40, 64, 2), (20000, 126, 256, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("binary", [False, True], ids=["bins", "binary"])
+@pytest.mark.parametrize("rows,F,B,nodes", HIST_SHAPES)
+def test_level_hist_matches_plain(cuda, rows, F, B, nodes, binary):
+    binned, g, h, rel = _hist_inputs(cuda, rows, F, B, nodes,
+                                     seed=rows + F + nodes, binary=binary)
+    n0 = _cuda.LAUNCHES["level_hist"]
+    G, H = hk.level_hist(binned, g, h, rel, nodes, B)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["level_hist"] == n0 + 1
+    assert G.shape == H.shape == (nodes, F, B)
+    Gp, Hp = hk.level_hist_plain(binned, g, h, rel, nodes, B,
+                                 acc_dtype=torch.float64)
+    Gmag, cnt = hk.level_hist_plain(binned, g.abs(), torch.ones_like(h), rel,
+                                    nodes, B, acc_dtype=torch.float64)
+    _sum_close(G, Gp, Gmag)
+    _sum_close(H, Hp, Hp)
+    assert not G[cnt == 0].any() and not H[cnt == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["all_inactive", "empty_node", "wild_rel",
+                                  "bad_bin"])
+def test_level_hist_edges(cuda, case):
+    rows, F, B, nodes = 5000, 28, 64, 4
+    binned, g, h, rel = _hist_inputs(cuda, rows, F, B, nodes, seed=9)
+    if case == "all_inactive":
+        rel[:] = nodes
+    elif case == "empty_node":
+        rel[rel == 2] = nodes
+    elif case == "wild_rel":   # any rel outside [0, nodes) drops out
+        out = rel == nodes
+        rel[out] = torch.where(torch.arange(int(out.sum()), device=cuda) % 2
+                               == 0, -3, nodes + 5).to(torch.int32)
+    else:                      # a bin id >= B adds nothing
+        binned[::7, 3] = B + 1
+    G, H = hk.level_hist(binned, g, h, rel, nodes, B)
+    keep = binned < B
+    Gp, Hp = hk.level_hist_plain(torch.where(keep, binned, 0), g, h, rel,
+                                 nodes, B)
+    if case == "bad_bin":      # the plain version has no such guard
+        drop = ~keep[:, 3] & (rel >= 0) & (rel < nodes)
+        Gp[:, 3, 0].index_add_(0, rel[drop].long(), -g[drop])
+        Hp[:, 3, 0].index_add_(0, rel[drop].long(), -h[drop])
+    torch.testing.assert_close(G, Gp, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(H, Hp, rtol=1e-4, atol=1e-4)
+    if case == "all_inactive":
+        assert not G.any() and not H.any()
+    if case == "empty_node":
+        assert not G[2].any() and not H[2].any()
+
+
+@pytest.mark.cuda
+def test_level_hist_rejects_wrong_types_on_cuda(cuda):
+    binned, g, h, rel = _hist_inputs(cuda, 64, 3, 16, 2, seed=1)
+    with pytest.raises(ValueError, match="binned"):
+        hk.level_hist(binned.int(), g, h, rel, 2, 16)
+    with pytest.raises(ValueError, match="rel"):
+        hk.level_hist(binned, g, h, rel.long(), 2, 16)
+    with pytest.raises(ValueError):
+        hk.level_hist(binned, g, h, rel.cpu(), 2, 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        hk.level_hist(binned.t().contiguous().t(), g, h, rel, 2, 16)

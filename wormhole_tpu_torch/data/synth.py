@@ -1,4 +1,5 @@
-"""Synthetic Criteo-shaped minibatches (the repo bench's workload).
+"""Synthetic workloads of the repo bench: Criteo-shaped minibatches, and
+HIGGS-shaped dense rows for the GBDT learner (synth_higgs, below).
 
 Rows carry 39 features (13 integer + 26 categorical, criteo_parser.h:
 55-82) drawn Zipf(1.2) within each field over per-field cardinalities
@@ -42,3 +43,13 @@ def synth_criteo_batch(rng, minibatch: int, num_buckets: int):
     label = (rng.random(minibatch) < 0.3).astype(np.float32)
     mask = np.ones(minibatch, dtype=np.float32)
     return seg, idx, val, label, mask
+
+
+def synth_higgs(rng, rows: int, dim: int = 28):
+    """(X, y): `rows` dense rows of `dim` standard-normal f32 features and
+    0/1 f32 labels that depend on the first four features plus noise, the
+    HIGGS-shaped data of the repo bench (bench.py bench_gbdt). The same
+    generator state gives the same arrays as the bench's recipe."""
+    X = rng.standard_normal((rows, dim)).astype(np.float32)
+    y = X[:, :4].sum(axis=1) + 0.5 * rng.standard_normal(rows) > 0
+    return X, y.astype(np.float32)

@@ -9,6 +9,13 @@ dict against the port's tables for the config and put it on a device, so
 both packages can run from the same weights. The two packages draw V's
 random init from different generators, so this is how a comparison
 starts them equal.
+
+The GBDT model is host state: the arrays of the JAX learner's model file
+(``edges``, ``dim``, ``max_depth``, ``num_round``, ``objective``,
+``base_score`` and the four stacked tree arrays). ``gbdt_state_from_numpy``
+checks them and ``load_gbdt_state`` puts them into a port GbdtLearner,
+whose own ``save`` writes the same keys: each package loads the other's
+file.
 """
 
 from __future__ import annotations
@@ -76,3 +83,54 @@ def load_difacto_state(learner, arrays: dict) -> None:
     for name, t in state.items():
         learner.ckpt_store.state[name].copy_(t)
     learner.refresh_count_mirror()
+
+
+_GBDT_TREE_DTYPES = {"split_feat": np.int32, "split_bin": np.int32,
+                     "is_split": np.bool_, "leaf_value": np.float32}
+_GBDT_SCALARS = ("dim", "max_depth", "num_round", "objective", "base_score")
+
+
+def gbdt_state_from_numpy(arrays: dict) -> dict:
+    """The GBDT model held by a JAX model file's arrays, checked: scalars
+    `dim`, `max_depth`, `num_round`, `base_score`, the `objective` string,
+    `edges` as (dim, max_bin - 1) f32 and `trees`, the four arrays of
+    shape (num_round, 2^(max_depth + 1) - 1). Raises unless the names are
+    exactly the model file's and every shape and type fits."""
+    want = {"edges", *_GBDT_SCALARS, *_GBDT_TREE_DTYPES}
+    if set(arrays) != want:
+        raise ValueError(f"arrays {sorted(arrays)} do not match a GBDT "
+                         f"model's {sorted(want)}")
+    dim, depth, rounds = (int(arrays[k]) for k in
+                          ("dim", "max_depth", "num_round"))
+    edges = np.asarray(arrays["edges"])
+    if edges.ndim != 2 or edges.shape[0] != dim or edges.dtype != np.float32 \
+            or not 1 <= edges.shape[1] <= 255:
+        raise ValueError(f"edges: {edges.dtype} {edges.shape}, expected "
+                         f"float32 ({dim}, max_bin - 1) with max_bin <= 256")
+    trees = {}
+    shape = (rounds, 2 ** (depth + 1) - 1)
+    for name, dtype in _GBDT_TREE_DTYPES.items():
+        a = np.asarray(arrays[name])
+        if a.shape != shape or a.dtype != dtype:
+            raise ValueError(f"tree array {name}: {a.dtype} {a.shape}, "
+                             f"expected {np.dtype(dtype)} {shape}")
+        trees[name] = np.array(a)
+    if trees["split_feat"].size and not (
+            0 <= trees["split_feat"].min()
+            and trees["split_feat"].max() < dim):
+        raise ValueError("split_feat names a feature outside [0, dim)")
+    return {"edges": np.array(edges), "dim": dim, "max_depth": depth,
+            "num_round": rounds,
+            "objective": bytes(arrays["objective"]).decode(),
+            "base_score": float(arrays["base_score"]), "trees": trees}
+
+
+def load_gbdt_state(learner, arrays: dict) -> None:
+    """Put a GBDT model file's arrays (the JAX learner's or the port's)
+    into a port GbdtLearner after the same checks: its bin edges, its
+    trees, and the config fields the model fixes."""
+    st = gbdt_state_from_numpy(arrays)
+    learner.edges = st["edges"]
+    for k in _GBDT_SCALARS:
+        setattr(learner.cfg, k, st[k])
+    learner.trees = st["trees"]

@@ -30,13 +30,13 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wormhole_tpu_torch"
-SOURCES = ("coo_kernels", "fused_update")
+SOURCES = ("coo_kernels", "fused_update", "hist")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"coo_spmv": 0, "coo_spmv_t": 0, "tile_gather": 0,
             "scatter_update": 0, "row_tile_gather": 0,
-            "fm_push_contrib": 0, "v_scatter_update": 0}
+            "fm_push_contrib": 0, "v_scatter_update": 0, "level_hist": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -55,9 +55,13 @@ _SIGNATURES = {
         "wh_v_scatter_update": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                                 _F, _F, _F, _P],
     },
+    "hist": {
+        "wh_level_hist": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    },
 }
 _ERROR_STRING = {"coo_kernels": "wh_coo_error_string",
-                 "fused_update": "wh_fused_error_string"}
+                 "fused_update": "wh_fused_error_string",
+                 "hist": "wh_hist_error_string"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -145,7 +149,8 @@ def ptr(t) -> int | None:
 
 def require(what: str, device: torch.device, **tensors) -> None:
     """Check what a kernel takes: every tensor contiguous, on the same
-    CUDA device, int32 or float32 as its name's role says."""
+    CUDA device, and of the type its name's role says (int32 for index
+    arguments, uint8 for bin ids, float32 otherwise)."""
     for name, t in tensors.items():
         if t is None:
             continue
@@ -154,9 +159,11 @@ def require(what: str, device: torch.device, **tensors) -> None:
                              f"expected {device}")
         if not t.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
-        want = torch.int32 if name in _INT_ARGS else torch.float32
+        want = _ARG_DTYPES.get(name, torch.float32)
         if t.dtype != want:
             raise ValueError(f"{what}: {name} is {t.dtype}, expected {want}")
 
 
-_INT_ARGS = {"sidx", "sseg", "uniq", "idx", "seg"}
+_ARG_DTYPES = {**dict.fromkeys(("sidx", "sseg", "uniq", "idx", "seg", "rel"),
+                               torch.int32),
+               "binned": torch.uint8}
