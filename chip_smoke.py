@@ -18,7 +18,9 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    (CUDA events); the DiFacto half runs on a full-width batch packed by
    the learner's own pack; level_hist runs on the inputs a real round
    gives it at each of its six levels, with quantile bins and with the
-   same rows in 0/1 bins;
+   same rows in 0/1 bins, and its partition of the rows by node is held
+   against a stable sort there; the hist library's ptxas figures and
+   whether its shared f32 atomic is a native add are printed;
 2. runs LinearLearner on the card at 2^22 buckets (dense tables, kernels
    coo_spmv + coo_spmv_t) and 2^26 buckets (compacted path, tile_gather +
    coo_spmv_t + scatter_update): train steps, eval, predict, each against
@@ -96,13 +98,15 @@ KERNELS = {
                         "wormhole_tpu/ops/coo_kernels.py:674"),
     "v_scatter_update": ("wormhole_tpu_torch/csrc/fused_update.cu",
                          "wormhole_tpu/ops/fused_update.py:279"),
+    "level_partition": ("wormhole_tpu_torch/csrc/hist.cu",
+                        "wormhole_tpu/ops/hist.py:79"),
     "level_hist": ("wormhole_tpu_torch/csrc/hist.cu",
                    "wormhole_tpu/ops/hist.py:79"),
 }
 LINEAR_KERNELS = ("coo_spmv", "coo_spmv_t", "tile_gather", "scatter_update")
 FM_KERNELS = ("tile_gather", "row_tile_gather", "coo_spmv_t",
               "fm_push_contrib", "scatter_update", "v_scatter_update")
-GBDT_KERNELS = ("level_hist",)
+GBDT_KERNELS = ("level_partition", "level_hist")
 
 
 def log(msg: str) -> None:
@@ -949,7 +953,10 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
     (every row of a feature in one of two cells, the mushroom data's
     shape). Returns the kernel's numbers over the levels of a round with
     quantile bins (times and bound averaged, the largest error), and each
-    level's, of both kinds of bins, under `per_level`."""
+    level's, of both kinds of bins, under `per_level`; and the same for
+    level_partition (the rows grouped by node, which level_hist launches
+    first), held exactly against a stable sort at each level. Returns
+    {"level_hist": ..., "level_partition": ...}."""
     import torch
 
     from wormhole_tpu_torch.models import gbdt
@@ -981,7 +988,7 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
 
     binary = (ds.binned >= B // 2).to(torch.uint8)
     ones = torch.ones(rows, device=device)
-    levels = []
+    levels, parts = [], []
     # rtol 1e-5 with quantile bins (a cell sums a few thousand rows). With
     # 0/1 bins a cell sums up to a million rows, a CTA's share of them
     # thousands: an f32 accumulator that takes n adds is off by up to
@@ -991,6 +998,8 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
                              ("binary", binary, 2e-4)):
         for d, (g, h, rel, nodes) in enumerate(calls):
             n_active = int(((rel >= 0) & (rel < nodes)).sum())
+            if kind == "quantile":
+                parts.append(check_partition(rel, nodes, n_active, d, device))
             tag = f"level_hist {kind} bins level {d} nodes {nodes}"
             G, H = hk.level_hist(bins, g, h, rel, nodes, B)
             G2, H2 = hk.level_hist(bins, g, h, rel, nodes, B)
@@ -1046,16 +1055,107 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
             levels.append(lv)
             del flat, gsrc, hsrc, Gp, Hp, Gmag, cnt
     q = [lv for lv in levels if lv["bins"] == "quantile"]
-    mean = lambda k: (None if q[0][k] is None  # noqa: E731
-                      else sum(lv[k] for lv in q) / len(q))
-    out = dict(max_abs_err=max(lv["max_abs_err"] for lv in q), ms=mean("ms"),
-               plain_ms=mean("plain_ms"), library_ms=mean("library_ms"),
-               bound_ms=mean("bound_ms"), bound_by=q[0]["bound_by"],
-               per_level=levels)
-    log(f"[hist-kernel] level_hist, mean over the {len(q)} levels of a "
-        f"round: " + json.dumps({k: v for k, v in out.items()
-                                 if k != "per_level"}))
+    out = {"level_hist": mean_over_levels(q), "level_partition":
+           mean_over_levels(parts)}
+    out["level_hist"]["per_level"] = levels
+    for name, k in out.items():
+        log(f"[hist-kernel] {name}, mean over the {len(q)} levels of a "
+            f"round: " + json.dumps({a: v for a, v in k.items()
+                                     if a != "per_level"}))
     return out
+
+
+def mean_over_levels(levels: list) -> dict:
+    """A kernel's row of the kernels line from its per-level numbers:
+    times and bound averaged, the largest error."""
+    mean = lambda k: (None if levels[0][k] is None  # noqa: E731
+                      else sum(lv[k] for lv in levels) / len(levels))
+    return dict(max_abs_err=max(lv["max_abs_err"] for lv in levels),
+                ms=mean("ms"), plain_ms=mean("plain_ms"),
+                library_ms=mean("library_ms"), bound_ms=mean("bound_ms"),
+                bound_by=levels[0]["bound_by"], per_level=levels)
+
+
+def check_partition(rel, nodes: int, n_active: int, level: int,
+                    device) -> dict:
+    """level_partition against its plain version: node_start and the
+    first node_start[-1] entries of order equal, exactly. Its library call
+    is one stable torch.sort of rel (all rows by node, those outside the
+    level included); its bound reads rel once and writes order and
+    node_start once."""
+    import torch
+
+    from wormhole_tpu_torch.ops import hist as hk
+
+    order, start = hk.level_partition(rel, nodes)
+    want_order, want_start = hk.level_partition_plain(rel, nodes)
+    if not (torch.equal(start, want_start)
+            and torch.equal(order[:n_active], want_order)):
+        raise AssertionError(f"level_partition level {level} nodes {nodes}: "
+                             f"differs from the stable sort")
+    nb = 4 * (rel.shape[0] + n_active + nodes + 1)
+    lv = dict(level=level, num_nodes=nodes, active_rows=n_active,
+              max_abs_err=0.0,
+              **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, 0))),
+              ms=time_ms(lambda: hk.level_partition(rel, nodes), device,
+                         iters=10),
+              plain_ms=time_ms(lambda: hk.level_partition_plain(rel, nodes),
+                               device, iters=5, warmup=1),
+              library_ms=time_ms(lambda: torch.sort(rel, stable=True),
+                                 device, iters=5, warmup=1))
+    log(f"[hist-kernel] level_partition {json.dumps(lv)}")
+    return lv
+
+
+def start_hist_report():
+    """nvcc of csrc/hist.cu to a cubin with ptxas's report, started beside
+    the kernels' own build."""
+    from wormhole_tpu_torch.ops import _cuda
+
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cubin = _cuda.BUILD_DIR / "hist-report.cubin"
+    flags = [f for f in _cuda.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    cmd = [_cuda._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+           str(cubin), str(_cuda.CSRC / "hist.cu")]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), cubin
+
+
+def finish_hist_report(proc, cubin) -> None:
+    """Prints ptxas's registers, shared memory and spills for each kernel
+    of csrc/hist.cu, and which SASS the shared-memory f32 atomicAdd of
+    level_hist_kernel became: a native ATOMS add, or a compare-and-swap
+    loop (ATOMS.CAS or ATOMS.CAST.SPIN)."""
+    import re
+    import shutil
+
+    text, _ = proc.communicate()
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc -cubin of hist.cu failed:\n{text}")
+    name = None
+    for line in text.splitlines():
+        m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)E", line)
+        if m:
+            name = m.group(1)
+        elif name and ("Used" in line or "spill" in line):
+            log(f"[hist-ptxas] {name}: {line.split(':', 1)[-1].strip()}")
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        log("[hist-sass] cuobjdump not found: the shared f32 atomic's SASS "
+            "was not read")
+        return
+    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
+    funcs = re.split(r"\n\s*Function : ", sass)
+    body = next(f for f in funcs if re.match(r"\S*level_hist_kernel", f))
+    ops = {}
+    for m in re.finditer(r"\b(ATOMS(?:\.[A-Z0-9_]+)*)", body):
+        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    cas = any(".CAS" in k for k in ops)
+    log(f"[hist-sass] level_hist_kernel shared-memory atomics {ops}: the "
+        f"f32 atomicAdd is " + ("a compare-and-swap loop, not a native add"
+                                if cas else "a native ATOMS add"))
 
 
 def tree_walk(trees: dict, r: int, binned: np.ndarray) -> np.ndarray:
@@ -1325,9 +1425,11 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
+    report = start_hist_report()
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
+    finish_hist_report(*report)
 
     t = time.perf_counter()
     knums = check_kernels(device)
@@ -1345,7 +1447,7 @@ def main() -> int:
     log(f"[phase] HIGGS-shaped data {higgs[1].shape} + {higgs[3].shape} "
         f"on the host {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    knums["level_hist"] = check_hist_kernel(device, higgs)
+    knums.update(check_hist_kernel(device, higgs))
     log(f"[phase] level_hist kernel {time.perf_counter() - t:.1f}s")
 
     # each main path is driven with the counts set to 0 just before it

@@ -215,11 +215,15 @@ def test_scatter_update_additive_table(cuda, dtype):
     assert int(nw_k) == int(nw_p)
 
 
-def _hist_inputs(cuda, rows, F, B, nodes, seed, binary=False, inactive=0.3):
+def _hist_inputs(cuda, rows, F, B, nodes, seed, binary=False, inactive=0.3,
+                 layout="uniform"):
     rng = np.random.default_rng(seed)
     binned = rng.integers(0, 2 if binary else B, (rows, F)).astype(np.uint8)
     rel = rng.integers(0, nodes, rows).astype(np.int32)
     rel[rng.random(rows) < inactive] = nodes
+    if layout == "skewed":     # node 0 holds 99% of the rows in the level
+        rel[rel < nodes] = np.where(rng.random(int((rel < nodes).sum()))
+                                    < 0.99, 0, rel[rel < nodes])
     return (torch.from_numpy(binned).to(cuda),
             torch.from_numpy(rng.standard_normal(rows).astype(np.float32)
                              ).to(cuda),
@@ -227,24 +231,31 @@ def _hist_inputs(cuda, rows, F, B, nodes, seed, binary=False, inactive=0.3):
             torch.from_numpy(rel).to(cuda))
 
 
-# rows, F, B, nodes: one row; ragged rows; several rows to a warp pass
-# (F <= 16); the HIGGS width over node tiles; features over 32 lanes and
-# over feature tiles; 0/1 bins at the mushroom width
-HIST_SHAPES = [(1, 1, 16, 1), (600, 5, 16, 4), (5000, 1, 256, 4),
-               (5000, 16, 32, 3), (70001, 28, 256, 1), (70001, 28, 256, 16),
-               (20000, 40, 64, 2), (20000, 126, 256, 2)]
+# rows, F, B, nodes, layout: one row; ragged rows; several rows to a warp
+# pass (F <= 16); the HIGGS width over 1 and 16 nodes; features over 32
+# lanes and over feature tiles; bins not a multiple of 4 (scalar merge);
+# one node with 99% of the rows beside tiny or empty ones; 256 nodes
+HIST_SHAPES = [(1, 1, 16, 1, "uniform"), (600, 5, 16, 4, "uniform"),
+               (5000, 1, 256, 4, "uniform"), (5000, 16, 32, 3, "uniform"),
+               (70001, 28, 256, 1, "uniform"),
+               (70001, 28, 256, 16, "uniform"),
+               (20000, 40, 64, 2, "uniform"), (20000, 126, 256, 2, "uniform"),
+               (3000, 7, 10, 3, "uniform"), (200003, 28, 256, 16, "skewed"),
+               (70001, 28, 256, 256, "uniform")]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("binary", [False, True], ids=["bins", "binary"])
-@pytest.mark.parametrize("rows,F,B,nodes", HIST_SHAPES)
-def test_level_hist_matches_plain(cuda, rows, F, B, nodes, binary):
+@pytest.mark.parametrize("rows,F,B,nodes,layout", HIST_SHAPES)
+def test_level_hist_matches_plain(cuda, rows, F, B, nodes, layout, binary):
     binned, g, h, rel = _hist_inputs(cuda, rows, F, B, nodes,
-                                     seed=rows + F + nodes, binary=binary)
-    n0 = _cuda.LAUNCHES["level_hist"]
+                                     seed=rows + F + nodes, binary=binary,
+                                     layout=layout)
+    n0 = dict(_cuda.LAUNCHES)
     G, H = hk.level_hist(binned, g, h, rel, nodes, B)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["level_hist"] == n0 + 1
+    assert _cuda.LAUNCHES["level_hist"] == n0["level_hist"] + 1
+    assert _cuda.LAUNCHES["level_partition"] == n0["level_partition"] + 1
     assert G.shape == H.shape == (nodes, F, B)
     Gp, Hp = hk.level_hist_plain(binned, g, h, rel, nodes, B,
                                  acc_dtype=torch.float64)
@@ -298,3 +309,42 @@ def test_level_hist_rejects_wrong_types_on_cuda(cuda):
         hk.level_hist(binned, g, h, rel.cpu(), 2, 16)
     with pytest.raises(ValueError, match="contiguous"):
         hk.level_hist(binned.t().contiguous().t(), g, h, rel, 2, 16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,F,B,nodes,layout", HIST_SHAPES)
+def test_level_partition_matches_plain(cuda, rows, F, B, nodes, layout):
+    """The partition kernels give the stable sort exactly: node_start,
+    and the first node_start[-1] entries of order."""
+    _, _, _, rel = _hist_inputs(cuda, rows, 1, 2, nodes, seed=rows + nodes,
+                                layout=layout)
+    rel[::11] = -5             # any rel outside [0, nodes) drops out
+    n0 = _cuda.LAUNCHES["level_partition"]
+    order, start = hk.level_partition(rel, nodes)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["level_partition"] == n0 + 1
+    want_order, want_start = hk.level_partition_plain(rel, nodes)
+    assert torch.equal(start, want_start)
+    assert torch.equal(order[:int(start[-1])], want_order)
+
+
+@pytest.mark.cuda
+def test_level_hist_syncs_nothing_in_five_launches(cuda):
+    """No host sync in the wrapper (CUDA's sync debug mode raises on
+    one), and at most five launches a call, the memset included."""
+    binned, g, h, rel = _hist_inputs(cuda, 70001, 28, 256, 16, seed=3)
+    hk.level_hist(binned, g, h, rel, 16, 256)      # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hk.level_hist(binned, g, h, rel, 16, 256)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        hk.level_hist(binned, g, h, rel, 16, 256)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert 1 <= len(device_ops) <= 5, device_ops

@@ -203,3 +203,104 @@ def test_plain_version_accumulator_types_agree():
     assert G64.dtype == H64.dtype == torch.float32
     torch.testing.assert_close(G32, G64, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(H32, H64, rtol=1e-5, atol=1e-5)
+
+
+def _rel_case(case, rows, nodes, rng):
+    """rel of a level: some rows outside it ("some"), none in it, empty
+    nodes, rel below 0 and above num_nodes, or one node with 99% of the
+    rows beside tiny ones (with one node, the 1% is outside the level)."""
+    rel = rng.integers(0, nodes + 1, rows).astype(np.int32)
+    if case == "all_inactive":
+        rel[:] = nodes
+    elif case == "empty_nodes":
+        rel[rel % 3 == 1] = nodes
+    elif case == "wild_rel":
+        rel[rel == nodes] = rng.choice([-7, -1, nodes, nodes + 3, 2 ** 31 - 1],
+                                       int((rel == nodes).sum()))
+    elif case == "skewed":
+        rel[:] = 0
+        tail = rng.random(rows) < 0.01
+        rel[tail] = rng.integers(1, max(nodes, 2), int(tail.sum()))
+    return rel
+
+
+PARTITION_CASES = ["some", "all_inactive", "empty_nodes", "wild_rel",
+                   "skewed"]
+
+
+@pytest.mark.parametrize("nodes", [1, 16, 256])
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_level_partition_plain_is_a_stable_sort(case, nodes):
+    rng = np.random.default_rng(nodes + len(case))
+    rel = _rel_case(case, 5000, nodes, rng)
+    order, start = t_hist.level_partition(torch.from_numpy(rel), nodes)
+    assert order.dtype == start.dtype == torch.int32
+    live = np.nonzero((rel >= 0) & (rel < nodes))[0]
+    want = live[np.argsort(rel[live], kind="stable")]
+    np.testing.assert_array_equal(order.numpy(), want)
+    np.testing.assert_array_equal(
+        start.numpy(),
+        np.concatenate([[0], np.bincount(rel[live], minlength=nodes)
+                        .cumsum()]))
+
+
+@pytest.mark.parametrize("ctas", [1, 7, 264])
+@pytest.mark.parametrize("case", PARTITION_CASES)
+def test_hist_shares_cover_every_row_once(case, ctas):
+    """The histogram kernel's split of a partition among its CTAs: each
+    in-level row in exactly one CTA's runs, a run inside one node, and
+    each CTA's rows plus node_cost a node within node_cost of an even
+    share of the level's cost."""
+    nodes, node_cost = 16, 256
+    rel = _rel_case(case, 5000, nodes, np.random.default_rng(ctas))
+    order, start = t_hist.level_partition(torch.from_numpy(rel), nodes)
+    shares = t_hist.hist_shares(start, ctas, node_cost)
+    assert len(shares) == ctas
+    seen = np.zeros(len(order), np.int64)
+    even = -(-(len(order) + node_cost * nodes) // ctas)
+    for runs in shares:
+        for n, lo, hi in runs:
+            assert start[n] <= lo < hi <= start[n + 1]
+            seen[lo:hi] += 1
+        assert sum(hi - lo + node_cost for _, lo, hi in runs) <= \
+            even + node_cost
+        assert len({n for n, _, _ in runs}) == len(runs)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("case", ["some", "skewed", "wild_rel"])
+@pytest.mark.parametrize("rows,F,B,nodes", SHAPES[1:])
+def test_level_hist_over_partition_matches_plain_and_jax(rows, F, B, nodes,
+                                                         case):
+    """The kernel's decomposition on the CPU: partition, split among five
+    CTAs, one histogram per run added into its node. It equals
+    level_hist_plain and the JAX kernel."""
+    rng = np.random.default_rng(rows + F + B + nodes)
+    binned, g, h, _ = _inputs(rows, F, B, nodes, seed=rows + nodes)
+    rel = _rel_case(case, rows, nodes, rng)
+    tb, tg, th = (torch.from_numpy(a) for a in (binned, g, h))
+    order, start = t_hist.level_partition(torch.from_numpy(rel), nodes)
+    G = torch.zeros(nodes, F, B)
+    H = torch.zeros(nodes, F, B)
+    runs = [r for share in t_hist.hist_shares(start, 5, 256) for r in share]
+    for n, lo, hi in runs:
+        rows_i = order[lo:hi].long()
+        Gi, Hi = t_hist.level_hist_plain(
+            tb[rows_i], tg[rows_i], th[rows_i],
+            torch.zeros(hi - lo, dtype=torch.int32), 1, B)
+        G[n] += Gi[0]
+        H[n] += Hi[0]
+    Gp, Hp = t_hist.level_hist_plain(tb, tg, th, torch.from_numpy(rel),
+                                     nodes, B)
+    torch.testing.assert_close(G, Gp, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(H, Hp, rtol=1e-5, atol=1e-5)
+    Gj, Hj = _jax(binned, g, h, rel, nodes, B)
+    np.testing.assert_allclose(G.numpy(), Gj, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(H.numpy(), Hj, rtol=1e-4, atol=1e-4)
+
+
+def test_level_partition_rejects():
+    with pytest.raises(ValueError):
+        t_hist.level_partition(torch.zeros(4, 2, dtype=torch.int32), 2)
+    with pytest.raises(ValueError):
+        t_hist.level_partition(torch.zeros(4, dtype=torch.int32), 0)

@@ -36,7 +36,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 LAUNCHES = {"coo_spmv": 0, "coo_spmv_t": 0, "tile_gather": 0,
             "scatter_update": 0, "row_tile_gather": 0,
-            "fm_push_contrib": 0, "v_scatter_update": 0, "level_hist": 0}
+            "fm_push_contrib": 0, "v_scatter_update": 0,
+            "level_partition": 0, "level_hist": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -56,7 +57,9 @@ _SIGNATURES = {
                                 _F, _F, _F, _P],
     },
     "hist": {
-        "wh_level_hist": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+        "wh_level_scratch_ints": [_I64, _I, _P],
+        "wh_level_partition": [_P, _P, _I64, _I, _P],
+        "wh_level_hist": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     },
 }
 _ERROR_STRING = {"coo_kernels": "wh_coo_error_string",

@@ -5,17 +5,23 @@ of the rows assigned to node n whose feature f falls in bin b, and the
 same for the hessians H: the quantity the reference's xgboost accumulates
 in per-thread CPU histograms and allreduces over rabit.
 
-``level_hist`` keeps the JAX package's signature. The kernel
-(csrc/hist.cu) accumulates in f32 with atomic adds into a histogram tile
-in shared memory; beside it here is the plain version, the JAX package's
-own scatter formulation (models/gbdt.py local_hist): a flat index
-``rel * F * B + f * B + bin`` and an ``index_add_``.
+``level_hist`` keeps the JAX package's signature. On the card it first
+partitions the level's rows by node (``level_partition``: three kernels
+of csrc/hist.cu, nothing read back to the host), then one kernel
+accumulates each node's rows in f32 with atomic adds into a histogram
+tile in shared memory. Beside them here are the plain versions: for the
+histogram the JAX package's own scatter formulation (models/gbdt.py
+local_hist), a flat index ``rel * F * B + f * B + bin`` and an
+``index_add_``; for the partition a stable sort; and ``hist_shares``,
+how the kernel splits the partition among its CTAs.
 
-The wrapper runs the plain version only for tensors on the CPU. For CUDA
-tensors it launches the kernel or raises.
+The wrappers run the plain versions only for tensors on the CPU. For CUDA
+tensors they launch the kernels or raise.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -56,6 +62,80 @@ def level_hist_plain(binned, g, h, rel, num_nodes: int, B: int,
     return out[0], out[1]
 
 
+def level_partition_plain(rel, num_nodes: int):
+    """Plain version of the partition: (order, node_start), both int32.
+    order lists the rows in the level (0 <= rel < num_nodes) grouped by
+    node, in row order within a node (a stable sort by rel); node n's rows
+    are order[node_start[n]:node_start[n + 1]], node_start (num_nodes + 1,)
+    the running count."""
+    live = torch.nonzero((rel >= 0) & (rel < num_nodes)).flatten()
+    key = rel[live].long()
+    order = live[torch.sort(key, stable=True).indices].to(torch.int32)
+    node_start = torch.zeros(num_nodes + 1, dtype=torch.int32,
+                             device=rel.device)
+    node_start[1:] = torch.bincount(key, minlength=num_nodes).cumsum(0)
+    return order, node_start
+
+
+def _scratch(rows: int, num_nodes: int, device):
+    n = ctypes.c_int64(0)
+    rc = _cuda.lib("hist").wh_level_scratch_ints(rows, num_nodes,
+                                                 ctypes.addressof(n))
+    _cuda.check("hist", rc, "level_hist scratch")
+    return torch.empty(n.value, dtype=torch.int32, device=device)
+
+
+def level_partition(rel, num_nodes: int):
+    """The level's rows grouped by node: (order, node_start) as
+    level_partition_plain gives them. On the card, order is the (rows,)
+    buffer the kernels wrote, whose first node_start[-1] entries are the
+    partition (the rest unspecified): its length would need a host sync.
+
+    Kernels: csrc/hist.cu partition_count_kernel, partition_scan_kernel,
+    partition_scatter_kernel. level_hist launches them itself."""
+    if rel.dim() != 1 or num_nodes < 1:
+        raise ValueError("level_partition: rel must be (rows,) and "
+                         "num_nodes >= 1")
+    if not rel.is_cuda:
+        return level_partition_plain(rel, num_nodes)
+    _cuda.require("level_partition", rel.device, rel=rel)
+    rows = rel.shape[0]
+    scratch = _scratch(rows, num_nodes, rel.device)
+    rc = _cuda.lib("hist").wh_level_partition(
+        rel.data_ptr(), scratch.data_ptr(), rows, num_nodes,
+        _cuda.stream(rel))
+    _cuda.check("hist", rc, "level_partition")
+    _cuda.LAUNCHES["level_partition"] += 1
+    n1 = num_nodes + 1
+    return scratch[n1:n1 + rows], scratch[:n1]
+
+
+def hist_shares(node_start, ctas: int, node_cost: int):
+    """How the histogram kernel splits a partition among its CTAs: the
+    level costs its rows plus node_cost a node (csrc/hist.cu kNodeCost),
+    node n's share of the cost first, then its rows; CTA c takes the c-th
+    even share of that cost. Returns, for each CTA, its [(node, lo, hi)]
+    runs of order, node by node."""
+    starts = [int(x) for x in node_start]
+    nodes = len(starts) - 1
+    cost = starts[-1] + node_cost * nodes
+    shares = []
+    for c in range(ctas):
+        v0, v1 = cost * c // ctas, cost * (c + 1) // ctas
+        runs = []
+        for n in range(nodes):
+            rows_at = starts[n] + node_cost * (n + 1)
+            if rows_at - node_cost >= v1:
+                break
+            size = starts[n + 1] - starts[n]
+            a = min(size, max(v0 - rows_at, 0))
+            b = min(size, max(v1 - rows_at, 0))
+            if a < b:
+                runs.append((n, starts[n] + a, starts[n] + b))
+        shares.append(runs)
+    return shares
+
+
 def level_hist(binned, g, h, rel, num_nodes: int, B: int):
     """Per-level gradient/hessian histograms.
 
@@ -66,10 +146,12 @@ def level_hist(binned, g, h, rel, num_nodes: int, B: int):
     cell no row reaches is exactly 0.0. B <= 256.
 
     On the card the sums are float atomics, so their order, and with it
-    the last bits, may change from launch to launch.
+    the last bits, may change from launch to launch. Five launches (the
+    output's memset, the partition's three kernels, the histogram), no
+    host sync.
 
     Replaces wormhole_tpu/ops/hist.py level_hist (_hist_kernel).
-    Kernel: csrc/hist.cu level_hist_kernel."""
+    Kernels: csrc/hist.cu, the partition's and level_hist_kernel."""
     if binned.dim() != 2:
         raise ValueError("level_hist: binned must be (rows, F)")
     rows, F = binned.shape
@@ -82,11 +164,14 @@ def level_hist(binned, g, h, rel, num_nodes: int, B: int):
         return level_hist_plain(binned, g, h, rel, num_nodes, B)
     _cuda.require("level_hist", binned.device, binned=binned, g=g, h=h,
                   rel=rel)
+    scratch = _scratch(rows, num_nodes, binned.device)
     out = torch.empty(2, num_nodes, F, B, dtype=torch.float32,
                       device=binned.device)
     rc = _cuda.lib("hist").wh_level_hist(
         binned.data_ptr(), g.data_ptr(), h.data_ptr(), rel.data_ptr(),
-        out.data_ptr(), rows, F, B, num_nodes, _cuda.stream(binned))
+        scratch.data_ptr(), out.data_ptr(), rows, F, B, num_nodes,
+        _cuda.stream(binned))
     _cuda.check("hist", rc, "level_hist")
+    _cuda.LAUNCHES["level_partition"] += 1
     _cuda.LAUNCHES["level_hist"] += 1
     return out[0], out[1]
