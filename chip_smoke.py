@@ -2,6 +2,9 @@
 """Quickest proof that the PyTorch/CUDA port runs on one NVIDIA GPU.
 
   python3 chip_smoke.py        (from the repo root; needs one CUDA card)
+  python3 chip_smoke.py --turns OTHER
+      the kernel phases of another checkout (e.g. the parent commit from
+      git archive) against this one, in turns: other, this, this, other
 
 Drives the port (wormhole_tpu_torch) through its three main paths at the
 bench's full width. Two run over 65,536-row minibatches of 39
@@ -15,12 +18,14 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
 1. holds every kernel of the paths against its plain PyTorch version on
    the card at the paths' shapes (the COO and FM kernels in f32 and
    bf16), and times kernel, plain version and one PyTorch library call
-   (CUDA events); the DiFacto half runs on a full-width batch packed by
-   the learner's own pack; level_hist runs on the inputs a real round
-   gives it at each of its six levels, with quantile bins and with the
-   same rows in 0/1 bins, and its partition of the rows by node is held
-   against a stable sort there; the hist library's ptxas figures and
-   whether its shared f32 atomic is a native add are printed;
+   (CUDA events; for the kernel also the profiler's device time and the
+   host's enqueue time per call, and for scatter_update a probe that only
+   reads and writes back its keys' state); the DiFacto half runs on a
+   full-width batch packed by the learner's own pack; level_hist runs on
+   the inputs a real round gives it at each of its six levels, with
+   quantile bins and with the same rows in 0/1 bins, and its partition of the rows by node is held
+   against a stable sort there; every library's ptxas figures and
+   whether hist's shared f32 atomic is a native add are printed;
 2. runs LinearLearner on the card at 2^22 buckets (dense tables, kernels
    coo_spmv + coo_spmv_t) and 2^26 buckets (compacted path, tile_gather +
    coo_spmv_t + scatter_update): train steps, eval, predict, each against
@@ -140,6 +145,56 @@ def time_ms(fn, device, iters: int = 20, warmup: int = 3) -> float:
     return t0.elapsed_time(t1) / iters
 
 
+def device_ms(fn, device, iters: int = 20) -> float:
+    """Device time of one call of fn: the profiler's device time (every
+    kernel and memset the call enqueues) over iters calls, after one
+    warm-up call; None off the card."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    for _ in range(3):  # the profiler now and then records no device event
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize(device)
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        if us > 0:
+            break
+    return us / 1e3 / iters
+
+
+def host_us(fn, device, iters: int = 50) -> float:
+    """The host's time to enqueue one call of fn: a host clock around
+    iters calls with no synchronize between them (the device queue stays
+    far from full); None off the card."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize(device)
+    return dt / iters * 1e6
+
+
+def timings(fn, device, iters: int = 20, warmup: int = 3) -> dict:
+    """A kernel wrapper's three times: ms by CUDA events around
+    back-to-back calls (whichever is slower, the device or the host's
+    enqueue), device_ms from the profiler, host_us on the host clock."""
+    return dict(ms=time_ms(fn, device, iters, warmup),
+                device_ms=device_ms(fn, device, iters),
+                host_us=host_us(fn, device, max(iters, 50)))
+
+
 def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
     """Least time for the work on the card: the larger of bytes over the
     memory rate and operations over the f32 rate."""
@@ -207,10 +262,12 @@ def to_rowblock(seg, idx, val, label):
 
 # ------------------------------------------------------------- phase 1
 def check_kernels(device, dense_buckets=DENSE_BUCKETS,
-                  compact_buckets=COMPACT_BUCKETS) -> dict:
+                  compact_buckets=COMPACT_BUCKETS, touch=None) -> dict:
     """Each kernel against its plain version at the main path's shapes.
-    Returns per-kernel numbers (max_abs_err, ms, plain_ms, library_ms,
-    bound_ms, bound_by)."""
+    Returns per-kernel numbers (max_abs_err, ms, device_ms, host_us,
+    plain_ms, library_ms, bound_ms, bound_by); with the touch probe
+    (finish_touch_build), scatter_update's also has floor_ms, the probe's
+    time at the same keys."""
     import torch
 
     from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
@@ -254,8 +311,8 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     out["coo_spmv"] = dict(
         max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
                                           bound_ms(nb, fl))),
-        ms=time_ms(lambda: ck.coo_spmv(w, sidx, sseg, sval, tmap, first,
-                                       MINIBATCH, f32), device),
+        **timings(lambda: ck.coo_spmv(w, sidx, sseg, sval, tmap, first,
+                                      MINIBATCH, f32), device),
         plain_ms=time_ms(lambda: ck.coo_spmv_plain(
             w, sidx, sseg, sval, MINIBATCH, f32), device),
         library_ms=time_ms(lambda: torch.zeros(
@@ -289,8 +346,8 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     out["coo_spmv_t"] = dict(
         max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
                                           bound_ms(nb, 2 * n_live))),
-        ms=time_ms(lambda: ck.coo_spmv_t(d, sidx, sseg, sval, tmap, first,
-                                         dense_buckets, f32), device),
+        **timings(lambda: ck.coo_spmv_t(d, sidx, sseg, sval, tmap, first,
+                                        dense_buckets, f32), device),
         plain_ms=time_ms(lambda: ck.coo_spmv_t_plain(
             d, sidx, sseg, sval, dense_buckets, f32), device),
         library_ms=time_ms(lambda: torch.zeros(
@@ -326,7 +383,7 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     out["tile_gather"] = dict(
         max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
                                           bound_ms(nb, 0))),
-        ms=time_ms(lambda: ck.tile_gather(t2, uniq, tmap_u, f32), device),
+        **timings(lambda: ck.tile_gather(t2, uniq, tmap_u, f32), device),
         plain_ms=time_ms(lambda: ck.tile_gather_plain(t2, uniq, f32),
                          device),
         library_ms=time_ms(lambda: table[uniq_c], device))
@@ -340,8 +397,9 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     compare("coo_spmv_t compact f32", g, gp, 1e-5, 1e-4,
             ck.coo_spmv_t_plain(d.abs(), csidx, csseg, csval.abs(), u_cap,
                                 f32))
-    log(f"[kernel] coo_spmv_t compact: "
-        f"{time_ms(lambda: ck.coo_spmv_t(d, csidx, csseg, csval, None, None, u_cap, f32), device)} ms")
+    log(f"[kernel] coo_spmv_t compact: " + json.dumps(timings(
+        lambda: ck.coo_spmv_t(d, csidx, csseg, csval, None, None, u_cap,
+                              f32), device)))
     hyper = dict(lr_eta=0.1, lr_beta=1.0, lambda_l1=1.0, lambda_l2=0.1)
     errs, times = [], {}
     tg = torch.Generator(device=device).manual_seed(12)
@@ -369,9 +427,9 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
                     raise AssertionError(f"{tag}: |w|_0 delta {int(nw_k)} "
                                          f"vs plain {int(nw_p)}")
                 if algo == "ftrl" and fb == 0 and dt == f32:
-                    times["ms"] = time_ms(lambda: fu.scatter_update(
+                    times.update(timings(lambda: fu.scatter_update(
                         algo, sk, g, uniq, tmap_u, None, None, dtype=f32,
-                        **hyper), device)
+                        **hyper), device))
                     times["plain_ms"] = time_ms(
                         lambda: fu.scatter_update_plain(
                             algo, sp, g, uniq, dtype=f32, **hyper), device)
@@ -381,6 +439,10 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     out["scatter_update"] = dict(
         max_abs_err=max(errs), library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, fl))), **times)
+    if touch is not None:
+        keys = uniq[uniq < compact_buckets].contiguous()
+        out["scatter_update"]["floor_ms"] = touch_ms(touch, device, base,
+                                                     keys)
     for k, v in out.items():
         log(f"[kernel] {k}: {v}")
     return out
@@ -461,8 +523,8 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
     out["row_tile_gather"] = dict(
         max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
                                           bound_ms(nb, 0))),
-        ms=time_ms(lambda: fu.row_tile_gather(V2, uniq_v, vtm, dim, f32),
-                   device),
+        **timings(lambda: fu.row_tile_gather(V2, uniq_v, vtm, dim, f32),
+                  device),
         plain_ms=time_ms(lambda: fu.row_tile_gather_plain(
             V2, uniq_v, dim, f32), device),
         library_ms=time_ms(lambda: V[uniq_c], device))
@@ -509,8 +571,8 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
     out["fm_push_contrib"] = dict(
         max_abs_err=max(errs), **dict(zip(("bound_ms", "bound_by"),
                                           bound_ms(nb, fl))),
-        ms=time_ms(lambda: ck.fm_push_contrib(Vc, a, b, sidx, None, None,
-                                              f32), device),
+        **timings(lambda: ck.fm_push_contrib(Vc, a, b, sidx, None, None,
+                                             f32), device),
         plain_ms=time_ms(lambda: ck.fm_push_contrib_plain(Vc, a, b, sidx,
                                                           f32), device),
         library_ms=time_ms(library, device))
@@ -542,7 +604,7 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
         max_abs_err=max(errs), library_ms=None,
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(nb, 8 * n_touched * dim))),
-        ms=time_ms(lambda: fu.v_scatter_update(
+        **timings(lambda: fu.v_scatter_update(
             Vk, nVk, gV, vt, uniq_v, vtm, None, None, dim=dim, dtype=f32,
             **hyper), device),
         plain_ms=time_ms(lambda: fu.v_scatter_update_plain(
@@ -587,7 +649,7 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
     out["scatter_update"] = dict(
         max_abs_err=max(errs), library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, fl))),
-        ms=time_ms(lambda: fu.scatter_update(
+        **timings(lambda: fu.scatter_update(
             "ftrl", sk, g, uniq_w, None, None, None, dtype=f32,
             add_table="cnt", add_values=add, **hyper), device),
         plain_ms=time_ms(lambda: fu.scatter_update_plain(
@@ -1046,8 +1108,8 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
                 equal_bits_in_two_launches=same_bits,
                 **dict(zip(("bound_ms", "bound_by"),
                            bound_ms(nb, 2 * n_active * F))),
-                ms=time_ms(lambda: hk.level_hist(bins, g, h, rel, nodes, B),
-                           device, iters=10),
+                **timings(lambda: hk.level_hist(bins, g, h, rel, nodes, B),
+                          device, iters=10),
                 plain_ms=time_ms(lambda: hk.level_hist_plain(
                     bins, g, h, rel, nodes, B), device, iters=5, warmup=1),
                 library_ms=time_ms(library, device, iters=5, warmup=1))
@@ -1071,7 +1133,8 @@ def mean_over_levels(levels: list) -> dict:
     mean = lambda k: (None if levels[0][k] is None  # noqa: E731
                       else sum(lv[k] for lv in levels) / len(levels))
     return dict(max_abs_err=max(lv["max_abs_err"] for lv in levels),
-                ms=mean("ms"), plain_ms=mean("plain_ms"),
+                ms=mean("ms"), device_ms=mean("device_ms"),
+                host_us=mean("host_us"), plain_ms=mean("plain_ms"),
                 library_ms=mean("library_ms"), bound_ms=mean("bound_ms"),
                 bound_by=levels[0]["bound_by"], per_level=levels)
 
@@ -1097,8 +1160,8 @@ def check_partition(rel, nodes: int, n_active: int, level: int,
     lv = dict(level=level, num_nodes=nodes, active_rows=n_active,
               max_abs_err=0.0,
               **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, 0))),
-              ms=time_ms(lambda: hk.level_partition(rel, nodes), device,
-                         iters=10),
+              **timings(lambda: hk.level_partition(rel, nodes), device,
+                        iters=10),
               plain_ms=time_ms(lambda: hk.level_partition_plain(rel, nodes),
                                device, iters=5, warmup=1),
               library_ms=time_ms(lambda: torch.sort(rel, stable=True),
@@ -1107,46 +1170,126 @@ def check_partition(rel, nodes: int, n_active: int, level: int,
     return lv
 
 
-def start_hist_report():
-    """nvcc of csrc/hist.cu to a cubin with ptxas's report, started beside
-    the kernels' own build."""
+# The least time scatter_update's access pattern allows: one thread per
+# live key reads z, n and w at its key and writes them back, nothing else.
+TOUCH_CU = r"""
+#include <cuda_runtime.h>
+__global__ void touch(float* z, float* n, float* w, const int* keys, int m) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m) return;
+  const int k = keys[i];
+  const float a = z[k], b = n[k], c = w[k];
+  z[k] = a + 1.0f;
+  n[k] = b + 1.0f;
+  w[k] = c + 1.0f;
+}
+extern "C" int wh_touch(void* z, void* n, void* w, const void* keys, int m,
+                        void* stream) {
+  touch<<<(m + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (float*)z, (float*)n, (float*)w, (const int*)keys, m);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def start_touch_build():
+    """nvcc of TOUCH_CU into build/, started beside the kernels' build."""
     from wormhole_tpu_torch.ops import _cuda
 
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cubin = _cuda.BUILD_DIR / "hist-report.cubin"
-    flags = [f for f in _cuda.NVCC_FLAGS
-             if f not in ("-shared", "-Xcompiler", "-fPIC")]
-    cmd = [_cuda._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
-           str(cubin), str(_cuda.CSRC / "hist.cu")]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), cubin
+    src, so = _cuda.BUILD_DIR / "touch.cu", _cuda.BUILD_DIR / "libtouch.so"
+    src.write_text(TOUCH_CU)
+    return subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(so),
+                             str(src)], stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True), so
 
 
-def finish_hist_report(proc, cubin) -> None:
-    """Prints ptxas's registers, shared memory and spills for each kernel
-    of csrc/hist.cu, and which SASS the shared-memory f32 atomicAdd of
-    level_hist_kernel became: a native ATOMS add, or a compare-and-swap
-    loop (ATOMS.CAS or ATOMS.CAST.SPIN)."""
-    import re
-    import shutil
+def finish_touch_build(proc, so):
+    import ctypes
 
     text, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc -cubin of hist.cu failed:\n{text}")
-    name = None
-    for line in text.splitlines():
-        m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)E", line)
-        if m:
-            name = m.group(1)
-        elif name and ("Used" in line or "spill" in line):
-            log(f"[hist-ptxas] {name}: {line.split(':', 1)[-1].strip()}")
+        raise RuntimeError(f"nvcc of the touch probe failed:\n{text}")
+    lib = ctypes.CDLL(str(so))
+    lib.wh_touch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                     ctypes.c_void_p]
+    return lib
+
+
+def touch_ms(touch, device, state: dict, keys) -> float:
+    """The touch probe's time (CUDA events) on the state tables at keys."""
+    import torch
+
+    def run():
+        rc = touch.wh_touch(state["z"].data_ptr(), state["n"].data_ptr(),
+                            state["w"].data_ptr(), keys.data_ptr(),
+                            keys.numel(), torch.cuda.current_stream(
+                                device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"touch probe: CUDA error {rc}")
+
+    return time_ms(run, device)
+
+
+def start_ptxas_report() -> dict:
+    """nvcc of every csrc/ source to a cubin with ptxas's report (one nvcc
+    each), started beside the kernels' own build."""
+    from wormhole_tpu_torch.ops import _cuda
+
+    _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    flags = [f for f in _cuda.NVCC_FLAGS
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    procs = {}
+    for name in _cuda.SOURCES:
+        cubin = _cuda.BUILD_DIR / f"{name}-report.cubin"
+        cmd = [_cuda._nvcc(), *flags, "-cubin", "-Xptxas", "-v", "-o",
+               str(cubin), str(_cuda.CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       cubin)
+    return procs
+
+
+def finish_ptxas_report(procs: dict) -> None:
+    """Prints ptxas's figures for each kernel of each source (over a
+    kernel's template instances: the fewest and most registers, the most
+    spilled bytes and shared memory), and which SASS the shared-memory
+    f32 atomicAdd of level_hist_kernel became: a native ATOMS add, or a
+    compare-and-swap loop (ATOMS.CAS or ATOMS.CAST.SPIN)."""
+    import re
+    import shutil
+
+    for src, (proc, _) in procs.items():
+        text, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc -cubin of {src}.cu failed:\n{text}")
+        figures, name = {}, None
+        for line in text.splitlines():
+            m = re.search(r"entry function '\w*?\d+([a-z_]+_kernel)[EI]", line)
+            if m:
+                name = m.group(1)
+                figures.setdefault(name, {"regs": [], "spill": 0, "smem": 0})
+                continue
+            if name is None:
+                continue
+            f = figures[name]
+            if m := re.search(r"(\d+) bytes spill stores", line):
+                f["spill"] = max(f["spill"], int(m.group(1)))
+            if m := re.search(r"Used (\d+) registers", line):
+                f["regs"].append(int(m.group(1)))
+            if m := re.search(r"(\d+) bytes smem", line):
+                f["smem"] = max(f["smem"], int(m.group(1)))
+        for k, f in figures.items():
+            log(f"[ptxas] {src}.cu {k}: {min(f['regs'])}-{max(f['regs'])} "
+                f"registers over {len(f['regs'])} instances, up to "
+                f"{f['spill']} bytes spilled, {f['smem']} bytes static smem")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         log("[hist-sass] cuobjdump not found: the shared f32 atomic's SASS "
             "was not read")
         return
-    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
-                          text=True, check=True).stdout
+    sass = subprocess.run([tool, "-sass", str(procs["hist"][1])],
+                          capture_output=True, text=True, check=True).stdout
     funcs = re.split(r"\n\s*Function : ", sass)
     body = next(f for f in funcs if re.match(r"\S*level_hist_kernel", f))
     ops = {}
@@ -1219,6 +1362,33 @@ def leaf_reference(lrn, ds, r: int):
     return want.cpu().numpy(), reached.cpu().numpy()
 
 
+def time_rounds(lrn, train, timed: int, windows: int, tag: str):
+    """Median seconds per boosting round over `windows` host-timed windows
+    of `timed` rounds from the base margins, logged with its range.
+    Returns it and the one-round step (for the profiler pass)."""
+    state = [lrn._base_margins(train)]
+
+    def one_round(_i):
+        state[0] = lrn._round(train, state[0])[2]
+
+    one_round(0)
+    sync(lrn.device)
+    per = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for i in range(timed):
+            one_round(i)
+        sync(lrn.device)
+        per.append((time.perf_counter() - t0) / timed)
+    dt = statistics.median(per)
+    rows = train.binned.shape[0]
+    log(f"[{tag}] {1e3 * dt:.3f} ms/round median of {windows} windows of "
+        f"{timed} rounds (range {1e3 * min(per):.3f}-{1e3 * max(per):.3f}), "
+        f"{1 / dt:.2f} rounds/sec, {rows / dt:.0f} rows/sec ({rows} rows, "
+        f"depth {lrn.cfg.max_depth})")
+    return dt, one_round
+
+
 def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
              timed=GBDT_TIMED_ROUNDS, windows=TIMED_WINDOWS,
              max_bin=GBDT_BINS) -> dict:
@@ -1248,27 +1418,8 @@ def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
             f"{fit_s:.3f} s, last {json.dumps(last)}")
         runs[hk] = (lrn, last, pred)
         if device.type == "cuda":
-            margin = lrn._base_margins(train)
-            state = [margin]
-
-            def one_round(_i, lrn=lrn, state=state):
-                state[0] = lrn._round(train, state[0])[2]
-
-            one_round(0)
-            sync(device)
-            per = []
-            for _ in range(windows):
-                t0 = time.perf_counter()
-                for i in range(timed):
-                    one_round(i)
-                sync(device)
-                per.append((time.perf_counter() - t0) / timed)
-            dt = statistics.median(per)
-            log(f"[gbdt hist_kernel={hk}] {1e3 * dt:.3f} ms/round median of "
-                f"{windows} windows of {timed} rounds (range "
-                f"{1e3 * min(per):.3f}-{1e3 * max(per):.3f}), "
-                f"{1 / dt:.2f} rounds/sec, {rows / dt:.0f} rows/sec "
-                f"({rows} rows, depth {depth})")
+            dt, one_round = time_rounds(lrn, train, timed, windows,
+                                        f"gbdt hist_kernel={hk}")
             rates[f"gbdt_{hk}_rounds_per_sec"] = 1 / dt
             prof = profile_steps(one_round, 2 * timed)
             log(f"[profile] gbdt hist_kernel={hk}: {json.dumps(prof)}")
@@ -1402,10 +1553,108 @@ def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
     return ll
 
 
-# ---------------------------------------------------------------- main
-def main() -> int:
+# --------------------------------------------------------------- turns
+def learner_steps(device) -> dict:
+    """The kernel path's step times, ms (medians of TIMED_WINDOWS windows
+    on staged batches): the linear learner at 2^26 buckets, DiFacto, and
+    a GBDT round at the HIGGS shape. For comparing checkouts in turns."""
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+
+    out = {}
+    learners = (
+        ("linear_compact", COMPACT_BUCKETS, 4, lambda: LinearLearner(
+            LinearConfig(minibatch=MINIBATCH, nnz_per_row=NNZ_PER_ROW,
+                         num_buckets=COMPACT_BUCKETS, algo="ftrl",
+                         lr_eta=0.1, lambda_l1=1.0, kernel="pallas",
+                         kernel_dtype="f32"), device=device)),
+        ("difacto", DENSE_BUCKETS, 8, lambda: DifactoLearner(
+            difacto_config("pallas"), device=device)))
+    for name, nbk, seed, make in learners:
+        lrn = make()
+        staged = [lrn.stage_batch(lrn.prepare_batch(to_rowblock(
+            s, i, v, y)), train=True) for s, i, v, y, _ in batches(
+            nbk, TRAIN_STEPS, seed)]
+        for b in staged:
+            lrn.train_batch(b)
+        out[f"{name}_ms"] = 1e3 * time_steps(
+            lrn, staged, TIMED_STEPS, TIMED_WINDOWS, f"turn {name}")
+        del lrn, staged
+    edges, binned, y, _, _ = make_higgs(eval_rows=1)
+    lrn = gbdt_learner(device, "mxu", edges, binned.shape[1])
+    out["gbdt_round_ms"] = 1e3 * time_rounds(
+        lrn, binned_dataset(device, binned, y), GBDT_TIMED_ROUNDS,
+        TIMED_WINDOWS, "turn gbdt")[0]
+    return out
+
+
+def kernel_turn(checkout: str) -> int:
+    """One turn of a comparison of two checkouts: the kernel phases
+    (phase 1 above, minus level_hist) and the learners' step times, with
+    the package of `checkout` on the path, its kernels built from its own
+    csrc/. Prints one JSON line of every kernel row's numbers and the
+    step times."""
     import torch
 
+    sys.path.insert(0, checkout)
+    from wormhole_tpu_torch.ops import _cuda
+
+    touch_build = start_touch_build()
+    _cuda.build()
+    device = torch.device("cuda", 0)
+    knums = check_kernels(device, touch=finish_touch_build(*touch_build))
+    fm = check_fm_kernels(device)
+    knums["scatter_update_cnt"] = fm.pop("scatter_update")
+    knums.update(fm)
+    keep = ("ms", "device_ms", "host_us", "max_abs_err", "bound_ms",
+            "floor_ms")
+    print(json.dumps({"turn": checkout, "kernels": {
+        k: {a: v[a] for a in keep if a in v} for k, v in knums.items()},
+        "steps": learner_steps(device)}), flush=True)
+    return 0
+
+
+def run_turns(other: str) -> int:
+    """The kernel phases and step times of another checkout (e.g. the
+    parent commit, unpacked with git archive) against this one on the same
+    card, in turns: other, this, this, other, one process each. Prints a
+    line per turn and one JSON summary of the turns' ms, device_ms and
+    host_us for every kernel row, and their step times."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    log(f"[card] {smi}")
+    other = os.path.abspath(other)
+    turns = []
+    for checkout in (other, ROOT, ROOT, other):
+        t = time.perf_counter()
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--turn", checkout], capture_output=True,
+                              text=True)
+        if proc.returncode != 0:
+            print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
+            raise AssertionError(f"turn {checkout} failed")
+        got = json.loads([l for l in proc.stdout.splitlines()
+                          if l.startswith('{"turn"')][-1])
+        log(f"[turn] {'this' if checkout == ROOT else 'other'} "
+            f"{time.perf_counter() - t:.1f}s {json.dumps(got)}")
+        turns.append(("this" if checkout == ROOT else "other", got))
+    summary = {name: {f"{who}{i}": {a: g["kernels"][name][a] for a in
+                                    ("ms", "device_ms", "host_us")}
+                      for i, (who, g) in enumerate(turns)}
+               for name in turns[1][1]["kernels"]}
+    summary["steps"] = {f"{who}{i}": g["steps"]
+                        for i, (who, g) in enumerate(turns)}
+    log(f"[turns] {smi}: " + json.dumps(summary))
+    return 0
+
+
+# ---------------------------------------------------------------- main
+def main(argv=None) -> int:
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -1413,6 +1662,10 @@ def main() -> int:
         print("chip_smoke: the wormhole_tpu_torch package is not beside "
               "this script", file=sys.stderr)
         return 2
+    if argv[:1] == ["--turn"]:
+        return kernel_turn(argv[1])
+    if argv[:1] == ["--turns"]:
+        return run_turns(argv[1])
     sys.path.insert(0, ROOT)
     from wormhole_tpu_torch.ops import _cuda
 
@@ -1425,14 +1678,15 @@ def main() -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    report = start_hist_report()
+    report, touch_build = start_ptxas_report(), start_touch_build()
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
-    finish_hist_report(*report)
+    finish_ptxas_report(report)
+    touch = finish_touch_build(*touch_build)
 
     t = time.perf_counter()
-    knums = check_kernels(device)
+    knums = check_kernels(device, touch=touch)
     fm_nums = check_fm_kernels(device)
     # scatter_update's row keeps the linear path's numbers; the
     # additive-table variant's error counts against it too
@@ -1493,11 +1747,13 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl, "launches": launches[name],
                      "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+                     "device_ms": k["device_ms"], "host_us": k["host_us"],
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
-        if "per_level" in k:
-            rows[-1]["per_level"] = k["per_level"]
+        for extra in ("floor_ms", "per_level"):
+            if extra in k:
+                rows[-1][extra] = k[extra]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -348,3 +348,167 @@ def test_level_hist_syncs_nothing_in_five_launches(cuda):
     device_ops = [e.name for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     assert 1 <= len(device_ops) <= 5, device_ops
+
+
+def _edge_stream(case, rows, dim, seed):
+    """The FM push's edge streams (as in tests/test_torch_fm_kernels.py,
+    packed by the port's own host function): a run over 41 chunks, runs
+    ending on chunk and thread edges, a zero-sum live run before a tile's
+    pads, only one-entry runs, pads only."""
+    rng = np.random.default_rng(seed)
+    chunk = ck._FM_CHUNK
+    if case == "long-run":
+        slots = np.concatenate([np.full(41 * chunk + 5, 3),
+                                rng.integers(0, rows, size=2000)])
+    elif case == "cta-edge":
+        slots = np.concatenate([np.full(2 * chunk, 1), np.full(chunk, 2),
+                                np.full(24, 4),
+                                rng.integers(5, rows, size=3000)])
+    elif case == "zero-sum-pads":
+        slots = np.concatenate([rng.integers(0, ck.TILE_HI - 1, size=900),
+                                [ck.TILE_HI - 1] * 2,
+                                rng.integers(ck.TILE_HI, rows, size=900)])
+    elif case == "singletons":
+        slots = rng.permutation(rows)[:rows // 2]
+    else:
+        slots = np.zeros(0, np.int64)
+    val = rng.normal(size=slots.size).astype(np.float32)
+    val[val == 0] = 1.0
+    p = ck.pack_sorted_coo(slots, np.zeros(slots.size, np.int32), val, rows,
+                           capacity=slots.size + 2 * ck.FM_BLK,
+                           tile=ck.TILE_HI, blk=ck.FM_BLK)
+    live = p.val != 0
+    a = (rng.normal(size=(p.idx.size, dim)) * live[:, None]).astype(np.float32)
+    b = (rng.normal(size=p.idx.size) * live).astype(np.float32)
+    if case == "zero-sum-pads":
+        e0, e1 = np.flatnonzero(live & (p.idx == ck.TILE_HI - 1))
+        a[e1], b[e1] = -a[e0], -b[e0]
+    return p, a, b, rng.normal(size=(rows, dim)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 2, 4, 8, 16, 32, 64, 128])
+@pytest.mark.parametrize("case", ["long-run", "cta-edge", "zero-sum-pads",
+                                  "singletons", "empty"])
+def test_fm_push_contrib_edge_streams(cuda, case, dim):
+    rows = 4 * ck.TILE_HI
+    p, a, b, Vc = _edge_stream(case, rows, dim, seed=dim + len(case))
+    to = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    sidx, a_t, b_t, V_t = to(p.idx), to(a), to(b), to(Vc)
+    touched = torch.zeros(rows, dtype=torch.bool, device=cuda)
+    touched[sidx[to(p.val) != 0].long()] = True
+    mag = ck.fm_push_contrib_plain(V_t.abs(), a_t.abs(), -b_t.abs(), sidx,
+                                   torch.float32)
+    for dtype in DTYPES:
+        got = ck.fm_push_contrib(V_t, a_t, b_t, sidx, None, None, dtype)
+        again = ck.fm_push_contrib(V_t, a_t, b_t, sidx, None, None, dtype)
+        assert torch.equal(got, again)  # no atomics: the same every run
+        _sum_close(got, ck.fm_push_contrib_plain(V_t, a_t, b_t, sidx, dtype),
+                   mag)
+        mirror = ck.fm_push_mirror(Vc, a, b, p.idx,
+                                   bf16=dtype == torch.bfloat16)
+        _sum_close(got, to(mirror), mag)
+        assert not got[~touched].any()  # rows with no entry exactly 0
+        if case == "zero-sum-pads":
+            assert not got[ck.TILE_HI - 1].any()
+
+
+def _update_slots(layout, rng):
+    """(num_buckets, uniq) for scatter_update: the pack's layout with
+    sentinels moved into the middle of blocks, all sentinels, one block,
+    or the 2^26 path's 1,572,864 slots with 167,650 live keys."""
+    if layout == "u_cap-2^26":
+        nb, n_keys, u_cap = 1 << 26, 167_650, 1_572_864
+    else:
+        nb, n_keys, u_cap = 4 * ck.TILE, 3000, 8 * ck.BLK_U
+    keys = np.unique(rng.integers(0, nb, size=n_keys + n_keys // 50))
+    if layout == "one-block":
+        keys = keys[keys < ck.TILE][:700]
+        u_cap = ck.BLK_U
+    uniq = ck.assign_tile_slots(keys, ck.TILE, u_cap, nb).uniq
+    if layout == "mid-block":
+        for blk in uniq.reshape(-1, ck.BLK_U):
+            rng.shuffle(blk)
+    elif layout == "all-sentinel":
+        uniq[:] = nb
+    return nb, uniq
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("algo", ["ftrl", "adagrad", "sgd"])
+@pytest.mark.parametrize("layout", ["mid-block", "all-sentinel", "one-block",
+                                    "u_cap-2^26"])
+def test_scatter_update_layouts(cuda, layout, algo):
+    """Every algo, filter and type, with the additive table, on slot
+    layouts the pack never gives as well as the ones it does."""
+    rng = np.random.default_rng(len(layout))
+    nb, uniq_np = _update_slots(layout, rng)
+    slots = torch.from_numpy(uniq_np).to(cuda)
+    live = slots < nb
+    n_live = int(live.sum())
+    g = torch.where(live, torch.randn(slots.numel(), device=cuda), 0.0)
+    g[torch.nonzero(live).flatten()[::7]] = 0.0
+    add = torch.where(live, torch.randint(0, 40, (slots.numel(),),
+                                          device=cuda).float(), 0.0)
+    base = {"w": torch.randn(nb, device=cuda),
+            "z": torch.randn(nb, device=cuda),
+            "n": 3 * torch.rand(nb, device=cuda),
+            "cnt": torch.randint(0, 9, (nb,), device=cuda).float()}
+    base["w"][::5] = 0.0
+    names = {"ftrl": ("z", "n", "w"), "adagrad": ("n", "w"),
+             "sgd": ("w",)}[algo] + ("cnt",)
+    n0 = _cuda.LAUNCHES["scatter_update"]
+    for fb in (0, 1, 2):
+        for dtype in DTYPES:
+            sk = {k: base[k].clone() for k in names}
+            sp = {k: base[k].clone() for k in names}
+            _, nw_k = fu.scatter_update(algo, sk, g, slots, None, None, None,
+                                        fixed_bytes=fb, dtype=dtype,
+                                        add_table="cnt", add_values=add,
+                                        **HYPER)
+            nw_p = fu.scatter_update_plain(algo, sp, g, slots,
+                                           fixed_bytes=fb, dtype=dtype,
+                                           add_table="cnt", add_values=add,
+                                           **HYPER)
+            for k in names:
+                torch.testing.assert_close(sk[k], sp[k], rtol=1e-5,
+                                           atol=1e-6)
+            assert torch.equal(sk["cnt"], sp["cnt"])
+            # the plain version divides by a scalar as a multiply by its
+            # reciprocal on CUDA: a key at the l1 edge may land apart
+            assert abs(int(nw_k) - int(nw_p)) <= 1 + n_live // 100000
+            if layout == "all-sentinel":
+                assert int(nw_k) == 0
+                assert all(torch.equal(sk[k], base[k]) for k in names)
+    assert _cuda.LAUNCHES["scatter_update"] == n0 + 6
+
+
+@pytest.mark.cuda
+def test_scatter_update_one_launch_no_sync(cuda):
+    """With fixed_bytes == 0 a call enqueues one device operation (the
+    kernel: no memset, no scale) and never syncs the host."""
+    rng = np.random.default_rng(7)
+    nb, uniq_np = _update_slots("pack", rng)
+    slots = torch.from_numpy(uniq_np).to(cuda)
+    g = torch.randn(slots.numel(), device=cuda)
+    state = {"w": torch.randn(nb, device=cuda),
+             "z": torch.randn(nb, device=cuda),
+             "n": torch.rand(nb, device=cuda)}
+    fu.scatter_update("ftrl", state, g, slots, None, None, None,
+                      dtype=torch.float32, **HYPER)  # builds, scratch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fu.scatter_update("ftrl", state, g, slots, None, None, None,
+                          dtype=torch.float32, **HYPER)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fu.scatter_update("ftrl", state, g, slots, None, None, None,
+                          dtype=torch.float32, **HYPER)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 1, device_ops

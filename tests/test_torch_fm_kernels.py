@@ -154,3 +154,76 @@ def test_fm_wrappers_reject_bad_arguments():
         t_fu.v_scatter_update(V, V.clone(), torch.zeros(64, 4),
                               torch.zeros(64), sidx, None, None, None,
                               dim=8, **HYPER)
+
+
+def _edge_stream(case, rows, dim, seed):
+    """A slot-sorted V-side stream at one of the FM push's edges, packed
+    by the JAX host function, with a and b zero at the pad entries."""
+    rng = np.random.default_rng(seed)
+    chunk = t_ck._FM_CHUNK
+    if case == "long-run":     # one run over more than 40 chunks
+        slots = np.concatenate([np.full(41 * chunk + 5, 3),
+                                rng.integers(0, rows, size=2000)])
+    elif case == "cta-edge":   # runs end on chunk edges and a thread edge
+        slots = np.concatenate([np.full(2 * chunk, 1), np.full(chunk, 2),
+                                np.full(24, 4),
+                                rng.integers(5, rows, size=3000)])
+    elif case == "zero-sum-pads":  # tile 0's last live run sums to 0
+        slots = np.concatenate([rng.integers(0, j_ck.TILE_HI - 1, size=900),
+                                [j_ck.TILE_HI - 1] * 2,
+                                rng.integers(j_ck.TILE_HI, rows, size=900)])
+    elif case == "singletons":  # only one-entry runs
+        slots = rng.permutation(rows)[:rows // 2]
+    else:                       # "empty": pads only
+        slots = np.zeros(0, np.int64)
+    seg = rng.integers(0, 128, size=slots.size).astype(np.int32)
+    val = rng.normal(size=slots.size).astype(np.float32)
+    val[val == 0] = 1.0
+    p = j_ck.pack_sorted_coo(slots, seg, val, rows,
+                             capacity=slots.size + 2 * j_ck.FM_BLK,
+                             tile=j_ck.TILE_HI, blk=j_ck.FM_BLK)
+    live = p.val != 0
+    a = (rng.normal(size=(p.idx.size, dim)) * live[:, None]).astype(np.float32)
+    b = (rng.normal(size=p.idx.size) * live).astype(np.float32)
+    if case == "zero-sum-pads":
+        e0, e1 = np.flatnonzero(live & (p.idx == j_ck.TILE_HI - 1))
+        a[e1], b[e1] = -a[e0], -b[e0]
+        assert p.idx[e1 + 1] == 0 and p.val[e1 + 1] == 0  # pads follow
+    Vc = rng.normal(size=(rows, dim)).astype(np.float32)
+    return p, a, b, Vc
+
+
+def _sum_close(got, want, mag):
+    """atol 1e-4 + rtol 1e-5 * the sum of the terms' magnitudes: the
+    kernels sum a row's terms in another order than index_add_."""
+    err = np.abs(np.asarray(got) - np.asarray(want))
+    assert (err <= 1e-4 + 1e-5 * np.asarray(mag)).all(), float(err.max())
+
+
+@pytest.mark.parametrize("dim", [1, 8, 128])
+@pytest.mark.parametrize("case", ["long-run", "cta-edge", "zero-sum-pads",
+                                  "singletons", "empty"])
+def test_fm_push_mirror_matches_plain_and_pallas(case, dim):
+    """The numpy mirror of the card's FM push bookkeeping (chunks, thread
+    slices, run heads, the carries' scan, the combine's chunk windows)
+    against the plain version and the JAX Pallas kernel."""
+    rows = 4 * j_ck.TILE_HI
+    p, a, b, Vc = _edge_stream(case, rows, dim, seed=dim + len(case))
+    touched = np.zeros(rows, bool)
+    touched[p.idx[p.val != 0]] = True
+    mag = t_ck.fm_push_contrib_plain(T(np.abs(Vc)), T(np.abs(a)),
+                                     T(-np.abs(b)), T(p.idx).long(),
+                                     torch.float32)
+    for dt, bf16 in (("f32", False), ("bf16", True)):
+        got = t_ck.fm_push_mirror(Vc, a, b, p.idx, bf16=bf16)
+        want = t_ck.fm_push_contrib(T(Vc), T(a), T(b), T(p.idx), None, None,
+                                    dtype=DTYPES[dt][1])
+        _sum_close(got, want, mag)
+        assert not got[~touched].any()  # rows with no live entry exactly 0
+    want_j = j_ck.fm_push_contrib(J(Vc), J(a), J(b), J(p.idx), J(p.tmap),
+                                  J(p.first), dtype=jnp.float32)
+    _sum_close(t_ck.fm_push_mirror(Vc, a, b, p.idx), want_j, mag)
+    if case == "zero-sum-pads":
+        assert not t_ck.fm_push_mirror(Vc, a, b, p.idx)[j_ck.TILE_HI - 1].any()
+    if case == "empty":  # and a stream of no entries at all
+        assert not t_ck.fm_push_mirror(Vc, a[:0], b[:0], p.idx[:0]).any()

@@ -215,3 +215,49 @@ def test_build_without_nvcc_raises():
         pytest.skip("kernel libraries are already built")
     with pytest.raises(RuntimeError, match="nvcc"):
         _cuda.build(missing)
+
+
+@pytest.mark.parametrize("nb", [1 << 22, 1 << 26])
+def test_both_packs_put_live_slots_first_in_each_block(nb):
+    """The card's scatter_update skips all-sentinel warp chunks; it is
+    fast because both packages' packs put each tile's keys at the front
+    of its BLK_U blocks (and right for any layout, see below)."""
+    from wormhole_tpu_torch.data.synth import synth_criteo_batch
+
+    seg, idx, val, _, _ = synth_criteo_batch(np.random.default_rng(30),
+                                             2048, nb)
+    u_cap = -(-t_ck.tile_blocks_needed(np.unique(idx), t_ck.TILE)
+              * t_ck.BLK_U // t_ck.TILE) * t_ck.TILE
+    tt = t_ck.pack_tile_coo(idx, seg, val, nb, u_cap)
+    tj = j_ck.pack_tile_coo(idx, seg, val, nb, u_cap)
+    np.testing.assert_array_equal(tt.uniq, tj.uniq)
+    assert tt.num_uniq == np.unique(idx).size and tt.dropped_uniq == 0
+    live = (tt.uniq < nb).reshape(-1, t_ck.BLK_U)
+    # within a block, no live slot follows a sentinel
+    assert not (live[:, 1:] & ~live[:, :-1]).any()
+    assert (tt.uniq == nb).mean() > 0.5  # the holes the kernel skips
+
+
+@pytest.mark.parametrize("algo", ["ftrl", "adagrad", "sgd"])
+def test_scatter_update_plain_matches_pallas_with_mid_block_sentinels(algo):
+    """Sentinels in the middle of blocks, live keys in any order within
+    their block: the JAX kernel and the plain version still agree."""
+    nb = 4 * t_ck.TILE
+    ts, g, state = _update_inputs(algo, nb, seed=40)
+    rng = np.random.default_rng(41)
+    perm = np.concatenate([b * t_ck.BLK_U + rng.permutation(t_ck.BLK_U)
+                           for b in range(ts.uniq.size // t_ck.BLK_U)])
+    uniq, gp = ts.uniq[perm], g[perm]
+    assert ((uniq.reshape(-1, t_ck.BLK_U)[:, :8] == nb).any()
+            and (uniq.reshape(-1, t_ck.BLK_U)[:, -8:] < nb).any())
+    blocks = (uniq, ts.tmap_u, ts.first_u, ts.last_u)
+    j_state, nw_j = j_fu.scatter_update(
+        algo, {k: jnp.asarray(v) for k, v in state.items()},
+        jnp.asarray(gp), *map(jnp.asarray, blocks), dtype=jnp.float32,
+        **HYPER)
+    t_state = {k: T(v.copy()) for k, v in state.items()}
+    _, nw_t = t_fu.scatter_update(algo, t_state, T(gp), *map(T, blocks),
+                                  dtype=torch.float32, **HYPER)
+    for k in state:
+        _close(t_state[k], j_state[k])
+    assert int(nw_t) == int(nw_j)

@@ -159,6 +159,11 @@ __global__ void tile_gather_kernel(const float* __restrict__ table,
 //     head row, whose run spans ~16 chunks, costs one such step.
 // No float atomics, so the result is the same from run to run.
 //
+// For dim <= 16, fm_push_scan_kernel (after these two) takes the place of
+// kernel 1: a reduce-by-key over threads that keeps every lane busy on
+// short runs. For dim >= 32 a run's dim + 1 sums fill a warp's lanes, and
+// kernel 1 stays.
+//
 // A run whose sums are all zero writes nothing: the output was zeroed
 // first, and 0 - 0 * V is 0. That covers rows with no entry, and the pad
 // entries (a = b = 0, sidx = tile base) that pack_sorted_coo puts after
@@ -356,6 +361,327 @@ __global__ void fm_push_combine_kernel(const float* __restrict__ V,
   }
 }
 
+// fm_push_scan_kernel: the local pass for dim <= 16, a reduce-by-key that
+// keeps every lane busy whatever the run lengths (the warp-per-run kernel
+// above idles most lanes on Zipf's short runs and pays a 5-step butterfly
+// over dim + 1 values per run). One CTA of kFmScanThreads threads per
+// chunk of kFmChunk entries:
+//  1. the chunk's a, b and sidx are staged into shared memory with
+//     cp.async, 16 bytes a lane with neighbours on neighbouring addresses
+//     (a XOR swizzle on the 16-byte words keeps the per-thread reads below
+//     free of bank conflicts);
+//  2. thread t takes the kFmItems consecutive entries from kFmItems * t and
+//     sums them serially in registers, cutting at run heads (key !=
+//     previous key). A run that starts and ends inside the thread is
+//     complete and written at once. What remains are the thread's first
+//     run (which may continue a run of earlier threads) and its tail (the
+//     carry into later threads);
+//  3. a segmented inclusive scan of the tails over the warp (shuffles, in
+//     a fixed order), then over the CTA's warps in order, gives each
+//     thread the carry of the run its first entry belongs to. The thread
+//     that holds a run's last entry writes its row.
+// The chunk's first and last runs, when they cross the chunk's edges, go
+// to part_first / part_last with the same flags as the local kernel above,
+// so fm_push_combine_kernel finishes them. The same rules for zero sums
+// (nothing written) and pads hold, and the result is the same from run to
+// run (no atomics, a fixed order of adds).
+constexpr int kFmScanThreads = 128;
+constexpr int kFmScanWarps = kFmScanThreads / 32;
+constexpr int kFmItems = kFmChunk / kFmScanThreads;  // 8
+constexpr int kFmScanMaxDim = 16;
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem));
+}
+
+// Where 16-byte word f of a staged array lands in shared memory, when
+// each thread reads its own run of kWords consecutive words: f is XORed
+// with a few bits above the run, so it stays inside the run, and the
+// eight lanes of a quarter warp that read word q of their runs hit the
+// eight bank groups (word mod 8) once each, not two to eight times.
+template <int kWords>
+__device__ __forceinline__ int fm_swizzle(int f) {
+  if constexpr (kWords >= 8) {
+    return f ^ ((f / kWords) & 7);
+  } else {
+    return f ^ ((f >> 3) & (kWords - 1));
+  }
+}
+
+// nf floats from src into dst (16-byte words through swizzle kWords when
+// src is 16-byte aligned, else 4 bytes at a time), by all threads.
+template <int kWords>
+__device__ __forceinline__ void stage(float* dst, const float* src, int nf,
+                                      int t) {
+  const bool aligned = (reinterpret_cast<uintptr_t>(src) & 15u) == 0;
+  const int nv = aligned ? nf / 4 : 0;
+  for (int f = t; f < nv; f += kFmScanThreads) {
+    cp_async16(dst + 4 * fm_swizzle<kWords>(f), src + 4 * f);
+  }
+  for (int i = 4 * nv + t; i < nf; i += kFmScanThreads) {
+    cp_async4(dst + 4 * fm_swizzle<kWords>(i >> 2) + (i & 3), src + i);
+  }
+}
+
+template <int kDim>
+__device__ __forceinline__ void seg_combine(bool& f, float (&v)[kDim + 1],
+                                            bool of, const float (&ov)[kDim + 1]) {
+  // (of, ov) then (f, v): v restarts at a head, else adds to the left
+  if (!f) {
+#pragma unroll
+    for (int c = 0; c <= kDim; ++c) v[c] = ov[c] + v[c];
+  }
+  f = f || of;
+}
+
+// A chunk's staged a (kFmChunk * kDim), b and sidx (kFmChunk each), in
+// one buffer of shared memory.
+template <int kDim>
+__device__ __forceinline__ void fm_stage_chunk(float* buf,
+                                               const float* __restrict__ a,
+                                               const float* __restrict__ b,
+                                               const int* __restrict__ sidx,
+                                               int64_t chunk, int64_t n, int t) {
+  const int64_t base = chunk * kFmChunk;
+  const int cnt = static_cast<int>(n - base < kFmChunk ? n - base : kFmChunk);
+  stage<kFmItems * kDim / 4>(buf, a + base * kDim, cnt * kDim, t);
+  stage<kFmItems / 4>(buf + kFmChunk * kDim, b + base, cnt, t);
+  stage<kFmItems / 4>(buf + kFmChunk * (kDim + 1),
+                      reinterpret_cast<const float*>(sidx + base), cnt, t);
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kDim, bool kBf16>
+__device__ __forceinline__ void fm_scan_chunk(
+    const float* buf, int64_t chunk, const float* __restrict__ V,
+    const int* __restrict__ sidx, float* __restrict__ out,
+    float* __restrict__ part_first, float* __restrict__ part_last,
+    int* __restrict__ flags, int64_t n, int64_t rows,
+    float (*w_val)[kDim + 1], int* w_flag) {
+  constexpr int kWords = kFmItems * kDim / 4;  // 16-byte words of a a thread
+  const float* a_s = buf;
+  const float* b_s = buf + kFmChunk * kDim;
+  const int* k_s = reinterpret_cast<const int*>(buf + kFmChunk * (kDim + 1));
+  const int t = threadIdx.x;
+  const unsigned lane = t & 31u;
+  const int warp = t >> 5;
+  const int64_t base = chunk * kFmChunk;
+  const int cnt = static_cast<int>(n - base < kFmChunk ? n - base : kFmChunk);
+  const bool vec = kDim % 4 == 0 &&
+      ((reinterpret_cast<uintptr_t>(V) | reinterpret_cast<uintptr_t>(out)) & 15u) == 0;
+
+  constexpr int kKeyWords = kFmItems / 4;
+  auto key_at = [&](int i) {
+    return k_s[4 * fm_swizzle<kKeyWords>(i >> 2) + (i & 3)];
+  };
+  const int e0 = t * kFmItems;
+  const int e1 = e0 + kFmItems < cnt ? e0 + kFmItems : cnt;
+  const bool cont_before = base > 0 && sidx[base - 1] == key_at(0);
+  const bool cont_after = base + cnt < n && sidx[base + cnt] == key_at(cnt - 1);
+  // this thread's keys and b values, a 16-byte word at a time
+  int kk[kFmItems];
+  float bb[kFmItems];
+#pragma unroll
+  for (int q = 0; q < kKeyWords; ++q) {
+    const int f = fm_swizzle<kKeyWords>(t * kKeyWords + q);
+    const int4 kv = reinterpret_cast<const int4*>(k_s)[f];
+    const float4 bv = reinterpret_cast<const float4*>(b_s)[f];
+    kk[4 * q] = kv.x, kk[4 * q + 1] = kv.y, kk[4 * q + 2] = kv.z, kk[4 * q + 3] = kv.w;
+    bb[4 * q] = bv.x, bb[4 * q + 1] = bv.y, bb[4 * q + 2] = bv.z, bb[4 * q + 3] = bv.w;
+  }
+  // this thread's first entry starts a run (chunk entry 0 aside: the
+  // chunk's first run is told apart by the scan's flag below)
+  const bool h0 = t > 0 && e0 < cnt && kk[0] != key_at(e0 - 1);
+  // the V rows of the runs that end in this thread go to L2 now, so the
+  // emits below do not wait on device memory
+#pragma unroll
+  for (int j = 0; j < kFmItems; ++j) {
+    const int e = e0 + j;
+    if (e >= cnt || kk[j] < 0 || kk[j] >= rows) continue;
+    if (e + 1 == cnt ||
+        (j + 1 < kFmItems ? kk[j + 1] != kk[j] : key_at(e + 1) != kk[j])) {
+      asm volatile("prefetch.global.L2 [%0];" ::"l"(V + static_cast<int64_t>(kk[j]) * kDim));
+    }
+  }
+
+  auto emit = [&](const float (&acc)[kDim + 1], int key, bool first_run,
+                  bool last_run) {
+    if ((first_run && cont_before) || (last_run && cont_after)) {
+      float* dst = (first_run && cont_before ? part_first : part_last) +
+                   chunk * (kDim + 1);
+#pragma unroll
+      for (int c = 0; c <= kDim; ++c) dst[c] = acc[c];
+      return;
+    }
+    if (!any_nonzero<kDim>(acc)) return;  // output zeroed: pads, empty runs
+    const int64_t row = static_cast<int64_t>(key) * kDim;
+    if constexpr (kDim % 4 == 0) {
+      if (vec) {  // 16 bytes at a time: at dim 8 the row is one sector
+#pragma unroll
+        for (int c = 0; c < kDim; c += 4) {
+          const float4 v = __ldg(reinterpret_cast<const float4*>(V + row + c));
+          float4 o;
+          o.x = acc[c] - acc[kDim] * v.x;
+          o.y = acc[c + 1] - acc[kDim] * v.y;
+          o.z = acc[c + 2] - acc[kDim] * v.z;
+          o.w = acc[c + 3] - acc[kDim] * v.w;
+          *reinterpret_cast<float4*>(out + row + c) = o;
+        }
+        return;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < kDim; ++c) out[row + c] = acc[c] - acc[kDim] * V[row + c];
+  };
+
+  // serial sums of this thread's entries, cut at run heads
+  float acc[kDim + 1], first[kDim + 1];
+#pragma unroll
+  for (int c = 0; c <= kDim; ++c) acc[c] = first[c] = 0.0f;
+  int cuts = 0;  // run heads inside the thread, past its first entry
+  int last = -1;  // the key of the thread's last entry
+#pragma unroll
+  for (int j = 0; j < kFmItems; ++j) {
+    const int e = e0 + j;
+    if (e < e1) {
+      const int key = kk[j];
+      if (key < 0 || key >= rows) __trap();
+      last = key;
+      if (j > 0 && key != kk[j - 1]) {
+        if (cuts == 0) {
+#pragma unroll
+          for (int c = 0; c <= kDim; ++c) first[c] = acc[c];
+        } else {
+          emit(acc, kk[j - 1], false, false);  // wholly inside
+        }
+#pragma unroll
+        for (int c = 0; c <= kDim; ++c) acc[c] = 0.0f;
+        ++cuts;
+      }
+      if constexpr (kDim % 4 == 0) {
+#pragma unroll
+        for (int c = 0; c < kDim; c += 4) {
+          const int f = (e * kDim + c) >> 2;
+          const float4 v =
+              *reinterpret_cast<const float4*>(a_s + 4 * fm_swizzle<kWords>(f));
+          const float x[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u) acc[c + u] += kBf16 ? round_bf16(x[u]) : x[u];
+        }
+      } else {
+#pragma unroll
+        for (int c = 0; c < kDim; ++c) {
+          const int i = e * kDim + c;
+          const float x = a_s[4 * fm_swizzle<kWords>(i >> 2) + (i & 3)];
+          acc[c] += kBf16 ? round_bf16(x) : x;
+        }
+      }
+      acc[kDim] += kBf16 ? round_bf16(bb[j]) : bb[j];
+    }
+  }
+
+  // segmented scan of the tails: flag = a run starts in this thread
+  bool f = h0 || cuts > 0;
+  float v[kDim + 1];
+#pragma unroll
+  for (int c = 0; c <= kDim; ++c) v[c] = acc[c];
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    float ov[kDim + 1];
+#pragma unroll
+    for (int c = 0; c <= kDim; ++c) ov[c] = __shfl_up_sync(kFull, v[c], off);
+    const bool of = __shfl_up_sync(kFull, f, off);
+    if (static_cast<int>(lane) >= off) seg_combine<kDim>(f, v, of, ov);
+  }
+  if (lane == 31u) {
+    w_flag[warp] = f;
+#pragma unroll
+    for (int c = 0; c <= kDim; ++c) w_val[warp][c] = v[c];
+  }
+  // exclusive: the lane before's inclusive value
+  bool cf;
+  float carry[kDim + 1];
+#pragma unroll
+  for (int c = 0; c <= kDim; ++c) carry[c] = __shfl_up_sync(kFull, v[c], 1);
+  cf = __shfl_up_sync(kFull, f, 1);
+  if (lane == 0u) {
+    cf = false;
+#pragma unroll
+    for (int c = 0; c <= kDim; ++c) carry[c] = 0.0f;
+  }
+  const int any_head = __syncthreads_or(h0 || cuts > 0);
+  // the warps before this one, in order, then this lane's carry
+  bool pf = false;
+  float pv[kDim + 1];
+#pragma unroll
+  for (int c = 0; c <= kDim; ++c) pv[c] = 0.0f;
+  for (int w = 0; w < warp; ++w) {
+    float wv[kDim + 1];
+#pragma unroll
+    for (int c = 0; c <= kDim; ++c) wv[c] = w_val[w][c];
+    bool wf = w_flag[w];
+    seg_combine<kDim>(wf, wv, pf, pv);
+    pf = wf;
+#pragma unroll
+    for (int c = 0; c <= kDim; ++c) pv[c] = wv[c];
+  }
+  seg_combine<kDim>(cf, carry, pf, pv);
+
+  if (e0 < cnt) {
+    // this thread's first run is the chunk's first run when no run
+    // starts between chunk entry 0 and here
+    const bool first_run = !cf && !h0;
+    float tot[kDim + 1];
+    if (cuts > 0) {
+#pragma unroll
+      for (int c = 0; c <= kDim; ++c) tot[c] = (h0 ? 0.0f : carry[c]) + first[c];
+      emit(tot, kk[0], first_run, false);
+#pragma unroll
+      for (int c = 0; c <= kDim; ++c) tot[c] = acc[c];
+    } else {
+#pragma unroll
+      for (int c = 0; c <= kDim; ++c) tot[c] = (h0 ? 0.0f : carry[c]) + acc[c];
+    }
+    // the tail ends here if the next entry starts a run or the chunk ends
+    if (e1 == cnt || key_at(e1) != last) {
+      emit(tot, last, cuts == 0 && first_run, e1 == cnt);
+    }
+  }
+  if (t == 0) {
+    flags[chunk] = (cont_before ? kFmFirstCont : 0) |
+                   (cont_after ? kFmLastCont : 0) | (any_head ? 0 : kFmSingle);
+  }
+}
+
+// One CTA per chunk. (A persistent grid of two CTAs an SM, each staging
+// its next chunk while it sums the current one, was slower at the DiFacto
+// batch: its emits' latency was no longer hidden by other CTAs.)
+template <int kDim, bool kBf16>
+__global__ void __launch_bounds__(kFmScanThreads)
+fm_push_scan_kernel(const float* __restrict__ V, const float* __restrict__ a,
+                    const float* __restrict__ b, const int* __restrict__ sidx,
+                    float* __restrict__ out, float* __restrict__ part_first,
+                    float* __restrict__ part_last, int* __restrict__ flags,
+                    int64_t n, int64_t rows) {
+  extern __shared__ float4 fm_smem[];
+  float* buf = reinterpret_cast<float*>(fm_smem);
+  __shared__ float w_val[kFmScanWarps][kDim + 1];
+  __shared__ int w_flag[kFmScanWarps];
+  fm_stage_chunk<kDim>(buf, a, b, sidx, blockIdx.x, n, threadIdx.x);
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
+  fm_scan_chunk<kDim, kBf16>(buf, blockIdx.x, V, sidx, out, part_first,
+                             part_last, flags, n, rows, w_val, w_flag);
+}
+
 struct FmArgs {
   const float *V, *a, *b;
   const int* sidx;
@@ -367,10 +693,21 @@ struct FmArgs {
 
 template <int kDim>
 void fm_launch(const FmArgs& f, bool bf16) {
-  auto local = bf16 ? fm_push_local_kernel<kDim, true> : fm_push_local_kernel<kDim, false>;
-  local<<<static_cast<unsigned>(f.nchunks), kFmThreads, 0, f.stream>>>(
-      f.V, f.a, f.b, f.sidx, f.out, f.part_first, f.part_last, f.flags, f.n,
-      f.rows);
+  if constexpr (kDim <= kFmScanMaxDim) {
+    auto scan = bf16 ? fm_push_scan_kernel<kDim, true> : fm_push_scan_kernel<kDim, false>;
+    constexpr int smem = kFmChunk * (kDim + 2) * 4;
+    if constexpr (smem + 1024 > 48 * 1024) {  // past 48 KB a kernel opts in
+      cudaFuncSetAttribute(scan, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    }
+    scan<<<static_cast<unsigned>(f.nchunks), kFmScanThreads, smem, f.stream>>>(
+        f.V, f.a, f.b, f.sidx, f.out, f.part_first, f.part_last, f.flags, f.n,
+        f.rows);
+  } else {
+    auto local = bf16 ? fm_push_local_kernel<kDim, true> : fm_push_local_kernel<kDim, false>;
+    local<<<static_cast<unsigned>(f.nchunks), kFmThreads, 0, f.stream>>>(
+        f.V, f.a, f.b, f.sidx, f.out, f.part_first, f.part_last, f.flags, f.n,
+        f.rows);
+  }
   fm_push_combine_kernel<kDim><<<blocks_for(f.nchunks * 32), kThreads, 0, f.stream>>>(
       f.V, f.sidx, f.out, f.part_first, f.part_last, f.flags, f.nchunks);
 }

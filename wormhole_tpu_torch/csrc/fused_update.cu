@@ -10,24 +10,45 @@
 // scatter_update: the TPU kernel walks each touched (512, 128) table tile,
 // scatters the compact gradient into it with a one-hot MXU matmul, applies
 // the FTRL / AdaGrad / SGD handle to the whole tile and writes the tile
-// back. Here uniq names each key at
-// most once, so one thread per compact slot reads the key's state, applies
-// the handle and writes it back: no scatter, no collisions, and the
-// untouched entries of a touched tile are never read (in the TPU kernel
-// they are exact no-ops: FTRL with g = 0, and the g != 0 mask of
-// AdaGrad/SGD).
+// back. Here uniq names each key at most once, so each live slot's key is
+// read, updated and written back by one thread: no scatter, no
+// collisions, and the untouched entries of a touched tile are never read
+// (in the TPU kernel they are exact no-ops: FTRL with g = 0, and the
+// g != 0 mask of AdaGrad/SGD).
 //
-// Bound: device memory. Each live slot reads g, uniq and 1-3 state
-// entries and writes the state back; the state accesses are random over
-// the table (sorted by key, so neighbouring slots often share a sector).
+// Bound: device memory, by random accesses. Each live key costs a
+// 32-byte sector of each state table read and written back, in tables of
+// up to 256 MB, while most compact slots are sentinel holes: the pack
+// puts a tile's ~164 keys at the front of its 1,024-slot block, so at
+// 2^26 buckets 89% of the slots hold no key. On an H100 at 2^26 (167,650
+// keys) FTRL takes as long as a probe that only reads and writes back z,
+// n and w at a list of the live keys (chip_smoke.py's floor_ms): the
+// three tables' scattered sectors set it, not this kernel's structure.
+// One record of (z, n, w) per key would need one sector. The design:
+//  - a persistent grid of kSuCtasPerSm CTAs per SM; each warp walks
+//    chunks of 128 slots (4 coalesced uniq loads a lane, the next chunk's
+//    loads issued before this one is used), skips an all-sentinel chunk
+//    after one ballot, and queues the live keys of its chunks, with
+//    their g, in a ring in shared memory (ballot + popc give each key its
+//    place);
+//  - once 128 keys are queued, each lane takes 4 of them and issues all
+//    their state loads before the first use, so a random-access
+//    instruction serves 32 live keys and a thread has up to 12 in flight;
+//  - an entry is stored only where its bits change, so a w that stays 0
+//    under L1 (most of a sparse model's keys) leaves its line clean;
+//  - the |w|_0 delta: per-CTA integer counts go to scratch, and the last
+//    CTA to finish (a ticket counter) sums them in a fixed order, writes
+//    new_w and resets the counter. One launch per call, no memset.
+// The kernel is right for any uniq (sentinels anywhere, keys in any
+// order); the prefix layout only makes the chunk skip pay.
 //
 // Numerics follow models/linear._update of the JAX package in f32 with
 // IEEE sqrt and division; the build passes -fmad=false so no product is
 // fused into an add the plain version rounds separately. The push filter
 // (fixed_bytes) rounds half to even (rintf), like jnp.round. In bf16 mode
 // the gradient is rounded to bf16 before the filter, where the TPU
-// kernel's scatter matmul rounds it. The |w|_0 delta is an integer block
-// count plus one integer atomic per block, so it is deterministic.
+// kernel's scatter matmul rounds it. The |w|_0 delta is an integer sum,
+// so it is deterministic.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,7 +57,16 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 enum Algo { kFtrl = 0, kAdagrad = 1, kSgd = 2 };
+
+constexpr int kSuThreads = 256;
+constexpr int kSuWarps = kSuThreads / 32;
+constexpr int kSuCtasPerSm = 3;  // 85 registers a thread: no spills
+constexpr int kSuChunk = 128;  // slots a warp loads at once, 4 a lane
+constexpr int kSuPer = 4;      // queued keys a lane updates at once
+constexpr int kSuFlush = 32 * kSuPer;
+constexpr int kSuRing = 256;   // >= kSuFlush - 1 + kSuChunk, a power of 2
 
 struct Hyper {
   float lr_eta, lr_beta, lambda_l1, lambda_l2, sgd_eta;
@@ -55,57 +85,208 @@ __device__ __forceinline__ float l1l2_solve(float neg_z, float eta, float l1,
 }
 
 template <int kFixedBytes>
-__device__ __forceinline__ float quantize(float g, const float* qscale) {
+__device__ __forceinline__ float quantize(float g, float s) {
   if (kFixedBytes == 0) return g;
   if (kFixedBytes >= 2) return round_bf16(g);
-  const float s = *qscale;
   const float q = fminf(fmaxf(rintf(g / s), -127.0f), 127.0f);
   return q * s;
 }
 
+// A store only where the value's bits change: an unchanged entry (w that
+// stays 0 under L1, a count that adds 0) leaves its line clean, and a
+// clean line costs no write back to device memory.
+__device__ __forceinline__ void store_changed(float* p, float old, float v) {
+  if (__float_as_int(v) != __float_as_int(old)) *p = v;
+}
+
+__device__ __forceinline__ int warp_sum(int x) {
+#pragma unroll
+  for (int off = 16; off >= 1; off >>= 1) x += __shfl_xor_sync(kFull, x, off);
+  return x;
+}
+
+// The uniq values of one 128-slot chunk: lane l holds slots l, l + 32,
+// l + 64, l + 96 (each load coalesced); -1 past the end.
+__device__ __forceinline__ void load_chunk(const int* __restrict__ uniq,
+                                           int64_t c, int64_t u_cap,
+                                           unsigned lane, int (&key)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int64_t s = c * kSuChunk + j * 32 + lane;
+    key[j] = s < u_cap ? __ldcs(&uniq[s]) : -1;
+  }
+}
+
+// Update the `count` keys queued from ring position `head` on; lane l
+// takes queue entries l, l + 32, ... All state loads are issued before
+// the first use. Returns this lane's part of the |w|_0 delta.
 template <int kAlgo, int kFixedBytes, bool kBf16, bool kAdd>
-__global__ void scatter_update_kernel(
+__device__ __forceinline__ int update_queued(
+    float* __restrict__ z, float* __restrict__ n, float* __restrict__ w,
+    float* __restrict__ add_table, const int* q_key, const float* q_g,
+    const float* q_add, int head, int count, unsigned lane, const Hyper& h,
+    float qs) {
+  int k[kSuPer];
+  float raw[kSuPer], av[kSuPer], w0[kSuPer], z0[kSuPer], n0[kSuPer],
+      c0[kSuPer];
+  bool on[kSuPer];
+#pragma unroll
+  for (int j = 0; j < kSuPer; ++j) {
+    const int i = static_cast<int>(lane) + 32 * j;
+    const int pos = (head + i) & (kSuRing - 1);
+    on[j] = false;
+    if (i < count) {
+      k[j] = q_key[pos];
+      raw[j] = q_g[pos];
+      if (kBf16) raw[j] = round_bf16(raw[j]);
+      if (kAdd) av[j] = q_add[pos];
+      // FTRL updates every live key; AdaGrad/SGD only the pushed ones
+      on[j] = kAlgo == kFtrl || raw[j] != 0.0f;
+      if (on[j]) {
+        w0[j] = w[k[j]];
+        if (kAlgo == kFtrl) z0[j] = z[k[j]];
+        if (kAlgo != kSgd) n0[j] = n[k[j]];
+      }
+      if (kAdd) c0[j] = add_table[k[j]];
+    }
+  }
+  int delta = 0;
+#pragma unroll
+  for (int j = 0; j < kSuPer; ++j) {
+    const int i = static_cast<int>(lane) + 32 * j;
+    if (i >= count) continue;
+    if (kAdd) store_changed(&add_table[k[j]], c0[j], c0[j] + av[j]);
+    if (!on[j]) continue;
+    const float gq = quantize<kFixedBytes>(raw[j], qs);
+    float w2;
+    if (kAlgo == kFtrl) {
+      const float sigma = (sqrtf(n0[j] + gq * gq) - sqrtf(n0[j])) / h.lr_eta;
+      const float z2 = z0[j] + (gq - sigma * w0[j]);
+      const float n2 = n0[j] + gq * gq;
+      const float eta = (h.lr_beta + sqrtf(n2)) / h.lr_eta;
+      w2 = l1l2_solve(-z2, eta, h.lambda_l1, h.lambda_l2);
+      store_changed(&z[k[j]], z0[j], z2);
+      store_changed(&n[k[j]], n0[j], n2);
+    } else {
+      float eta = h.sgd_eta;
+      if (kAlgo == kAdagrad) {
+        const float n2 = n0[j] + gq * gq;
+        eta = (h.lr_beta + sqrtf(n2)) / h.lr_eta;
+        store_changed(&n[k[j]], n0[j], n2);
+      }
+      w2 = l1l2_solve(eta * w0[j] - gq, eta, h.lambda_l1, h.lambda_l2);
+    }
+    store_changed(&w[k[j]], w0[j], w2);
+    delta += static_cast<int>(w2 != 0.0f) - static_cast<int>(w0[j] != 0.0f);
+  }
+  return delta;
+}
+
+// scratch: [0] the finished-CTA ticket (0 between launches), [1 + b] the
+// |w|_0 count of CTA b.
+template <int kAlgo, int kFixedBytes, bool kBf16, bool kAdd>
+__global__ void __launch_bounds__(kSuThreads, kSuCtasPerSm)
+scatter_update_kernel(
     float* __restrict__ z, float* __restrict__ n, float* __restrict__ w,
     float* __restrict__ add_table, const float* __restrict__ add_values,
     const float* __restrict__ g, const int* __restrict__ uniq,
     const float* __restrict__ qscale, int64_t u_cap, int64_t num_buckets,
-    Hyper h, int* __restrict__ new_w) {
-  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int k = s < u_cap ? uniq[s] : -1;
-  const bool live = k >= 0 && k < num_buckets;  // sentinel slots skip
-  bool was_nz = false, is_nz = false;
-  if (live) {
-    float raw = g[s];
-    if (kBf16) raw = round_bf16(raw);
-    const float gq = quantize<kFixedBytes>(raw, qscale);
-    const float w0 = w[k];
-    float w2 = w0;
-    if (kAlgo == kFtrl) {
-      const float z0 = z[k], n0 = n[k];
-      const float sigma = (sqrtf(n0 + gq * gq) - sqrtf(n0)) / h.lr_eta;
-      const float z2 = z0 + (gq - sigma * w0);
-      const float n2 = n0 + gq * gq;
-      const float eta = (h.lr_beta + sqrtf(n2)) / h.lr_eta;
-      w2 = l1l2_solve(-z2, eta, h.lambda_l1, h.lambda_l2);
-      z[k] = z2;
-      n[k] = n2;
-    } else if (raw != 0.0f) {  // touched: the key received a push
-      float eta = h.sgd_eta;
-      if (kAlgo == kAdagrad) {
-        const float n2 = n[k] + gq * gq;
-        eta = (h.lr_beta + sqrtf(n2)) / h.lr_eta;
-        n[k] = n2;
-      }
-      w2 = l1l2_solve(eta * w0 - gq, eta, h.lambda_l1, h.lambda_l2);
+    Hyper h, int* __restrict__ new_w, int* __restrict__ scratch) {
+  __shared__ int q_key[kSuWarps][kSuRing];
+  __shared__ float q_g[kSuWarps][kSuRing];
+  __shared__ float q_add[kSuWarps][kAdd ? kSuRing : 1];
+  __shared__ int part[kSuWarps];
+  __shared__ bool last_cta;
+  const unsigned lane = threadIdx.x & 31u;
+  const int warp = threadIdx.x >> 5;
+  const unsigned below = (1u << lane) - 1u;
+  const int64_t nchunks = (u_cap + kSuChunk - 1) / kSuChunk;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSuWarps;
+  const float qs = kFixedBytes == 1 ? *qscale : 1.0f;
+  int* qk = q_key[warp];
+  float* qg = q_g[warp];
+  float* qa = q_add[warp];
+  int head = 0, tail = 0;  // ring positions, the same in every lane
+  int delta = 0;
+
+  int64_t c = static_cast<int64_t>(blockIdx.x) * kSuWarps + warp;
+  int key[4];
+  load_chunk(uniq, c, u_cap, lane, key);
+  while (c < nchunks) {
+    const int64_t cn = c + stride;
+    int next[4];
+    load_chunk(uniq, cn, u_cap, lane, next);
+    bool live[4];
+    bool any = false;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      live[j] = key[j] >= 0 && key[j] < num_buckets;  // sentinels skip
+      any |= live[j];
     }
-    w[k] = w2;
-    if (kAdd) add_table[k] += add_values[s];
-    was_nz = w0 != 0.0f;
-    is_nz = w2 != 0.0f;
+    if (__any_sync(kFull, any)) {
+      float gv[4], av[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int64_t s = c * kSuChunk + j * 32 + lane;
+        if (live[j]) {
+          gv[j] = g[s];
+          if (kAdd) av[j] = add_values[s];
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const unsigned m = __ballot_sync(kFull, live[j]);
+        if (live[j]) {
+          const int pos = (tail + __popc(m & below)) & (kSuRing - 1);
+          qk[pos] = key[j];
+          qg[pos] = gv[j];
+          if (kAdd) qa[pos] = av[j];
+        }
+        tail += __popc(m);
+      }
+      __syncwarp();
+      if (tail - head >= kSuFlush) {
+        delta += update_queued<kAlgo, kFixedBytes, kBf16, kAdd>(
+            z, n, w, add_table, qk, qg, qa, head, kSuFlush, lane, h, qs);
+        head += kSuFlush;
+        __syncwarp();
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) key[j] = next[j];
+    c = cn;
   }
-  const int c_new = __syncthreads_count(is_nz);
-  const int c_old = __syncthreads_count(was_nz);
-  if (threadIdx.x == 0 && c_new != c_old) atomicAdd(new_w, c_new - c_old);
+  if (tail > head) {
+    delta += update_queued<kAlgo, kFixedBytes, kBf16, kAdd>(
+        z, n, w, add_table, qk, qg, qa, head, tail - head, lane, h, qs);
+  }
+
+  delta = warp_sum(delta);
+  if (lane == 0u) part[warp] = delta;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int sum = 0;
+    for (int i = 0; i < kSuWarps; ++i) sum += part[i];
+    scratch[1 + blockIdx.x] = sum;
+    __threadfence();
+    last_cta = atomicAdd(&scratch[0], 1) == static_cast<int>(gridDim.x) - 1;
+  }
+  __syncthreads();
+  if (!last_cta) return;
+  __threadfence();
+  int sum = 0;
+  for (int i = threadIdx.x; i < static_cast<int>(gridDim.x); i += kSuThreads) {
+    sum += __ldcg(&scratch[1 + i]);
+  }
+  sum = warp_sum(sum);
+  if (lane == 0u) part[warp] = sum;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    int total = 0;
+    for (int i = 0; i < kSuWarps; ++i) total += part[i];
+    *new_w = total;
+    scratch[0] = 0;
+  }
 }
 
 struct Args {
@@ -114,18 +295,17 @@ struct Args {
   const int* uniq;
   int64_t u_cap, num_buckets;
   Hyper h;
-  int* new_w;
+  int *new_w, *scratch;
+  unsigned ctas;
   cudaStream_t stream;
 };
 
 template <int kAlgo, int kFixedBytes, bool kBf16, bool kAdd>
 void launch(const Args& a) {
-  const unsigned blocks = static_cast<unsigned>((a.u_cap + kThreads - 1) / kThreads);
   scatter_update_kernel<kAlgo, kFixedBytes, kBf16, kAdd>
-      <<<blocks, kThreads, 0, a.stream>>>(a.z, a.n, a.w, a.add_table,
-                                          a.add_values, a.g, a.uniq, a.qscale,
-                                          a.u_cap, a.num_buckets, a.h,
-                                          a.new_w);
+      <<<a.ctas, kSuThreads, 0, a.stream>>>(
+          a.z, a.n, a.w, a.add_table, a.add_values, a.g, a.uniq, a.qscale,
+          a.u_cap, a.num_buckets, a.h, a.new_w, a.scratch);
 }
 
 template <int kAlgo, int kFixedBytes, bool kBf16>
@@ -148,6 +328,18 @@ bool launch_fixed(const Args& a, int fixed_bytes, bool bf16) {
     case 2: launch_bf16<kAlgo, 2>(a, bf16); return true;
     default: return false;
   }
+}
+
+// SMs of the current device, read once per device.
+int sm_count() {
+  static int cache[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev >= 0 && dev < 64 && cache[dev]) return cache[dev];
+  int v = 0;
+  cudaDeviceGetAttribute(&v, cudaDevAttrMultiProcessorCount, dev);
+  if (dev >= 0 && dev < 64) cache[dev] = v;
+  return v > 0 ? v : 1;
 }
 
 // ------------------------------------------------ embedding-row kernels
@@ -218,14 +410,20 @@ const char* wh_fused_error_string(int code) {
 
 // algo: 0 ftrl {z, n, w}, 1 adagrad {n, w}, 2 sgd {w}; unused table
 // pointers may be null. add_table/add_values: optional additive table
-// (null for none). qscale: device scalar, read only when fixed_bytes == 1.
-// new_w: device int32, set to the step's |w|_0 delta.
+// (null for none). qscale: device scalar, read only when fixed_bytes == 1
+// (may be null otherwise). new_w: device int32, set to the step's |w|_0
+// delta. scratch: scratch_ints >= 2 device int32, zero before the first
+// call and left zero by each (one stream at a time). One launch.
 int wh_scatter_update(int algo, int fixed_bytes, int bf16, void* z, void* n,
                       void* w, void* add_table, const void* add_values,
                       const void* g, const void* uniq, const void* qscale,
                       int64_t u_cap, int64_t num_buckets, float lr_eta,
                       float lr_beta, float lambda_l1, float lambda_l2,
-                      float sgd_eta, void* new_w, void* stream) {
+                      float sgd_eta, void* new_w, void* scratch,
+                      int64_t scratch_ints, void* stream) {
+  if ((fixed_bytes == 1 && !qscale) || scratch_ints < 2 || u_cap < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   Args a;
   a.z = static_cast<float*>(z);
   a.n = static_cast<float*>(n);
@@ -239,9 +437,16 @@ int wh_scatter_update(int algo, int fixed_bytes, int bf16, void* z, void* n,
   a.num_buckets = num_buckets;
   a.h = Hyper{lr_eta, lr_beta, lambda_l1, lambda_l2, sgd_eta};
   a.new_w = static_cast<int*>(new_w);
+  a.scratch = static_cast<int*>(scratch);
   a.stream = static_cast<cudaStream_t>(stream);
-  cudaMemsetAsync(new_w, 0, sizeof(int), a.stream);
-  if (u_cap <= 0) return static_cast<int>(cudaGetLastError());
+  // enough warps for the chunks, at most kSuCtasPerSm CTAs an SM
+  const int64_t warps = (u_cap + kSuChunk - 1) / kSuChunk;
+  int64_t ctas = (warps + kSuWarps - 1) / kSuWarps;
+  ctas = ctas < 1 ? 1 : ctas;
+  const int64_t cap = static_cast<int64_t>(sm_count()) * kSuCtasPerSm;
+  ctas = ctas < cap ? ctas : cap;
+  ctas = ctas < scratch_ints - 1 ? ctas : scratch_ints - 1;
+  a.ctas = static_cast<unsigned>(ctas);
   bool ok = false;
   switch (algo) {
     case kFtrl: ok = launch_fixed<kFtrl>(a, fixed_bytes, bf16 != 0); break;

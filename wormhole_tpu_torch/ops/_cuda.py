@@ -51,7 +51,8 @@ _SIGNATURES = {
     },
     "fused_update": {
         "wh_scatter_update": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                              _I64, _I64, _F, _F, _F, _F, _F, _P, _P],
+                              _I64, _I64, _F, _F, _F, _F, _F, _P, _P,
+                              _I64, _P],
         "wh_row_tile_gather": [_P, _P, _P, _I64, _I64, _I, _I, _P],
         "wh_v_scatter_update": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I,
                                 _F, _F, _F, _P],
@@ -142,8 +143,10 @@ def check(name: str, rc: int, what: str) -> None:
 
 
 def stream(t: torch.Tensor) -> int:
-    """PyTorch's current stream on t's device, as a pointer."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on t's device, as a pointer, read without
+    building a Stream object (torch.cuda.current_stream does, at a cost
+    of microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ptr(t) -> int | None:

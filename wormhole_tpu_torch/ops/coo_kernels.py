@@ -440,9 +440,151 @@ def fm_push_contrib_plain(V, a, b, sidx, dtype):
     return acc[:, :dim] - acc[:, dim:] * V
 
 
-# stream entries per CTA of csrc/coo_kernels.cu fm_push_local_kernel; the
-# wrapper sizes the per-chunk scratch with it
+# The geometry of csrc/coo_kernels.cu's FM push: stream entries per CTA
+# (the wrapper sizes the per-chunk scratch with it), the scan kernel's
+# threads, the largest dim it takes, and the combine's window of chunks.
 _FM_CHUNK = 1024
+_FM_SCAN_THREADS = 128
+_FM_SCAN_MAX_DIM = 16
+_FM_WINDOW = 32
+_FM_FIRST_CONT, _FM_LAST_CONT, _FM_SINGLE = 1, 2, 4
+
+
+def _seg_combine(left, right):
+    """(flag, value) of the left part, then the right part: the value
+    restarts where the right part holds a run head."""
+    (lf, lv), (rf, rv) = left, right
+    return lf or rf, rv if rf else lv + rv
+
+
+def fm_push_mirror(V, a, b, sidx, bf16: bool = False):
+    """numpy mirror of the FM push's bookkeeping on the card: the chunks
+    of _FM_CHUNK entries, and in each (dim <= 16) the threads' slices of
+    consecutive entries, run heads, the sums inside a slice, the
+    segmented scan of the slices' tails over each warp and then the
+    warps in order, and which thread writes a run; for dim >= 32 a run's
+    sum in the chunk. Runs cut by a chunk edge go to the first/last
+    partials with the kernels' flags and are finished by the combine's
+    walk over windows of _FM_WINDOW chunks. Rows no run writes keep the
+    output's zeros. Returns the (rows, dim) f32 output, summed in f32 in
+    the kernels' order (numpy arrays in, numpy out)."""
+    V = np.asarray(V, np.float32)
+    rows, dim = V.shape
+    sidx = np.asarray(sidx, np.int64)
+    ab = np.concatenate([np.asarray(a, np.float32).reshape(-1, dim),
+                         np.asarray(b, np.float32)[:, None]], axis=1)
+    if bf16:
+        ab = torch.from_numpy(ab).to(torch.bfloat16).float().numpy()
+    n = sidx.shape[0]
+    if n and (sidx.min() < 0 or sidx.max() >= rows):
+        raise ValueError("fm_push_mirror: sidx out of range (the kernel "
+                         "traps)")
+    out = np.zeros((rows, dim), np.float32)
+    nchunks = -(-n // _FM_CHUNK)
+    part_first = np.zeros((max(nchunks, 1), dim + 1), np.float32)
+    part_last = np.zeros_like(part_first)
+    flags = np.zeros(max(nchunks, 1), np.int64)
+    zero = np.zeros(dim + 1, np.float32)
+
+    for c in range(nchunks):
+        base = c * _FM_CHUNK
+        cnt = min(n - base, _FM_CHUNK)
+        keys, vals = sidx[base:base + cnt], ab[base:base + cnt]
+        cont_before = base > 0 and sidx[base - 1] == keys[0]
+        cont_after = base + cnt < n and sidx[base + cnt] == keys[cnt - 1]
+
+        def emit(tot, key, first_run, last_run):
+            if first_run and cont_before:
+                part_first[c] = tot
+            elif last_run and cont_after:
+                part_last[c] = tot
+            elif tot.any():
+                out[key] = tot[:dim] - tot[dim] * V[key]
+
+        heads = np.flatnonzero(keys[1:] != keys[:-1]) + 1
+        if dim > _FM_SCAN_MAX_DIM:  # a warp per run: one sum per run
+            starts = np.concatenate([[0], heads])
+            ends = np.concatenate([heads, [cnt]])
+            for r, (lo, hi) in enumerate(zip(starts, ends)):
+                emit(vals[lo:hi].sum(0, dtype=np.float32), keys[lo],
+                     r == 0, r == len(starts) - 1)
+        else:
+            items = _FM_CHUNK // _FM_SCAN_THREADS
+            is_head = np.zeros(cnt, bool)
+            is_head[heads] = True
+            # each thread: serial sums of its slice, cut at run heads
+            slices = []
+            for t in range(_FM_SCAN_THREADS):
+                e0, e1 = t * items, min(t * items + items, cnt)
+                h0 = t > 0 and e0 < cnt and is_head[e0]
+                acc, first, cuts = zero.copy(), None, 0
+                for e in range(e0, e1):
+                    if e > e0 and is_head[e]:
+                        if cuts == 0:
+                            first = acc
+                        else:
+                            emit(acc, keys[e - 1], False, False)
+                        acc, cuts = zero.copy(), cuts + 1
+                    acc = acc + vals[e]
+                slices.append((e0, e1, h0, cuts, first, acc))
+            # the tails' segmented scan: Hillis-Steele over each warp's
+            # lanes, then the warps before in order
+            inc = [(s[2] or s[3] > 0, s[5]) for s in slices]
+            for w0 in range(0, _FM_SCAN_THREADS, 32):
+                for off in (1, 2, 4, 8, 16):
+                    prev = inc[w0:w0 + 32]
+                    for lane in range(off, 32):
+                        inc[w0 + lane] = _seg_combine(prev[lane - off],
+                                                      prev[lane])
+            prefix, carries = (False, zero), []
+            for w0 in range(0, _FM_SCAN_THREADS, 32):
+                for lane in range(32):
+                    excl = (inc[w0 + lane - 1] if lane else (False, zero))
+                    carries.append(_seg_combine(prefix, excl))
+                prefix = _seg_combine(prefix, inc[w0 + 31])
+            for (e0, e1, h0, cuts, first, acc), (cf, carry) in zip(slices,
+                                                                  carries):
+                if e0 >= cnt:
+                    continue
+                first_run = not cf and not h0
+                lead = zero if h0 else carry
+                if cuts:
+                    emit(lead + first, keys[e0], first_run, False)
+                    tot = acc
+                else:
+                    tot = lead + acc
+                if e1 == cnt or is_head[e1]:
+                    emit(tot, keys[e1 - 1], cuts == 0 and first_run,
+                         e1 == cnt)
+        flags[c] = ((_FM_FIRST_CONT if cont_before else 0)
+                    | (_FM_LAST_CONT if cont_after else 0)
+                    | (_FM_SINGLE if len(heads) == 0 else 0))
+
+    # the combine: a chunk whose last run continues and that is not
+    # itself a through chunk sums the partials up to the run's end
+    through = _FM_FIRST_CONT | _FM_LAST_CONT | _FM_SINGLE
+    for c in range(nchunks):
+        f = flags[c]
+        if not f & _FM_LAST_CONT or f & through == through:
+            continue
+        lanes = [part_last[c]] + [zero] * (_FM_WINDOW - 1)
+        v0 = c + 1
+        while True:
+            vs = range(v0, v0 + _FM_WINDOW)
+            ends = [v >= nchunks or flags[v] & through != through
+                    for v in vs]
+            end_lane = ends.index(True) if True in ends else _FM_WINDOW
+            for lane, v in enumerate(vs):
+                if lane <= end_lane and v < nchunks:
+                    lanes[lane] = lanes[lane] + part_first[v]
+            if True in ends:
+                break
+            v0 += _FM_WINDOW
+        tot = np.sum(lanes, axis=0, dtype=np.float32)
+        if tot.any():
+            key = sidx[(c + 1) * _FM_CHUNK - 1]
+            out[key] = tot[:dim] - tot[dim] * V[key]
+    return out
 
 
 def fm_push_contrib(V, a, b, sidx, tmap, first, dtype=None):
@@ -455,9 +597,13 @@ def fm_push_contrib(V, a, b, sidx, tmap, first, dtype=None):
     whose pad entries carry a = b = 0. tmap and first are the TPU
     layout's block maps, kept for signature parity.
 
+    On the card: the output's memset, then fm_push_scan_kernel (dim <=
+    16) or fm_push_local_kernel, then fm_push_combine_kernel; no host
+    sync. fm_push_mirror follows their bookkeeping in numpy.
+
     Replaces wormhole_tpu/ops/coo_kernels.py fm_push_contrib
     (_fm_push_contrib_kernel). Kernel: csrc/coo_kernels.cu
-    fm_push_local_kernel + fm_push_combine_kernel."""
+    fm_push_scan_kernel or fm_push_local_kernel, + fm_push_combine_kernel."""
     dtype = kernel_dtype(dtype, V)
     rows, dim = V.shape
     check_dim(dim)
@@ -473,13 +619,16 @@ def fm_push_contrib(V, a, b, sidx, tmap, first, dtype=None):
     n = sidx.numel()
     nchunks = -(-n // _FM_CHUNK)
     out = torch.empty(rows, dim, dtype=torch.float32, device=V.device)
-    part = torch.empty(2, max(nchunks, 1), dim + 1, dtype=torch.float32,
+    # one scratch allocation: the first and the last partials of each
+    # chunk, then its flags (int32)
+    nc = max(nchunks, 1)
+    part = torch.empty(nc * (2 * dim + 3), dtype=torch.float32,
                        device=V.device)
-    flags = torch.empty(max(nchunks, 1), dtype=torch.int32, device=V.device)
+    p0 = part.data_ptr()
     rc = _cuda.lib("coo_kernels").wh_fm_push_contrib(
         V.data_ptr(), a.data_ptr(), b.data_ptr(), sidx.data_ptr(),
-        out.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        flags.data_ptr(), n, rows, dim, _FM_CHUNK,
+        out.data_ptr(), p0, p0 + 4 * nc * (dim + 1),
+        p0 + 8 * nc * (dim + 1), n, rows, dim, _FM_CHUNK,
         int(dtype == torch.bfloat16), _cuda.stream(V))
     _cuda.check("coo_kernels", rc, "fm_push_contrib")
     _cuda.LAUNCHES["fm_push_contrib"] += 1

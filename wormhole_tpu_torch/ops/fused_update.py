@@ -73,6 +73,21 @@ def _qscale(g, fixed_bytes: int):
     return torch.ones((), dtype=torch.float32, device=g.device)
 
 
+# scatter_update's kernel keeps a ticket counter and per-CTA counts here
+# (csrc/fused_update.cu): one zeroed buffer per device and stream, which
+# each launch leaves zero; 4,097 ints cover 1,365 SMs at 3 CTAs each.
+_SCRATCH: dict = {}
+_SCRATCH_INTS = 4097
+
+
+def _scratch(device, stream: int):
+    key = (device, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(_SCRATCH_INTS, dtype=torch.int32,
+                                    device=device)
+    return _SCRATCH[key]
+
+
 def scatter_update_plain(algo: str, state: dict, g, uniq, *, lr_eta,
                          lr_beta, lambda_l1, lambda_l2, fixed_bytes=0,
                          dtype=torch.float32, add_table=None,
@@ -113,6 +128,8 @@ def scatter_update(algo: str, state: dict, g, uniq, tmap_u, first_u,
     {w,n}, sgd {w}. g/uniq are (u_cap,) from coo_spmv_t / pack_tile_coo;
     sentinel slots (uniq == num_buckets) are skipped. tmap_u, first_u and
     last_u are the TPU layout's block maps, kept for signature parity.
+    On the card: one kernel launch, no host sync (with fixed_bytes=1 the
+    int8 scale's torch reduction comes first).
 
     Replaces wormhole_tpu/ops/fused_update.py scatter_update (_kernel).
     Kernel: csrc/fused_update.cu scatter_update_kernel."""
@@ -141,15 +158,18 @@ def scatter_update(algo: str, state: dict, g, uniq, tmap_u, first_u,
         if t.numel() != w.numel():
             raise ValueError(f"scatter_update: table {k} has {t.numel()} "
                              f"entries, w has {w.numel()}")
-    qscale = _qscale(g, fixed_bytes)
+    # only the int8 filter reads the scale: no device work otherwise
+    qscale = _qscale(g, fixed_bytes) if fixed_bytes == 1 else None
     nw = torch.empty((), dtype=torch.int32, device=w.device)
+    st = _cuda.stream(w)
+    scratch = _scratch(w.device, st)
     rc = _cuda.lib("fused_update").wh_scatter_update(
         _ALGO_ID[algo], fixed_bytes, int(dtype == torch.bfloat16),
         _cuda.ptr(tabs.get("z")), _cuda.ptr(tabs.get("n")), w.data_ptr(),
         _cuda.ptr(add_tab), _cuda.ptr(add_values), g.data_ptr(),
-        uniq.data_ptr(), qscale.data_ptr(), uniq.numel(), w.numel(),
+        uniq.data_ptr(), _cuda.ptr(qscale), uniq.numel(), w.numel(),
         lr_eta, lr_beta, lambda_l1, lambda_l2, 1.0 / lr_eta,
-        nw.data_ptr(), _cuda.stream(w))
+        nw.data_ptr(), scratch.data_ptr(), scratch.numel(), st)
     _cuda.check("fused_update", rc, "scatter_update")
     _cuda.LAUNCHES["scatter_update"] += 1
     return state, nw
