@@ -19,13 +19,17 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    the card at the paths' shapes (the COO and FM kernels in f32 and
    bf16), and times kernel, plain version and one PyTorch library call
    (CUDA events; for the kernel also the profiler's device time and the
-   host's enqueue time per call, and for scatter_update a probe that only
-   reads and writes back its keys' state); the DiFacto half runs on a
+   host's enqueue time per call, for scatter_update a probe that only
+   reads and writes back its keys' state, and for coo_spmv two probes
+   that read its stream, then also add one global f32 red per entry);
+   coo_spmv_t must give exactly 0 at every untouched bucket, dense and
+   compact; the DiFacto half runs on a
    full-width batch packed by the learner's own pack; level_hist runs on
    the inputs a real round gives it at each of its six levels, with
    quantile bins and with the same rows in 0/1 bins, and its partition of the rows by node is held
    against a stable sort there; every library's ptxas figures and
-   whether hist's shared f32 atomic is a native add are printed;
+   whether the f32 atomics of level_hist (shared) and coo_spmv (global)
+   are native adds are printed;
 2. runs LinearLearner on the card at 2^22 buckets (dense tables, kernels
    coo_spmv + coo_spmv_t) and 2^26 buckets (compacted path, tile_gather +
    coo_spmv_t + scatter_update): train steps, eval, predict, each against
@@ -262,12 +266,15 @@ def to_rowblock(seg, idx, val, label):
 
 # ------------------------------------------------------------- phase 1
 def check_kernels(device, dense_buckets=DENSE_BUCKETS,
-                  compact_buckets=COMPACT_BUCKETS, touch=None) -> dict:
+                  compact_buckets=COMPACT_BUCKETS, probe=None) -> dict:
     """Each kernel against its plain version at the main path's shapes.
     Returns per-kernel numbers (max_abs_err, ms, device_ms, host_us,
-    plain_ms, library_ms, bound_ms, bound_by); with the touch probe
-    (finish_touch_build), scatter_update's also has floor_ms, the probe's
-    time at the same keys."""
+    plain_ms, library_ms, bound_ms, bound_by), and coo_spmv_t's times on
+    the compact domain (coo_spmv_t_compact). With the probes
+    (finish_probe_build),
+    scatter_update's also has floor_ms, the touch probe's time at the same
+    keys, and coo_spmv's the pull probes' times on the same stream
+    (probe)."""
     import torch
 
     from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
@@ -318,6 +325,12 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
         library_ms=time_ms(lambda: torch.zeros(
             MINIBATCH, device=device).index_add_(
             0, sseg, w.index_select(0, sidx) * sval), device))
+    if probe is not None:
+        out["coo_spmv"]["probe"] = pull_probe_ms(probe, device, sidx, sseg,
+                                                 sval, MINIBATCH)
+        log(f"[probe] coo_spmv dense batch: " + json.dumps(dict(
+            out["coo_spmv"]["probe"],
+            kernel_device_ms=out["coo_spmv"]["device_ms"])))
 
     errs = []
     mag = ck.coo_spmv_t_plain(d.abs(), sidx, sseg, sval.abs(),
@@ -397,9 +410,16 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     compare("coo_spmv_t compact f32", g, gp, 1e-5, 1e-4,
             ck.coo_spmv_t_plain(d.abs(), csidx, csseg, csval.abs(), u_cap,
                                 f32))
-    log(f"[kernel] coo_spmv_t compact: " + json.dumps(timings(
+    untouched = torch.ones(u_cap, dtype=torch.bool, device=device)
+    untouched[csidx[csval != 0].long()] = False
+    if (g[untouched] != 0).any():
+        raise AssertionError("coo_spmv_t compact: untouched slot not "
+                             "exactly 0")
+    out["coo_spmv_t_compact"] = timings(
         lambda: ck.coo_spmv_t(d, csidx, csseg, csval, None, None, u_cap,
-                              f32), device)))
+                              f32), device)
+    log(f"[kernel] coo_spmv_t compact: "
+        + json.dumps(out["coo_spmv_t_compact"]))
     hyper = dict(lr_eta=0.1, lr_beta=1.0, lambda_l1=1.0, lambda_l2=0.1)
     errs, times = [], {}
     tg = torch.Generator(device=device).manual_seed(12)
@@ -439,9 +459,9 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     out["scatter_update"] = dict(
         max_abs_err=max(errs), library_ms=None,
         **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, fl))), **times)
-    if touch is not None:
+    if probe is not None:
         keys = uniq[uniq < compact_buckets].contiguous()
-        out["scatter_update"]["floor_ms"] = touch_ms(touch, device, base,
+        out["scatter_update"]["floor_ms"] = touch_ms(probe, device, base,
                                                      keys)
     for k, v in out.items():
         log(f"[kernel] {k}: {v}")
@@ -1170,9 +1190,13 @@ def check_partition(rel, nodes: int, n_active: int, level: int,
     return lv
 
 
-# The least time scatter_update's access pattern allows: one thread per
-# live key reads z, n and w at its key and writes them back, nothing else.
-TOUCH_CU = r"""
+# Probes, built beside the kernels. touch: the least time scatter_update's
+# access pattern allows, one thread per live key that reads z, n and w at
+# its key and writes them back, nothing else. pull_read and pull_red: what
+# bounds coo_spmv, one thread per stream entry that reads val, and idx and
+# seg where val != 0 (read), then adds val at seg with one global f32 red
+# (red), without the gather of w.
+PROBE_CU = r"""
 #include <cuda_runtime.h>
 __global__ void touch(float* z, float* n, float* w, const int* keys, int m) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -1183,37 +1207,82 @@ __global__ void touch(float* z, float* n, float* w, const int* keys, int m) {
   n[k] = b + 1.0f;
   w[k] = c + 1.0f;
 }
+template <bool kRed>
+__global__ void pull_probe(const int* idx, const int* seg, const float* val,
+                           float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float v = val[i];
+  if (v == 0.0f) return;
+  const int k = idx[i], r = seg[i];
+  if (kRed) {
+    atomicAdd(&out[r], v);
+  } else if (k == -1 && r == -1) {
+    out[0] = v;  // never: keeps the loads
+  }
+}
 extern "C" int wh_touch(void* z, void* n, void* w, const void* keys, int m,
                         void* stream) {
   touch<<<(m + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (float*)z, (float*)n, (float*)w, (const int*)keys, m);
   return (int)cudaGetLastError();
 }
+extern "C" int wh_pull_probe(const void* idx, const void* seg,
+                             const void* val, void* out, int n, int red,
+                             void* stream) {
+  auto k = red ? pull_probe<true> : pull_probe<false>;
+  k<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+      (const int*)idx, (const int*)seg, (const float*)val, (float*)out, n);
+  return (int)cudaGetLastError();
+}
 """
 
 
-def start_touch_build():
-    """nvcc of TOUCH_CU into build/, started beside the kernels' build."""
+def start_probe_build():
+    """nvcc of PROBE_CU into build/, started beside the kernels' build."""
     from wormhole_tpu_torch.ops import _cuda
 
     _cuda.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    src, so = _cuda.BUILD_DIR / "touch.cu", _cuda.BUILD_DIR / "libtouch.so"
-    src.write_text(TOUCH_CU)
+    src, so = _cuda.BUILD_DIR / "probe.cu", _cuda.BUILD_DIR / "libprobe.so"
+    src.write_text(PROBE_CU)
     return subprocess.Popen([_cuda._nvcc(), *_cuda.NVCC_FLAGS, "-o", str(so),
                              str(src)], stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), so
 
 
-def finish_touch_build(proc, so):
+def finish_probe_build(proc, so):
     import ctypes
 
     text, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc of the touch probe failed:\n{text}")
+        raise RuntimeError(f"nvcc of the probes failed:\n{text}")
     lib = ctypes.CDLL(str(so))
     lib.wh_touch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                      ctypes.c_void_p]
+    lib.wh_pull_probe.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
+
+
+def pull_probe_ms(probe, device, sidx, sseg, sval, num_rows: int) -> dict:
+    """The pull probes' device times (profiler) on a stream: read reads it
+    (pads: val only), red adds one global f32 red per live entry too. (A
+    probe's enqueue through ctypes takes about as long as the probe, so
+    CUDA events around back-to-back calls would time the host.)"""
+    import torch
+
+    out = torch.zeros(num_rows, device=device)
+
+    def run(red):
+        rc = probe.wh_pull_probe(sidx.data_ptr(), sseg.data_ptr(),
+                                 sval.data_ptr(), out.data_ptr(),
+                                 sidx.numel(), red, torch.cuda.current_stream(
+                                     device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"pull probe: CUDA error {rc}")
+
+    return {"read_device_ms": device_ms(lambda: run(0), device),
+            "red_device_ms": device_ms(lambda: run(1), device)}
 
 
 def touch_ms(touch, device, state: dict, keys) -> float:
@@ -1253,9 +1322,9 @@ def start_ptxas_report() -> dict:
 def finish_ptxas_report(procs: dict) -> None:
     """Prints ptxas's figures for each kernel of each source (over a
     kernel's template instances: the fewest and most registers, the most
-    spilled bytes and shared memory), and which SASS the shared-memory
-    f32 atomicAdd of level_hist_kernel became: a native ATOMS add, or a
-    compare-and-swap loop (ATOMS.CAS or ATOMS.CAST.SPIN)."""
+    spilled bytes and shared memory), and which SASS the f32 atomicAdd of
+    level_hist_kernel (shared memory) and of pull_kernel (device memory)
+    became: a native add, or a compare-and-swap loop (.CAS, .CAST.SPIN)."""
     import re
     import shutil
 
@@ -1285,20 +1354,33 @@ def finish_ptxas_report(procs: dict) -> None:
                 f"{f['spill']} bytes spilled, {f['smem']} bytes static smem")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("[hist-sass] cuobjdump not found: the shared f32 atomic's SASS "
-            "was not read")
+        log("[sass] cuobjdump not found: the f32 atomics' SASS was not read")
         return
-    sass = subprocess.run([tool, "-sass", str(procs["hist"][1])],
-                          capture_output=True, text=True, check=True).stdout
-    funcs = re.split(r"\n\s*Function : ", sass)
-    body = next(f for f in funcs if re.match(r"\S*level_hist_kernel", f))
+    for tag, src, kernel, what in (
+            ("hist-sass", "hist", "level_hist_kernel", "shared-memory"),
+            ("pull-sass", "coo_kernels", "pull_kernel", "global-memory")):
+        ops = sass_atomics(tool, procs[src][1], kernel)
+        cas = any(".CAS" in k for k in ops)
+        log(f"[{tag}] {kernel} {what} atomics {ops}: the f32 atomicAdd is "
+            + ("a compare-and-swap loop, not a native add" if cas
+               else "a native add"))
+
+
+def sass_atomics(tool: str, cubin, kernel: str) -> dict:
+    """The atomic and reduction instructions in the SASS of a kernel's
+    instances in a cubin, counted by their full opcode."""
+    import re
+
+    sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                          text=True, check=True).stdout
     ops = {}
-    for m in re.finditer(r"\b(ATOMS(?:\.[A-Z0-9_]+)*)", body):
-        ops[m.group(1)] = ops.get(m.group(1), 0) + 1
-    cas = any(".CAS" in k for k in ops)
-    log(f"[hist-sass] level_hist_kernel shared-memory atomics {ops}: the "
-        f"f32 atomicAdd is " + ("a compare-and-swap loop, not a native add"
-                                if cas else "a native ATOMS add"))
+    for body in re.split(r"\n\s*Function : ", sass):
+        if not re.match(rf"\S*{kernel}", body):
+            continue
+        for m in re.finditer(r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)"
+                             r"(?:\.[A-Z0-9_]+)+)", body):
+            ops[m.group(1)] = ops.get(m.group(1), 0) + 1
+    return ops
 
 
 def tree_walk(trees: dict, r: int, binned: np.ndarray) -> np.ndarray:
@@ -1599,15 +1681,15 @@ def kernel_turn(checkout: str) -> int:
     sys.path.insert(0, checkout)
     from wormhole_tpu_torch.ops import _cuda
 
-    touch_build = start_touch_build()
+    probe_build = start_probe_build()
     _cuda.build()
     device = torch.device("cuda", 0)
-    knums = check_kernels(device, touch=finish_touch_build(*touch_build))
+    knums = check_kernels(device, probe=finish_probe_build(*probe_build))
     fm = check_fm_kernels(device)
     knums["scatter_update_cnt"] = fm.pop("scatter_update")
     knums.update(fm)
     keep = ("ms", "device_ms", "host_us", "max_abs_err", "bound_ms",
-            "floor_ms")
+            "floor_ms", "probe")
     print(json.dumps({"turn": checkout, "kernels": {
         k: {a: v[a] for a in keep if a in v} for k, v in knums.items()},
         "steps": learner_steps(device)}), flush=True)
@@ -1678,15 +1760,16 @@ def main(argv=None) -> int:
     log(f"[card] torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
-    report, touch_build = start_ptxas_report(), start_touch_build()
+    report, probe_build = start_ptxas_report(), start_probe_build()
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
     finish_ptxas_report(report)
-    touch = finish_touch_build(*touch_build)
+    probe = finish_probe_build(*probe_build)
 
     t = time.perf_counter()
-    knums = check_kernels(device, touch=touch)
+    knums = check_kernels(device, probe=probe)
+    knums["coo_spmv_t"]["compact"] = knums.pop("coo_spmv_t_compact")
     fm_nums = check_fm_kernels(device)
     # scatter_update's row keeps the linear path's numbers; the
     # additive-table variant's error counts against it too
@@ -1751,7 +1834,7 @@ def main(argv=None) -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
-        for extra in ("floor_ms", "per_level"):
+        for extra in ("floor_ms", "per_level", "probe", "compact"):
             if extra in k:
                 rows[-1][extra] = k[extra]
     print(json.dumps({"kernels": rows}), flush=True)

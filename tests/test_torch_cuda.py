@@ -512,3 +512,125 @@ def test_scatter_update_one_launch_no_sync(cuda):
     device_ops = [e.name for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     assert len(device_ops) == 1, device_ops
+
+
+def _push_edge_stream(case, seed):
+    """The push's edge streams (as in tests/test_torch_kernels.py, packed
+    by the port's own host function), over 4 * TILE buckets: a run over
+    three BLK edges, runs ending on a BLK edge, tiles of pads only, live
+    runs at tile bases with pads behind, keys far apart before a tile's
+    pads, live entries with val 0, keys at tile bases, tile ends and the
+    table's last bucket; or pack_tile_coo's compact stream."""
+    nb, tile, blk = 4 * ck.TILE, ck.TILE, ck.BLK
+    rng = np.random.default_rng(seed)
+    if case == "compact":
+        from wormhole_tpu_torch.data.synth import synth_criteo_batch
+
+        seg, idx, val, _, _ = synth_criteo_batch(rng, 1024, 1 << 22)
+        return ck.pack_tile_coo(idx, seg, val, 1 << 22, nb).coo, nb
+    spread = rng.integers(0, nb, size=3000)
+    if case == "hot-run":
+        idx = np.concatenate([np.full(3 * blk + 100, 7), spread])
+    elif case == "chunk-edge":
+        idx = np.concatenate([np.full(blk, 1), np.full(blk - 5, 2),
+                              np.full(5, 3), spread[:500] % tile + tile])
+    elif case == "pads-only-tile":
+        idx = np.concatenate([spread[:800] % tile,
+                              2 * tile + spread[800:1600] % tile])
+    elif case == "base-then-pads":
+        idx = np.concatenate([np.full(5, tile), np.full(3, 2 * tile),
+                              np.full(2, 2 * tile + 9), spread[:200] % tile])
+    elif case == "sparse-then-pads":
+        idx = np.concatenate([np.arange(1, 301) * 211, spread[:400] % tile
+                              + tile])
+    elif case == "zero-val":
+        idx = np.concatenate([np.full(6, 11), [12], spread[:900]])
+    else:
+        idx = np.concatenate([[0, tile - 1, tile, 2 * tile - 1, nb - 1] * 3,
+                              spread[:700]])
+    idx = idx.astype(np.int32)
+    seg = rng.integers(0, 256, size=idx.size).astype(np.int32)
+    val = rng.normal(size=idx.size).astype(np.float32)
+    val[val == 0] = 1.0
+    if case == "zero-val":
+        val[[2, 6]] = 0.0
+    return ck.pack_sorted_coo(idx, seg, val, nb), nb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hot-run", "chunk-edge", "pads-only-tile",
+                                  "base-then-pads", "sparse-then-pads",
+                                  "zero-val", "edges", "compact"])
+def test_coo_spmv_t_edge_streams(cuda, case):
+    """The push on its edge streams against the plain version; untouched
+    buckets exactly 0."""
+    p, nb = _push_edge_stream(case, seed=len(case))
+    to = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    sidx, sseg, sval = to(p.idx), to(p.seg), to(p.val)
+    d = to(np.random.default_rng(5).normal(size=1024).astype(np.float32))
+    mag = ck.coo_spmv_t_plain(d.abs(), sidx, sseg, sval.abs(), nb,
+                              torch.float32)
+    n0 = _cuda.LAUNCHES["coo_spmv_t"]
+    for dtype in DTYPES:
+        got = ck.coo_spmv_t(d, sidx, sseg, sval, None, None, nb, dtype)
+        _sum_close(got, ck.coo_spmv_t_plain(d, sidx, sseg, sval, nb, dtype),
+                   mag)
+        assert not got[mag == 0].any()  # untouched buckets exactly 0
+    assert _cuda.LAUNCHES["coo_spmv_t"] == n0 + 2
+
+
+@pytest.mark.cuda
+def test_coo_spmv_t_no_sync(cuda):
+    """A push call enqueues the output's memset and one kernel, and never
+    syncs the host."""
+    p, nb = _push_edge_stream("hot-run", seed=3)
+    to = lambda x: torch.from_numpy(x).to(cuda)  # noqa: E731
+    args = (to(p.idx), to(p.seg), to(p.val), None, None, nb)
+    d = torch.randn(256, device=cuda)
+    ck.coo_spmv_t(d, *args)  # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ck.coo_spmv_t(d, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities):  # starts CUPTI
+        ck.coo_spmv_t(d, *args)
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(3):
+            ck.coo_spmv_t(d, *args)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(device_ops) == 6, device_ops
+    assert sum("push_kernel" in op for op in device_ops) == 3, device_ops
+    assert sum("emset" in op for op in device_ops) == 3, device_ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_rows", [128, 1 << 16, 8 * 16384 + 128])
+def test_coo_spmv_row_counts(cuda, num_rows):
+    """The pull on a skewed batch at 128 rows, at 65,536 (the main
+    path's) and at 131,200."""
+    rng = np.random.default_rng(num_rows)
+    nb, nnz = 8 * ck.TILE, 200_000
+    idx = (rng.zipf(1.3, size=nnz) % nb).astype(np.int32)
+    seg = rng.integers(0, num_rows, size=nnz).astype(np.int32)
+    val = rng.normal(size=nnz).astype(np.float32)
+    val[rng.random(nnz) < 0.1] = 0.0
+    p = ck.pack_sorted_coo(idx, seg, val, nb)
+    sidx, sseg, sval = (torch.from_numpy(a).to(cuda)
+                        for a in (p.idx, p.seg, p.val))
+    w = torch.randn(nb, device=cuda)
+    mag = ck.coo_spmv_plain(w.abs(), sidx, sseg, sval.abs(), num_rows,
+                            torch.float32)
+    n0 = _cuda.LAUNCHES["coo_spmv"]
+    for dtype in DTYPES:
+        got = ck.coo_spmv(w, sidx, sseg, sval, None, None, num_rows, dtype)
+        _sum_close(got, ck.coo_spmv_plain(w, sidx, sseg, sval, num_rows,
+                                          dtype), mag)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["coo_spmv"] == n0 + 2

@@ -261,3 +261,130 @@ def test_scatter_update_plain_matches_pallas_with_mid_block_sentinels(algo):
     for k in state:
         _close(t_state[k], j_state[k])
     assert int(nw_t) == int(nw_j)
+
+
+def _push_edge_stream(case, seed):
+    """(idx, seg, val, num_buckets) of a batch at one of the push's edges,
+    over num_buckets 4 * TILE: a hot run over BLK edges, runs ending on
+    BLK edges, tiles of pads only, live runs at tile bases, far-apart keys
+    before a tile's pads, live entries with val 0, the table's corners."""
+    nb, tile, blk = 4 * t_ck.TILE, t_ck.TILE, t_ck.BLK
+    rng = np.random.default_rng(seed)
+    spread = rng.integers(0, nb, size=3000)
+    if case == "hot-run":        # one run over BLK edges and many chunks
+        idx = np.concatenate([np.full(3 * blk + 100, 7), spread])
+    elif case == "chunk-edge":   # runs end exactly on chunk edges
+        idx = np.concatenate([np.full(blk, 1), np.full(blk - 5, 2),
+                              np.full(5, 3), spread[:500] % tile + tile])
+    elif case == "pads-only-tile":  # tiles 1 and 3 hold pads only
+        idx = np.concatenate([spread[:800] % tile,
+                              2 * tile + spread[800:1600] % tile])
+    elif case == "base-then-pads":  # live runs at tile bases, pads behind
+        idx = np.concatenate([np.full(5, tile), np.full(3, 2 * tile),
+                              np.full(2, 2 * tile + 9), spread[:200] % tile])
+    elif case == "sparse-then-pads":  # far-apart keys, then pads, in a warp
+        idx = np.concatenate([np.arange(1, 301) * 211, spread[:400] % tile
+                              + tile])
+    elif case == "zero-val":     # live entries with val 0
+        idx = np.concatenate([np.full(6, 11), [12], spread[:900]])
+    else:                        # "edges": tile base, tile end - 1, last
+        idx = np.concatenate([[0, tile - 1, tile, 2 * tile - 1, nb - 1] * 3,
+                              spread[:700]])
+    idx = idx.astype(np.int32)
+    seg = rng.integers(0, 256, size=idx.size).astype(np.int32)
+    val = rng.normal(size=idx.size).astype(np.float32)
+    val[val == 0] = 1.0
+    if case == "zero-val":
+        val[[2, 6]] = 0.0  # one inside key 11's run, key 12's only entry
+    return idx, seg, val, nb
+
+
+PUSH_CASES = ["hot-run", "chunk-edge", "pads-only-tile", "base-then-pads",
+              "sparse-then-pads", "zero-val", "edges", "compact"]
+
+
+def _push_case(case):
+    """A packed stream at one push edge: (idx, seg, val, num_buckets)."""
+    if case == "compact":  # pack_tile_coo's compact stream at 2^22
+        from wormhole_tpu_torch.data.synth import synth_criteo_batch
+
+        seg, idx, val, _, _ = synth_criteo_batch(np.random.default_rng(31),
+                                                 1024, 1 << 22)
+        u_cap = 4 * t_ck.TILE
+        p = t_ck.pack_tile_coo(idx, seg, val, 1 << 22, u_cap).coo
+        assert (p.val == 0).any() and p.idx.size > u_cap // t_ck.TILE
+        return p, u_cap
+    idx, seg, val, nb = _push_edge_stream(case, seed=len(case))
+    return t_ck.pack_sorted_coo(idx, seg, val, nb), nb
+
+
+def _sum_close(got, want, mag):
+    """atol 1e-4 + rtol 1e-5 * the sum of the terms' magnitudes: the
+    kernels sum a bucket's terms in another order than index_add_."""
+    err = np.abs(np.asarray(got) - np.asarray(want))
+    assert (err <= ATOL + RTOL * np.asarray(mag)).all(), float(err.max())
+
+
+@pytest.mark.parametrize("case", PUSH_CASES)
+def test_coo_spmv_t_matches_pallas_on_edge_streams(case):
+    """The push (its plain version, which the wrapper runs on the CPU)
+    against the JAX Pallas kernel on streams at the push's edges, in f32
+    and bf16; every untouched bucket exactly 0."""
+    p, nb = _push_case(case)
+    d = np.random.default_rng(5).normal(size=1024).astype(np.float32)
+    mag = t_ck.coo_spmv_t_plain(T(np.abs(d)), T(p.idx).long(),
+                                T(p.seg).long(), T(np.abs(p.val)), nb,
+                                torch.float32).numpy()
+    touched = np.zeros(nb, bool)
+    touched[p.idx[p.val != 0]] = True
+    for dt in ("f32", "bf16"):
+        jd, td = DTYPES[dt]
+        got = t_ck.coo_spmv_t(T(d), *map(T, _packed(p)), nb,
+                              dtype=td).numpy()
+        assert not got[~touched].any()
+        want = j_ck.coo_spmv_t(jnp.asarray(d), *map(jnp.asarray, _packed(p)),
+                               nb, dtype=jd)
+        _sum_close(got, want, mag)
+
+
+def _layout_facts(p, nb):
+    """The packed stream's tile layout: each tile in at least one block,
+    blocks of a tile consecutive, a block's tile its first entry's, live
+    keys ascending in a tile, pads (val 0, tile base) after them."""
+    tiles = nb // t_ck.TILE
+    block_tile = p.idx[::t_ck.BLK] // t_ck.TILE
+    np.testing.assert_array_equal(block_tile, p.tmap)
+    assert (np.diff(block_tile) >= 0).all()
+    assert set(block_tile.tolist()) == set(range(tiles))
+    tile_of = np.repeat(block_tile, t_ck.BLK)
+    for t in range(tiles):
+        ent = np.flatnonzero(tile_of == t)
+        live = p.val[ent] != 0
+        n_live = int(live.sum())
+        assert live[:n_live].all()  # pads last
+        assert (p.idx[ent[n_live:]] == t * t_ck.TILE).all()
+        keys = p.idx[ent[:n_live]]
+        assert (np.diff(keys) >= 0).all()
+        assert ((keys // t_ck.TILE) == t).all()
+
+
+@pytest.mark.parametrize("nb", [1 << 22, 1 << 26])
+def test_both_packs_give_the_tile_layout(nb):
+    """Both packages' packs, dense at 2^22 and compact at 2^26, give the
+    same stream, in the tile layout the kernels read (tmap, pads)."""
+    from wormhole_tpu_torch.data.synth import synth_criteo_batch
+
+    seg, idx, val, _, _ = synth_criteo_batch(np.random.default_rng(32),
+                                             2048, nb)
+    if nb == 1 << 22:
+        packs = [t_ck.pack_sorted_coo(idx, seg, val, nb),
+                 j_ck.pack_sorted_coo(idx, seg, val, nb)]
+        dom = nb
+    else:
+        dom = -(-t_ck.tile_blocks_needed(np.unique(idx), t_ck.TILE)
+                * t_ck.BLK_U // t_ck.TILE) * t_ck.TILE
+        packs = [t_ck.pack_tile_coo(idx, seg, val, nb, dom).coo,
+                 j_ck.pack_tile_coo(idx, seg, val, nb, dom).coo]
+    for p in packs:
+        _layout_facts(p, dom)
+    np.testing.assert_array_equal(packs[0].idx, packs[1].idx)

@@ -45,7 +45,15 @@ inline unsigned blocks_for(int64_t n) {
 // by row, so a row's entries are spread over the whole stream and the
 // per-row sums are float atomics into an output zeroed by the entry
 // point. The summation order inside a row therefore changes from run to
-// run (results agree to rtol 1e-5 with the plain version).
+// run (results agree to rtol 1e-5 with the plain version). On the bench's
+// dense batch the 2.6M global reds into 65,536 rows set the pace (a probe
+// that only reads the stream takes a third of the time; chip_smoke.py's
+// [probe] line), so the kernel keeps one thread per entry, the most reds
+// in flight, and reads the stream with evict-first loads so that w and
+// the output keep their place in L2. (Four entries a thread with 16-byte
+// loads, two a thread, and summing in a thread-block cluster's shared
+// memory were slower on sm_90, the last because an f32 atomic add to
+// shared or distributed shared memory is a compare-and-swap loop.)
 //
 // A packed stream never holds a live entry whose bucket or row is out of
 // range; one that does means a packing fault, and the kernel traps (the
@@ -60,10 +68,10 @@ __global__ void pull_kernel(const float* __restrict__ w,
                             int64_t num_buckets, int64_t num_rows) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const float v = val[i];
+  const float v = __ldcs(&val[i]);
   if (v == 0.0f) return;  // padding entries: idx and seg are not read
-  const int k = idx[i];
-  const int r = seg[i];
+  const int k = __ldcs(&idx[i]);
+  const int r = __ldcs(&seg[i]);
   if (k < 0 || k >= num_buckets || r < 0 || r >= num_rows) __trap();
   float wv = __ldg(&w[k]);
   if (kBf16) wv = round_bf16(wv);
@@ -80,6 +88,11 @@ __global__ void pull_kernel(const float* __restrict__ w,
 // take key -1 without reading idx or seg, and their runs are skipped.
 // A hot bucket's run, however long, costs one atomic per warp it spans.
 // An out-of-range live entry traps, as in the pull.
+//
+// The order of those atomics changes from call to call, so g is not
+// repeatable bit for bit. Deterministic reductions by key that write g
+// once, with no memset, were 1.2 to 2.7x slower at the bench's batches on
+// sm_90 (PERF.md, section 6).
 template <bool kBf16>
 __global__ void push_kernel(const float* __restrict__ d,
                             const int* __restrict__ idx,
