@@ -20,8 +20,10 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    bf16), and times kernel, plain version and one PyTorch library call
    (CUDA events; for the kernel also the profiler's device time and the
    host's enqueue time per call, for scatter_update a probe that only
-   reads and writes back its keys' state, and for coo_spmv two probes
-   that read its stream, then also add one global f32 red per entry);
+   reads and writes back its keys' state, for v_scatter_update one that
+   does the same for V and nV at its admitted rows, and for coo_spmv two
+   probes that read its stream, then also add one global f32 red per
+   entry);
    coo_spmv_t must give exactly 0 at every untouched bucket, dense and
    compact; the DiFacto half runs on a
    full-width batch packed by the learner's own pack; level_hist runs on
@@ -483,12 +485,14 @@ def difacto_config(kernel: str, num_buckets=DENSE_BUCKETS,
 
 
 def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
-                     v_buckets=V_BUCKETS) -> dict:
+                     v_buckets=V_BUCKETS, probe=None) -> dict:
     """The DiFacto path's kernels against their plain versions on one
     full-width batch packed by the learner's own pack (the second batch
     of a pass, so the count threshold admits part of the V rows).
     Returns per-kernel numbers, as check_kernels does; scatter_update's
-    entry is the additive-table (cnt) variant."""
+    entry is the additive-table (cnt) variant. With the probes
+    (finish_probe_build), v_scatter_update's also has floor_ms, the row
+    touch probe's device time at the admitted rows."""
     import torch
 
     from wormhole_tpu_torch.models.difacto import DifactoLearner
@@ -537,6 +541,9 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
         got = fu.row_tile_gather(V2, uniq_v, vtm, dim, dt)
         want = fu.row_tile_gather_plain(V2, uniq_v, dim, dt)
         errs.append(compare(f"row_tile_gather {dt}", got, want, 0.0, 0.0))
+        if not torch.equal(got, fu.row_tile_gather(V2, uniq_v, vtm, dim,
+                                                   dt)):
+            raise AssertionError("row_tile_gather: differs from run to run")
     # uniq at every slot, V at each live row, the whole output
     nb = uv_cap * 4 + n_rows * dim * 4 + uv_cap * dim * 4
     uniq_c = uniq_v.clamp(max=v_buckets - 1)
@@ -602,7 +609,7 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
     vt = dev(vtouched)
     nV = torch.rand(v_buckets, dim, generator=gen, device=device)
     hyper = dict(V_lr_eta=0.01, V_lr_beta=1.0, lambda_V=0.01)
-    errs = []
+    errs, bit_equal = [], {}
     for dt in (f32, bf16):
         Vk, nVk, Vp, nVp = V.clone(), nV.clone(), V.clone(), nV.clone()
         fu.v_scatter_update(Vk, nVk, gV, vt, uniq_v, vtm, None, None,
@@ -612,10 +619,21 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
         errs.append(compare(f"v_scatter_update {dt} V", Vk, Vp, 1e-5, 1e-6))
         errs.append(compare(f"v_scatter_update {dt} nV", nVk, nVp, 1e-5,
                             1e-6))
-        moved = (Vk != V).any(1)
+        bit_equal[str(dt)] = bool(torch.equal(Vk, Vp)
+                                  and torch.equal(nVk, nVp))
+        moved = (Vk != V).any(1) | (nVk != nV).any(1)
         moved[uniq_v[(uniq_v < v_buckets) & (vt > 0)].long()] = False
         if moved.any():
             raise AssertionError("v_scatter_update: an untouched row moved")
+        V3, nV3 = V.clone(), nV.clone()
+        fu.v_scatter_update(V3, nV3, gV, vt, uniq_v, vtm, None, None,
+                            dim=dim, dtype=dt, **hyper)
+        if not (torch.equal(V3, Vk) and torch.equal(nV3, nVk)):
+            raise AssertionError("v_scatter_update: differs from run to run")
+    # the plain version divides by V_lr_eta as a multiply by its
+    # reciprocal on CUDA, so its bits may differ from the kernel's
+    log(f"[fm-kernel] v_scatter_update bit-equal to plain: "
+        f"{json.dumps(bit_equal)}")
     # uniq and vtouched at every slot; gV read, V and nV read and
     # written at each admitted row; about 8 operations per entry
     nb = uv_cap * 8 + n_touched * dim * 4 * 5
@@ -629,6 +647,10 @@ def check_fm_kernels(device, num_buckets=DENSE_BUCKETS,
             **hyper), device),
         plain_ms=time_ms(lambda: fu.v_scatter_update_plain(
             Vk, nVk, gV, vt, uniq_v, dim=dim, dtype=f32, **hyper), device))
+    if probe is not None:
+        admitted = uniq_v[(uniq_v < v_buckets) & (vt > 0)].contiguous()
+        out["v_scatter_update"]["floor_ms"] = touch_rows_ms(
+            probe, device, Vk, nVk, admitted)
 
     # scatter_update with the additive count table at uw_cap
     uniq_w = dev(ts_w.uniq)
@@ -1192,7 +1214,9 @@ def check_partition(rel, nodes: int, n_active: int, level: int,
 
 # Probes, built beside the kernels. touch: the least time scatter_update's
 # access pattern allows, one thread per live key that reads z, n and w at
-# its key and writes them back, nothing else. pull_read and pull_red: what
+# its key and writes them back, nothing else. touch_rows: the same for
+# v_scatter_update, one thread per 16 bytes of each admitted row of V and
+# of nV, read and written back, from a list of the rows. pull_read and pull_red: what
 # bounds coo_spmv, one thread per stream entry that reads val, and idx and
 # seg where val != 0 (read), then adds val at seg with one global f32 red
 # (red), without the gather of w.
@@ -1206,6 +1230,17 @@ __global__ void touch(float* z, float* n, float* w, const int* keys, int m) {
   z[k] = a + 1.0f;
   n[k] = b + 1.0f;
   w[k] = c + 1.0f;
+}
+__global__ void touch_rows(float4* V, float4* nV, const int* rows, int m,
+                           int vecs) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= m * vecs) return;
+  const long k = (long)rows[i / vecs] * vecs + i % vecs;
+  float4 a = V[k], b = nV[k];
+  a.x += 1.0f;
+  b.x += 1.0f;
+  V[k] = a;
+  nV[k] = b;
 }
 template <bool kRed>
 __global__ void pull_probe(const int* idx, const int* seg, const float* val,
@@ -1225,6 +1260,15 @@ extern "C" int wh_touch(void* z, void* n, void* w, const void* keys, int m,
                         void* stream) {
   touch<<<(m + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (float*)z, (float*)n, (float*)w, (const int*)keys, m);
+  return (int)cudaGetLastError();
+}
+extern "C" int wh_touch_rows(void* V, void* nV, const void* rows, int m,
+                             int vecs, void* stream) {
+  const int n = m * vecs;
+  if (n > 0) {
+    touch_rows<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
+        (float4*)V, (float4*)nV, (const int*)rows, m, vecs);
+  }
   return (int)cudaGetLastError();
 }
 extern "C" int wh_pull_probe(const void* idx, const void* seg,
@@ -1260,6 +1304,8 @@ def finish_probe_build(proc, so):
     lib.wh_touch.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                      ctypes.c_void_p]
     lib.wh_pull_probe.argtypes = [ctypes.c_void_p] * 4 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.wh_touch_rows.argtypes = [ctypes.c_void_p] * 3 + [
         ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     return lib
 
@@ -1298,6 +1344,23 @@ def touch_ms(touch, device, state: dict, keys) -> float:
             raise RuntimeError(f"touch probe: CUDA error {rc}")
 
     return time_ms(run, device)
+
+
+def touch_rows_ms(probe, device, V, nV, rows) -> float:
+    """The row touch probe's device time (profiler) on (num_rows, dim) V
+    and nV at rows (dim a multiple of 4)."""
+    import torch
+
+    vecs = V.shape[1] // 4
+
+    def run():
+        rc = probe.wh_touch_rows(V.data_ptr(), nV.data_ptr(), rows.data_ptr(),
+                                 rows.numel(), vecs,
+                                 torch.cuda.current_stream(device).cuda_stream)
+        if rc:
+            raise RuntimeError(f"touch_rows probe: CUDA error {rc}")
+
+    return device_ms(run, device)
 
 
 def start_ptxas_report() -> dict:
@@ -1639,7 +1702,8 @@ def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
 def learner_steps(device) -> dict:
     """The kernel path's step times, ms (medians of TIMED_WINDOWS windows
     on staged batches): the linear learner at 2^26 buckets, DiFacto, and
-    a GBDT round at the HIGGS shape. For comparing checkouts in turns."""
+    a GBDT round at the HIGGS shape; and DiFacto's device time a step
+    (profiler). For comparing checkouts in turns."""
     from wormhole_tpu_torch.models.difacto import DifactoLearner
     from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
 
@@ -1661,6 +1725,10 @@ def learner_steps(device) -> dict:
             lrn.train_batch(b)
         out[f"{name}_ms"] = 1e3 * time_steps(
             lrn, staged, TIMED_STEPS, TIMED_WINDOWS, f"turn {name}")
+        if name == "difacto":  # the V kernels' share shows on the device
+            out["difacto_device_ms"] = profile_steps(
+                lambda i: lrn.train_batch(staged[i % len(staged)]),
+                TIMED_STEPS)["device_ms_per_step"]
         del lrn, staged
     edges, binned, y, _, _ = make_higgs(eval_rows=1)
     lrn = gbdt_learner(device, "mxu", edges, binned.shape[1])
@@ -1684,8 +1752,9 @@ def kernel_turn(checkout: str) -> int:
     probe_build = start_probe_build()
     _cuda.build()
     device = torch.device("cuda", 0)
-    knums = check_kernels(device, probe=finish_probe_build(*probe_build))
-    fm = check_fm_kernels(device)
+    probe = finish_probe_build(*probe_build)
+    knums = check_kernels(device, probe=probe)
+    fm = check_fm_kernels(device, probe=probe)
     knums["scatter_update_cnt"] = fm.pop("scatter_update")
     knums.update(fm)
     keep = ("ms", "device_ms", "host_us", "max_abs_err", "bound_ms",
@@ -1770,7 +1839,7 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     knums = check_kernels(device, probe=probe)
     knums["coo_spmv_t"]["compact"] = knums.pop("coo_spmv_t_compact")
-    fm_nums = check_fm_kernels(device)
+    fm_nums = check_fm_kernels(device, probe=probe)
     # scatter_update's row keeps the linear path's numbers; the
     # additive-table variant's error counts against it too
     fm_nums["scatter_update"] = dict(

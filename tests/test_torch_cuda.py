@@ -9,7 +9,8 @@ Tolerances: the pull and push sum in another order (float atomics), and
 the FM push in another order (a fixed tree), so they hold to atol 1e-4 +
 rtol 1e-5 * (sum of the terms' magnitudes); the gathers are exact; the
 updates hold to rtol 1e-5 / atol 1e-6 (the plain version divides by a
-scalar as a multiply by its reciprocal on CUDA); level_hist sums with
+scalar as a multiply by its reciprocal on CUDA), and the V update is
+also bit-equal to numpy's IEEE f32 steps; level_hist sums with
 float atomics too and holds to the same bar as the pull and push, with
 every cell that no row reaches exactly 0.
 """
@@ -481,6 +482,101 @@ def test_scatter_update_layouts(cuda, layout, algo):
                 assert int(nw_k) == 0
                 assert all(torch.equal(sk[k], base[k]) for k in names)
     assert _cuda.LAUNCHES["scatter_update"] == n0 + 6
+
+
+def _v_row_slots(case, dim, rng):
+    """Compact V row slots over 4 * TILE // dim rows in 8 BLK_U blocks
+    (the pack's layout: a tile's rows first, whole sentinel chunks
+    behind), and vtouched with 30% of the rows unadmitted; cut or edited
+    to one of the row kernels' edges."""
+    vb = 4 * ck.TILE // dim
+    uniq = ck.assign_tile_slots(np.unique(rng.integers(0, vb, size=3000)),
+                                ck.TILE // dim, 8 * ck.BLK_U, vb).uniq
+    vt = (rng.random(uniq.size) < 0.7).astype(np.float32)
+    if case == "ragged":        # u_cap ends inside a 128-slot chunk
+        uniq, vt = uniq[:-1037], vt[:-1037]
+    elif case == "sentinel-chunks":  # chunks 2-4 and half of 5 sentinel
+        uniq[256:704] = vb
+    elif case == "unadmitted-chunk":  # a chunk of live rows, none admitted
+        assert (uniq[:128] < vb).all()
+        vt[:128] = 0.0
+    elif case == "empty":       # u_cap = 0
+        uniq, vt = uniq[:0], vt[:0]
+    return vb, uniq, vt
+
+
+def _v_update_ieee(V, nV, gV, vt, uniq, dtype, eta0, beta, lam):
+    """The V handle at the admitted rows in numpy f32, one IEEE operation
+    at a time in the kernel's order (true division, correctly rounded
+    sqrt), on the host."""
+    f = np.float32
+    V, nV = V.cpu().numpy().copy(), nV.cpu().numpy().copy()
+    sel = ((uniq < V.shape[0]) & (vt > 0)).cpu()
+    r = uniq.cpu()[sel].long().numpy()
+    g = ck.round_to(gV.cpu()[sel], dtype).numpy()
+    n2 = nV[r] + g * g
+    eta = (f(beta) + np.sqrt(n2)) / f(eta0)
+    V[r] = V[r] - (g + f(lam) * V[r]) / eta
+    nV[r] = n2
+    return torch.from_numpy(V), torch.from_numpy(nV)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["pack", "ragged", "sentinel-chunks",
+                                  "unadmitted-chunk", "empty"])
+@pytest.mark.parametrize("dim", [1, 2, 4, 8, 16, 32, 64, 128])
+def test_v_row_kernels_layouts(cuda, dim, case):
+    """row_tile_gather and v_scatter_update at every dim, f32 and bf16, on
+    the slot layouts at the row kernels' edges: the gather equal to its
+    plain version with sentinel slots exactly 0; the update close to its
+    plain version and bit-equal to the same IEEE operations in numpy;
+    rows not admitted bit-identical; two calls the same bits; one launch
+    a call (none for u_cap = 0)."""
+    rng = np.random.default_rng(dim + len(case))
+    vb, uniq_np, vt_np = _v_row_slots(case, dim, rng)
+    uniq, vt = (torch.from_numpy(uniq_np).to(cuda),
+                torch.from_numpy(vt_np).to(cuda))
+    V = torch.randn(vb, dim, device=cuda)
+    nV = torch.rand(vb, dim, device=cuda)
+    gV = torch.randn(uniq.numel(), dim, device=cuda)
+    hyper = dict(V_lr_eta=0.1, V_lr_beta=1.0, lambda_V=0.01)
+    one = int(uniq.numel() > 0)
+    admitted = torch.zeros(vb, dtype=torch.bool, device=cuda)
+    admitted[uniq[(uniq < vb) & (vt > 0)].long()] = True
+    for dtype in DTYPES:
+        n0 = dict(_cuda.LAUNCHES)
+        got = fu.row_tile_gather(V.view(-1, 128), uniq, None, dim, dtype)
+        again = fu.row_tile_gather(V.view(-1, 128), uniq, None, dim, dtype)
+        assert _cuda.LAUNCHES["row_tile_gather"] == \
+            n0["row_tile_gather"] + 2 * one
+        assert torch.equal(got, fu.row_tile_gather_plain(
+            V.view(-1, 128), uniq, dim, dtype))
+        assert torch.equal(got, again)
+        assert got.shape == (uniq.numel(), dim)
+        assert not got[uniq >= vb].any()  # sentinel slots exactly 0
+
+        runs = []
+        for _ in range(2):
+            Vk, nVk = V.clone(), nV.clone()
+            fu.v_scatter_update(Vk, nVk, gV, vt, uniq, None, None, None,
+                                dim=dim, dtype=dtype, **hyper)
+            runs.append((Vk, nVk))
+        assert _cuda.LAUNCHES["v_scatter_update"] == \
+            n0["v_scatter_update"] + 2 * one
+        (Vk, nVk), (V2, nV2) = runs
+        assert torch.equal(Vk, V2) and torch.equal(nVk, nV2)
+        Vp, nVp = V.clone(), nV.clone()
+        fu.v_scatter_update_plain(Vp, nVp, gV, vt, uniq, dim=dim,
+                                  dtype=dtype, **hyper)
+        torch.testing.assert_close(Vk, Vp, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(nVk, nVp, rtol=1e-5, atol=1e-6)
+        Ve, nVe = _v_update_ieee(V, nV, gV, vt, uniq, dtype, 0.1, 1.0, 0.01)
+        assert torch.equal(Vk.cpu(), Ve) and torch.equal(nVk.cpu(), nVe)
+        assert torch.equal(Vk[~admitted], V[~admitted])
+        assert torch.equal(nVk[~admitted], nV[~admitted])
+        if case == "unadmitted-chunk":
+            rows0 = uniq[:128].long()
+            assert torch.equal(Vk[rows0], V[rows0])
 
 
 @pytest.mark.cuda

@@ -44,7 +44,7 @@ def _row_slots(vb, dim, n_rows, u_blocks, seed):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-@pytest.mark.parametrize("dim", [4, 8])
+@pytest.mark.parametrize("dim", [1, 4, 8, 16])
 def test_row_tile_gather_plain_matches_pallas(dim, dt):
     vb = 4 * j_ck.TILE // dim
     ts = _row_slots(vb, dim, 3000, 8, seed=dim)
@@ -110,8 +110,8 @@ def test_fm_push_contrib_plain_matches_pallas(case, dt):
 
 
 @pytest.mark.parametrize("dt", ["f32", "bf16"])
-def test_v_scatter_update_plain_matches_pallas(dt):
-    dim = 8
+@pytest.mark.parametrize("dim", [2, 8, 32])
+def test_v_scatter_update_plain_matches_pallas(dim, dt):
     vb = 4 * j_ck.TILE // dim
     ts = _row_slots(vb, dim, 3000, 8, seed=3)
     rng = np.random.default_rng(4)
@@ -137,6 +137,40 @@ def test_v_scatter_update_plain_matches_pallas(dt):
     np.testing.assert_array_equal(Vt.numpy()[rest], V[rest])
     np.testing.assert_array_equal(nVt.numpy()[rest], nV[rest])
     assert (Vt.numpy()[hit] != V[hit]).any(1).all()
+
+
+@pytest.mark.parametrize("u_cap", [128, 8 * j_ck.BLK_U - 1037, 8 * j_ck.BLK_U])
+@pytest.mark.parametrize("dim", [1, 2, 8, 128])
+def test_row_walk_covers_each_entry_once(dim, u_cap):
+    """The row kernels' split of the slots (ops.fused_update.row_walk, the
+    mirror of csrc/fused_update.cu's walk) on a grid of 2 SMs, so warps
+    take several chunks: each (slot, channel) once, a lane's vector in one
+    row, neighbouring lanes on neighbouring vectors, each chunk in one
+    warp; a gather through it is the plain version's."""
+    width = min(dim, 4)
+    walk = t_fu.row_walk(u_cap, dim, sms=2)
+    warp, chunk, it, lane, slot, chan = walk.T
+    warps = t_fu.row_grid(u_cap, 2) * t_fu.ROW_WARPS
+    assert warps < -(-u_cap // t_fu.ROW_CHUNK) or u_cap <= 128
+    flat = slot * dim + chan
+    np.testing.assert_array_equal(
+        flat, chunk * t_fu.ROW_CHUNK * dim + (32 * it + lane) * width)
+    assert (chan % width == 0).all() and (chan + width <= dim).all()
+    assert (slot // t_fu.ROW_CHUNK == chunk).all()
+    np.testing.assert_array_equal(warp, chunk % warps)
+    cover = np.zeros(u_cap * dim, np.int64)
+    np.add.at(cover, (flat[:, None] + np.arange(width)).ravel(), 1)
+    assert (cover == 1).all()
+    rng = np.random.default_rng(dim)
+    rows = 3 * u_cap
+    uniq = rng.integers(0, rows + 1, size=u_cap).astype(np.int32)
+    V = rng.normal(size=(rows, dim)).astype(np.float32)
+    Vs = np.vstack([V, np.zeros((1, dim), np.float32)])  # sentinel -> 0
+    got = np.zeros(u_cap * dim, np.float32)
+    for j in range(width):
+        got[flat + j] = Vs[uniq[slot], chan + j]
+    want = t_fu.row_tile_gather(T(V), T(uniq), None, dim, torch.float32)
+    np.testing.assert_array_equal(got.reshape(u_cap, dim), want.numpy())
 
 
 def test_fm_wrappers_reject_bad_arguments():

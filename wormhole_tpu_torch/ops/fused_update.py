@@ -21,11 +21,14 @@ compact row slots: ``row_tile_gather`` reads the rows, and
 ``v_scatter_update`` applies the AdaGrad V handle to the touched rows in
 place.
 
-Kernels: csrc/fused_update.cu, each beside its plain version below.
+Kernels: csrc/fused_update.cu, each beside its plain version below;
+``row_grid`` and ``row_walk`` mirror how the row kernels split the slots
+among warps and lanes.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from wormhole_tpu_torch.ops import _cuda
@@ -176,6 +179,46 @@ def scatter_update(algo: str, state: dict, g, uniq, tmap_u, first_u,
 
 
 # ---------------------------------------------- embedding-row variants
+# The row kernels' walk (csrc/fused_update.cu): each warp owns chunks of
+# ROW_CHUNK slots, 4 a lane, and walks them by a grid stride over a grid
+# of at most ROW_CTAS_PER_SM CTAs of ROW_WARPS warps an SM. The gather
+# splits a chunk's rows among the lanes as row_walk says; the update
+# first queues the chunk's admitted rows and splits those the same way.
+# The kernel's kRowChunk, kRowWarps and kRowCtasPerSm:
+ROW_CHUNK, ROW_WARPS, ROW_CTAS_PER_SM = 128, 8, 3
+
+
+def row_grid(u_cap: int, sms: int) -> int:
+    """CTAs of a row kernel's launch over u_cap slots on sms SMs: enough
+    warps for the chunks, at most ROW_CTAS_PER_SM an SM."""
+    chunks = -(-u_cap // ROW_CHUNK)
+    return min(-(-chunks // ROW_WARPS), sms * ROW_CTAS_PER_SM)
+
+
+def row_walk(u_cap: int, dim: int, sms: int):
+    """The gather's split of the (u_cap, dim) slot rows, as (warp, chunk,
+    it, lane, slot, channel) int64 columns, one line a vector: warp w
+    takes chunks w, w + warps, ... of the grid; in a chunk, lane l's
+    vector it is the chunk's vector 32 it + l of min(dim, 4) floats,
+    at slot 32 (it // epr) + (32 (it % epr) + l) // epr of the chunk and
+    channel (32 (it % epr) + l) % epr * min(dim, 4), epr = dim //
+    min(dim, 4). Vectors past u_cap are left out."""
+    width = min(dim, 4)
+    epr = dim // width
+    warps = row_grid(u_cap, sms) * ROW_WARPS
+    chunks = np.arange(-(-u_cap // ROW_CHUNK))
+    it, lane = np.meshgrid(np.arange(4 * epr), np.arange(32), indexing="ij")
+    f = (it % epr) * 32 + lane
+    slot = 32 * (it // epr) + f // epr
+    chan = f % epr * width
+    cols = [np.broadcast_to(a.ravel(), (chunks.size, a.size))
+            for a in (it, lane, slot, chan)]
+    c = np.broadcast_to(chunks[:, None], cols[0].shape)
+    out = np.stack([c % warps, c, cols[0], cols[1],
+                    c * ROW_CHUNK + cols[2], cols[3]], -1).reshape(-1, 6)
+    return out[out[:, 4] < u_cap]
+
+
 def row_tile_gather_plain(flat2, uniq_rows, dim: int, dtype):
     """Plain version of row_tile_gather: masked row indexing."""
     V = flat2.reshape(-1, dim)
@@ -207,7 +250,8 @@ def row_tile_gather(flat2, uniq_rows, tmap_u, dim: int, dtype=None):
         uniq_rows.numel(), flat2.numel() // dim, dim.bit_length() - 1,
         int(dtype == torch.bfloat16), _cuda.stream(flat2))
     _cuda.check("fused_update", rc, "row_tile_gather")
-    _cuda.LAUNCHES["row_tile_gather"] += 1
+    if uniq_rows.numel():  # no slots: no launch
+        _cuda.LAUNCHES["row_tile_gather"] += 1
     return out
 
 
@@ -266,5 +310,6 @@ def v_scatter_update(Vflat, nVflat, gV, vtouched, uniq_rows, tmap_u,
         int(dtype == torch.bfloat16), V_lr_eta, V_lr_beta, lambda_V,
         _cuda.stream(Vflat))
     _cuda.check("fused_update", rc, "v_scatter_update")
-    _cuda.LAUNCHES["v_scatter_update"] += 1
+    if uniq_rows.numel():  # no slots: no launch
+        _cuda.LAUNCHES["v_scatter_update"] += 1
     return Vflat, nVflat
