@@ -3,8 +3,9 @@
 
   python3 chip_smoke.py        (from the repo root; needs one CUDA card)
   python3 chip_smoke.py --turns OTHER
-      the kernel phases of another checkout (e.g. the parent commit from
-      git archive) against this one, in turns: other, this, this, other
+      the kernel phases, step times and passes from a file of another
+      checkout (e.g. the parent commit from git archive) against this
+      one, in turns: other, this, this, other
 
 Drives the port (wormhole_tpu_torch) through its three main paths at the
 bench's full width. Two run over 65,536-row minibatches of 39
@@ -51,7 +52,23 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
 5. runs the linear app at 2^26 buckets, the difacto app at the DiFacto
    width and the gbdt app (task=train, then task=pred) at 28 features,
    256 bins, depth 6, in-process on synthetic libsvm files, with
-   validation data and model_out.
+   validation data and model_out; the gbdt app's load (parse and bin)
+   is timed;
+6. the host data path ([parse], [pack]): the card's libsvm parser
+   (csrc/parse.cu) against the plain parser on four 65,536-row chunks
+   (Criteo keys, the same keys with k:v values, HIGGS rows, and HIGGS
+   rows written %.17g, which take the kernel's exact path), equal
+   RowBlocks byte for byte, every token converted on the card, timed as the
+   kernels are plus the whole call's wall and the plain parser's; and the
+   pack with its sorts on the card against the numpy pack, byte for byte,
+   at full width (pack_sorted_coo at 2^22, pack_tile_coo at 2^26,
+   DiFacto's _pack_fm), in seconds a batch;
+7. passes from a file ([e2e]): one train pass of the linear app at 2^26
+   and 2^22 buckets and of the difacto app, each over a libsvm file of 8
+   full minibatches read as 4 parts by 4 loaders, giving examples/s, the
+   pass's wall, ms a step and the loader stall's share of the wall.
+
+The apps' and passes' launches of parse_libsvm make its launch count.
 
 Every check raises on failure, so any failed phase exits non-zero. The
 last two lines are one JSON object of per-kernel numbers and the result
@@ -64,6 +81,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -93,6 +111,9 @@ GBDT_ROUNDS = 4
 GBDT_TIMED_ROUNDS = 3
 LEAF_ATOL = 1e-5   # the kernel path's leaves against f64 sums of their rows
 GBDT_APP_ROWS = (65_536, 16_384)  # train, eval rows of the app's files
+PARSE_ROWS = 65_536  # rows of each [parse] chunk
+E2E_BATCHES = 8      # full minibatches in each [e2e] file
+E2E_PARTS = 4        # its num_parts_per_file, and max_concurrency
 
 KERNELS = {
     "coo_spmv": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
@@ -113,6 +134,9 @@ KERNELS = {
                         "wormhole_tpu/ops/hist.py:79"),
     "level_hist": ("wormhole_tpu_torch/csrc/hist.cu",
                    "wormhole_tpu/ops/hist.py:79"),
+    "parse_libsvm": ("wormhole_tpu_torch/csrc/parse.cu",
+                     "wormhole_tpu/native/src/parsers.cc:41 parse_libsvm "
+                     "(host C++)"),
 }
 LINEAR_KERNELS = ("coo_spmv", "coo_spmv_t", "tile_gather", "scatter_update")
 FM_KERNELS = ("tile_gather", "row_tile_gather", "coo_spmv_t",
@@ -914,15 +938,25 @@ def run_difacto(device, num_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
 
 
 # ------------------------------------------------------------- phase 3
-def write_libsvm(path: str, num_buckets: int, rows: int, seed: int) -> None:
+def criteo_text(num_buckets: int, rows: int, seed: int,
+                values: bool = False) -> str:
+    """Synthetic Criteo-shaped libsvm rows: a 0/1 label and 39 bucket
+    keys, bare (binary) or as k:v with a 3-decimal value."""
     from wormhole_tpu_torch.data.synth import synth_criteo_batch
 
     rng = np.random.default_rng(seed)
     _, idx, _, label, _ = synth_criteo_batch(rng, rows, num_buckets)
-    keys = idx.reshape(rows, NNZ_PER_ROW).astype(str)
-    lines = [f"{int(y)} " + " ".join(k) for y, k in zip(label, keys)]
+    toks = idx.reshape(rows, NNZ_PER_ROW).astype(str)
+    if values:
+        v = rng.integers(1, 100_000, size=toks.shape) / 1000
+        toks = np.char.add(np.char.add(toks, ":"), np.char.mod("%.3f", v))
+    return "\n".join(f"{int(y)} " + " ".join(k)
+                     for y, k in zip(label, toks)) + "\n"
+
+
+def write_libsvm(path: str, num_buckets: int, rows: int, seed: int) -> None:
     with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write(criteo_text(num_buckets, rows, seed))
 
 
 def drive_app(app, args: list, num_buckets: int, train_rows: int,
@@ -1643,15 +1677,20 @@ def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
     return rates
 
 
-def write_higgs_libsvm(path: str, rows: int, dim: int, seed: int) -> None:
+def higgs_text(rows: int, dim: int, seed: int, fmt: str = "%.5f") -> str:
+    """HIGGS-shaped libsvm rows: a 0/1 label and dim features f:<fmt>."""
     from wormhole_tpu_torch.data.synth import synth_higgs
 
     X, y = synth_higgs(np.random.default_rng(seed), rows, dim)
-    cols = [np.char.add(f"{f}:", np.char.mod("%.5f", X[:, f]))
+    cols = [np.char.add(f"{f}:", np.char.mod(fmt, X[:, f]))
             for f in range(dim)]
     lines = [f"{int(t)} " + " ".join(c) for t, c in zip(y, zip(*cols))]
+    return "\n".join(lines) + "\n"
+
+
+def write_higgs_libsvm(path: str, rows: int, dim: int, seed: int) -> None:
     with open(path, "w") as f:
-        f.write("\n".join(lines) + "\n")
+        f.write(higgs_text(rows, dim, seed))
 
 
 def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
@@ -1660,8 +1699,20 @@ def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
     task=train with eval data and model_out, then task=pred from that
     model. Checks one probability per eval row; returns their logloss."""
     from wormhole_tpu_torch.apps import gbdt as app
+    from wormhole_tpu_torch.models.gbdt import GbdtLearner
 
     train_rows, eval_rows = rows
+    load = GbdtLearner.load_dataset
+    loads = []
+
+    def timed_load(self, *args, **kw):
+        t = time.perf_counter()
+        out = load(self, *args, **kw)
+        sync(self.device)
+        loads.append(time.perf_counter() - t)
+        return out
+
+    GbdtLearner.load_dataset = timed_load
     with tempfile.TemporaryDirectory() as tmp:
         tr, va = (os.path.join(tmp, "train.libsvm"),
                   os.path.join(tmp, "eval.libsvm"))
@@ -1669,10 +1720,13 @@ def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
         write_higgs_libsvm(va, eval_rows, dim, seed=22)
         model, pred = os.path.join(tmp, "model"), os.path.join(tmp, "pred")
         t0 = time.perf_counter()
-        rc = app.main([f"train_data={tr}", f"eval_data={va}",
-                       f"model_out={model}", f"max_depth={depth}",
-                       f"max_bin={max_bin}", f"num_round={rounds}",
-                       "hist_kernel=mxu", f"device={device}"])
+        try:
+            rc = app.main([f"train_data={tr}", f"eval_data={va}",
+                           f"model_out={model}", f"max_depth={depth}",
+                           f"max_bin={max_bin}", f"num_round={rounds}",
+                           "hist_kernel=mxu", f"device={device}"])
+        finally:
+            GbdtLearner.load_dataset = load
         train_s = time.perf_counter() - t0
         if rc != 0 or not os.path.exists(model + ".npz"):
             raise AssertionError(f"gbdt app task=train returned {rc}")
@@ -1693,9 +1747,243 @@ def run_gbdt_app(device, rows=GBDT_APP_ROWS, dim=HIGGS_DIM,
         raise AssertionError(f"gbdt app: eval logloss {ll}")
     log(f"[gbdt-app] {train_rows} train rows and {eval_rows} eval rows of "
         f"{dim} features through the libsvm parser, {rounds} rounds at "
-        f"depth {depth}, {max_bin} bins: task=train {train_s:.1f} s, "
+        f"depth {depth}, {max_bin} bins: task=train {train_s:.1f} s, of "
+        f"which loading (parse on the learner's device and bin) "
+        f"{' + '.join(f'{x:.4f}' for x in loads)} s (train, eval), "
         f"{eval_rows} predictions, eval logloss from predictions {ll:.6f}")
     return ll
+
+
+# ------------------------------------------------------ host data path
+def same_arrays(name: str, got: dict, want: dict) -> None:
+    """Raise unless two sets of arrays (name -> array or None) hold the
+    same bytes."""
+    for k, a in want.items():
+        b = got[k]
+        if a is None or b is None:
+            same = a is None and b is None
+        else:
+            a, b = np.asarray(a), np.asarray(b)
+            same = (a.dtype == b.dtype and a.shape == b.shape
+                    and a.tobytes() == b.tobytes())
+        if not same:
+            raise AssertionError(f"{name}: {k} differs from the plain "
+                                 f"route's")
+
+
+def rowblock_arrays(blk) -> dict:
+    return {f: getattr(blk, f) for f in ("label", "offset", "index", "value")}
+
+
+def check_parse(device, rows=PARSE_ROWS) -> dict:
+    """[parse]: the card's libsvm parser against the plain parser on four
+    full-width chunks (Criteo keys at 2^26 as write_libsvm writes them, the
+    same keys with k:v values, HIGGS rows as write_higgs_libsvm writes
+    them, and the same rows with %.17g values, most of which take the
+    kernel's exact path): equal RowBlocks byte for byte. Every token is
+    converted on the card; the line counts those of the exact path. Times
+    the kernel chain on the chunk's bytes on the card (ms, device ms, host
+    us), the whole call (bytes over, parse, arrays back; best of three)
+    and the plain parser. Returns the parse_libsvm row, from the Criteo
+    keys chunk (the passes' files hold such rows)."""
+    from wormhole_tpu_torch import native
+    from wormhole_tpu_torch.data.parsers import parse_libsvm
+
+    chunks = (("criteo-keys", criteo_text(COMPACT_BUCKETS, rows, 31)),
+              ("criteo-values", criteo_text(COMPACT_BUCKETS, rows, 31,
+                                            values=True)),
+              ("higgs", higgs_text(rows, HIGGS_DIM, 32)),
+              ("higgs-17g", higgs_text(rows, HIGGS_DIM, 32, "%.17g")))
+    row = None
+    for name, text in chunks:
+        t = time.perf_counter()
+        want = parse_libsvm(text)
+        plain_s = time.perf_counter() - t
+        walls = []
+        for _ in range(3):
+            sync(device)
+            t = time.perf_counter()
+            got = native.parse_libsvm_cuda(text, device)
+            walls.append(time.perf_counter() - t)
+        same_arrays(f"[parse] {name}", rowblock_arrays(got),
+                    rowblock_arrays(want))
+        raw = text.encode()
+        buf = native.upload(raw, device)
+        n_exact = int(native.parse_libsvm_kernel(buf).stats[native.EXACT])
+        tm = timings(lambda: native.parse_libsvm_kernel(buf), device)
+        nnz = got.nnz
+        nbytes = (len(raw) + 4 * got.size + 8 * (got.size + 1) + 8 * nnz
+                  + (4 * nnz if got.value is not None else 0))
+        b, by = bound_ms(nbytes, 0.0)
+        log(f"[parse] {name}: {len(raw) / 1e6:.3f} MB, {got.size} rows, "
+            f"{nnz} features, values {'kept' if got.value is not None else 'binary'}: "
+            f"kernel ms {tm['ms']}, dev ms {tm['device_ms']}, host us "
+            f"{tm['host_us']}, bound {b:.5f} ms ({by}); the whole call "
+            f"{1e3 * min(walls):.3f} ms (walls {', '.join(f'{1e3 * w:.3f}' for w in walls)}); "
+            f"plain parser {plain_s:.4f} s; exact-path decimals {n_exact} "
+            f"(every token converted on the card); RowBlocks equal byte "
+            f"for byte")
+        if row is None:
+            row = dict(tm, max_abs_err=0.0, plain_ms=1e3 * plain_s,
+                       bound_ms=b, bound_by=by, library_ms=None,
+                       call_ms=1e3 * min(walls), mb=len(raw) / 1e6)
+    return {"parse_libsvm": row}
+
+
+def _median_s(fn, n: int = 3):
+    """(median seconds of n calls of fn, the last call's result)."""
+    secs, out = [], None
+    for _ in range(n):
+        t = time.perf_counter()
+        out = fn()
+        secs.append(time.perf_counter() - t)
+    return statistics.median(secs), out
+
+
+def check_pack(device) -> dict:
+    """[pack]: the pack with its sorts and uniques on the card against the
+    numpy pack at full width, byte for byte: the linear learner's batch
+    through pack_sorted_coo at 2^22 and pack_tile_coo at 2^26 (its compact
+    cap), and DifactoLearner._pack_fm on section 4's batch (a learner on
+    the card against one on the CPU, the same batches in the same order:
+    the count mirror advances alike). Seconds a batch, median of three."""
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.ops import coo_kernels as ck
+
+    coo_f = ("idx", "seg", "val", "tmap", "first")
+    out = {}
+    for name, nb, seed in (("pack_sorted_coo 2^22", DENSE_BUCKETS, 41),
+                           ("pack_tile_coo 2^26", COMPACT_BUCKETS, 42)):
+        cfg = LinearConfig(minibatch=MINIBATCH, nnz_per_row=NNZ_PER_ROW,
+                           num_buckets=nb, algo="ftrl", kernel="pallas")
+        lrn = LinearLearner(cfg, device=device)
+        seg, idx, val, y, _ = batches(nb, 1, seed)[0]
+        db = lrn.make_device_batch(to_rowblock(seg, idx, val, y))
+        if nb == DENSE_BUCKETS:
+            def pack(dev):
+                p = ck.pack_sorted_coo(db.idx, db.seg, db.val, nb,
+                                       capacity=cfg.row_capacity,
+                                       device=dev)
+                return {f: getattr(p, f) for f in coo_f}
+        else:
+            cap = lrn.ensure_compact(db.idx)
+
+            def pack(dev):
+                t = ck.pack_tile_coo(db.idx, db.seg, db.val, nb, cap,
+                                     capacity=cfg.row_capacity,
+                                     rm_rows=MINIBATCH,
+                                     rm_width=NNZ_PER_ROW, device=dev)
+                arrays = {f: getattr(t, f) for f in (
+                    "uniq", "tmap_u", "first_u", "last_u", "rm_slot",
+                    "rm_val")}
+                arrays.update({f"coo.{f}": getattr(t.coo, f)
+                               for f in coo_f})
+                return arrays
+        del lrn
+        pack(device)  # warm: the first call pays torch's own set-up
+        host_s, want = _median_s(lambda: pack(None))
+        card_s, got = _median_s(lambda: pack(device))
+        same_arrays(f"[pack] {name}", got, want)
+        out[name] = {"numpy_s": host_s, "card_s": card_s}
+        log(f"[pack] {name}: card {card_s:.4f} s a batch, numpy "
+            f"{host_s:.4f} s a batch ({host_s / card_s:.1f}x); arrays equal "
+            f"byte for byte")
+    seg, idx, val, y, _ = batches(DENSE_BUCKETS, 1, 8)[0]
+    learners = {"card": DifactoLearner(difacto_config("pallas"),
+                                       device=device),
+                "numpy": DifactoLearner(difacto_config("pallas"),
+                                        device="cpu")}
+    db = learners["card"].make_device_batch(to_rowblock(seg, idx, val, y))
+    secs = {k: [] for k in learners}
+    for _ in range(3):
+        packs = {}
+        for k, lrn in learners.items():
+            t = time.perf_counter()
+            pk = lrn._pack_fm(db, train=True)
+            secs[k].append(time.perf_counter() - t)
+            packs[k] = dict(enumerate(DifactoLearner._fm_args(
+                pk, db.label, db.row_mask, True)))
+        same_arrays("[pack] _pack_fm", packs["card"], packs["numpy"])
+    card_s, host_s = (statistics.median(secs[k]) for k in ("card", "numpy"))
+    out["_pack_fm"] = {"numpy_s": host_s, "card_s": card_s}
+    log(f"[pack] DifactoLearner._pack_fm: card {card_s:.4f} s a batch "
+        f"({', '.join(f'{x:.4f}' for x in secs['card'])}), numpy "
+        f"{host_s:.4f} s a batch ({', '.join(f'{x:.4f}' for x in secs['numpy'])}; "
+        f"{host_s / card_s:.1f}x); three train packs, every array equal "
+        f"byte for byte")
+    return out
+
+
+E2E_APPS = (("linear-2^26", "linear", COMPACT_BUCKETS, ["algo=ftrl"]),
+            ("linear-2^22", "linear", DENSE_BUCKETS, ["algo=ftrl"]),
+            ("difacto", "difacto", DENSE_BUCKETS,
+             [f"v_buckets={V_BUCKETS}", f"dim={FM_DIM}", "threshold=2",
+              "kernel=pallas"]))
+
+
+def write_e2e_files(directory: str) -> dict:
+    """The passes' libsvm files, E2E_BATCHES full minibatches each: bucket
+    count -> path."""
+    files = {}
+    for nb, seed in ((COMPACT_BUCKETS, 61), (DENSE_BUCKETS, 62)):
+        files[nb] = os.path.join(directory, f"e2e-{nb}.libsvm")
+        write_libsvm(files[nb], nb, E2E_BATCHES * MINIBATCH, seed)
+    return files
+
+
+def run_e2e(device, files: dict) -> dict:
+    """[e2e]: one train pass of each of E2E_APPS from its file, through the
+    app's main() as a user runs it (num_parts_per_file and
+    max_concurrency E2E_PARTS): examples/s of the pass (the file's rows
+    over the pass's wall), its wall, ms a step and, where the solver keeps
+    it, the loader stall's share of the wall, from the solver's pass line;
+    and the whole app call's seconds. Works with an older checkout's apps
+    too (their pass line has no stall). Each record carries the pass's
+    kernel launches."""
+    import contextlib
+    import io
+    import re
+
+    from wormhole_tpu_torch.apps import difacto, linear
+    from wormhole_tpu_torch.ops import _cuda
+
+    apps = {"linear": linear, "difacto": difacto}
+    rows = E2E_BATCHES * MINIBATCH
+    line = re.compile(r"train pass 0: (\d+) minibatches, avg ([\d.]+)ms/step,"
+                      r" wall ([\d.]+)s(?:, loader stall ([\d.]+)s)?")
+    out = {}
+    for name, app, nb, extra in E2E_APPS:
+        _cuda.reset_launches()
+        text = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = apps[app].main([
+                f"train_data={files[nb]}", f"num_buckets={nb}",
+                f"minibatch={MINIBATCH}", f"nnz_per_row={NNZ_PER_ROW}",
+                "lr_eta=0.1", "lambda_l1=1", "max_data_pass=1",
+                f"num_parts_per_file={E2E_PARTS}",
+                f"max_concurrency={E2E_PARTS}", f"device={device}", *extra])
+        app_s = time.perf_counter() - t
+        m = line.search(text.getvalue())
+        if rc != 0 or m is None:
+            raise AssertionError(f"[e2e] {name}: rc {rc}, no pass line in "
+                                 f"{text.getvalue()[-2000:]!r}")
+        steps, ms, wall = int(m.group(1)), float(m.group(2)), float(m.group(3))
+        stall = float(m.group(4)) if m.group(4) else None
+        rec = {"examples_per_s": rows / wall, "wall_s": wall,
+               "ms_per_step": ms, "steps": steps,
+               "stall_share": None if stall is None else stall / wall,
+               "app_s": app_s, "launches": dict(_cuda.LAUNCHES)}
+        log(f"[e2e] {name}: {rows} rows in {steps} minibatches from "
+            f"{os.path.basename(files[nb])}: {rec['examples_per_s']:.0f} "
+            f"examples/s, pass wall {wall:.3f} s, {ms:.1f} ms a step, "
+            f"loader stall "
+            + ("not kept" if stall is None else
+               f"{stall:.3f} s ({100 * rec['stall_share']:.1f}% of the wall)")
+            + f"; app call {app_s:.2f} s")
+        out[name] = rec
+    return out
 
 
 # --------------------------------------------------------------- turns
@@ -1738,12 +2026,13 @@ def learner_steps(device) -> dict:
     return out
 
 
-def kernel_turn(checkout: str) -> int:
+def kernel_turn(checkout: str, e2e_dir: str) -> int:
     """One turn of a comparison of two checkouts: the kernel phases
-    (phase 1 above, minus level_hist) and the learners' step times, with
-    the package of `checkout` on the path, its kernels built from its own
-    csrc/. Prints one JSON line of every kernel row's numbers and the
-    step times."""
+    (phase 1 above, minus level_hist), the learners' step times and the
+    passes from the files in `e2e_dir` (phase 7), with the package of
+    `checkout` on the path, its kernels built from its own csrc/. Prints
+    one JSON line of every kernel row's numbers, the step times and the
+    passes' numbers."""
     import torch
 
     sys.path.insert(0, checkout)
@@ -1759,30 +2048,43 @@ def kernel_turn(checkout: str) -> int:
     knums.update(fm)
     keep = ("ms", "device_ms", "host_us", "max_abs_err", "bound_ms",
             "floor_ms", "probe")
+    steps = learner_steps(device)
+    files = {nb: os.path.join(e2e_dir, f"e2e-{nb}.libsvm")
+             for nb in (COMPACT_BUCKETS, DENSE_BUCKETS)}
+    e2e = {k: {a: v[a] for a in ("examples_per_s", "wall_s", "ms_per_step",
+                                 "stall_share", "app_s")}
+           for k, v in run_e2e(device, files).items()}
     print(json.dumps({"turn": checkout, "kernels": {
         k: {a: v[a] for a in keep if a in v} for k, v in knums.items()},
-        "steps": learner_steps(device)}), flush=True)
+        "steps": steps, "e2e": e2e}), flush=True)
     return 0
 
 
 def run_turns(other: str) -> int:
-    """The kernel phases and step times of another checkout (e.g. the
-    parent commit, unpacked with git archive) against this one on the same
-    card, in turns: other, this, this, other, one process each. Prints a
-    line per turn and one JSON summary of the turns' ms, device_ms and
-    host_us for every kernel row, and their step times."""
+    """The kernel phases, step times and passes from a file of another
+    checkout (e.g. the parent commit, unpacked with git archive) against
+    this one on the same card, in turns: other, this, this, other, one
+    process each, over the same files (written once, by this checkout).
+    Prints a line per turn and one JSON summary of the turns' ms,
+    device_ms and host_us for every kernel row, their step times and
+    their passes."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     log(f"[card] {smi}")
     other = os.path.abspath(other)
+    sys.path.insert(0, ROOT)
+    e2e_dir = tempfile.mkdtemp(prefix="wh-e2e-")
+    t = time.perf_counter()
+    write_e2e_files(e2e_dir)
+    log(f"[turns] passes' files written in {time.perf_counter() - t:.1f}s")
     turns = []
     for checkout in (other, ROOT, ROOT, other):
         t = time.perf_counter()
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               "--turn", checkout], capture_output=True,
-                              text=True)
+                               "--turn", checkout, e2e_dir],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-4000:], file=sys.stderr)
             raise AssertionError(f"turn {checkout} failed")
@@ -1797,6 +2099,9 @@ def run_turns(other: str) -> int:
                for name in turns[1][1]["kernels"]}
     summary["steps"] = {f"{who}{i}": g["steps"]
                         for i, (who, g) in enumerate(turns)}
+    summary["e2e"] = {f"{who}{i}": g["e2e"]
+                      for i, (who, g) in enumerate(turns)}
+    shutil.rmtree(e2e_dir)
     log(f"[turns] {smi}: " + json.dumps(summary))
     return 0
 
@@ -1814,7 +2119,7 @@ def main(argv=None) -> int:
               "this script", file=sys.stderr)
         return 2
     if argv[:1] == ["--turn"]:
-        return kernel_turn(argv[1])
+        return kernel_turn(argv[1], argv[2])
     if argv[:1] == ["--turns"]:
         return run_turns(argv[1])
     sys.path.insert(0, ROOT)
@@ -1855,6 +2160,12 @@ def main(argv=None) -> int:
     t = time.perf_counter()
     knums.update(check_hist_kernel(device, higgs))
     log(f"[phase] level_hist kernel {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    knums.update(check_parse(device))
+    log(f"[phase] parse {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    check_pack(device)
+    log(f"[phase] pack {time.perf_counter() - t:.1f}s")
 
     # each main path is driven with the counts set to 0 just before it
     # and read just after
@@ -1878,6 +2189,8 @@ def main(argv=None) -> int:
             f"{json.dumps({k: round(v, 2) for k, v in rates.items()})}")
         log(f"[phase] {name} learner {time.perf_counter() - t:.1f}s")
 
+    # the apps and the passes from a file parse on the card: they make
+    # parse_libsvm's launch count
     for name, run, want in (
             ("app", run_app, ("tile_gather", "coo_spmv_t",
                               "scatter_update")),
@@ -1888,10 +2201,26 @@ def main(argv=None) -> int:
         run(device)
         app_launches = dict(_cuda.LAUNCHES)
         log(f"[{name}] launches: {app_launches}")
-        for k in want:
+        for k in (*want, "parse_libsvm"):
             if app_launches[k] == 0:
                 raise AssertionError(f"{name} run launched no {k}")
+        launches["parse_libsvm"] += app_launches["parse_libsvm"]
         log(f"[phase] {name} {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        files = write_e2e_files(tmp)
+        log(f"[e2e] files of {E2E_BATCHES} minibatches written in "
+            f"{time.perf_counter() - t:.1f}s")
+        passes = run_e2e(device, files)
+    for name, rec in passes.items():
+        n = rec["launches"]["parse_libsvm"]
+        if n == 0:
+            raise AssertionError(f"[e2e] {name} launched no parse_libsvm")
+        launches["parse_libsvm"] += n
+    log(f"[e2e] {smi}: " + json.dumps(
+        {k: {a: v for a, v in r.items() if a != "launches"}
+         for k, r in passes.items()}))
+    log(f"[phase] e2e {time.perf_counter() - t:.1f}s")
 
     rows = []
     for name, (src, repl) in KERNELS.items():
@@ -1903,7 +2232,8 @@ def main(argv=None) -> int:
                      "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
-        for extra in ("floor_ms", "per_level", "probe", "compact"):
+        for extra in ("floor_ms", "per_level", "probe", "compact",
+                      "call_ms", "mb"):
             if extra in k:
                 rows[-1][extra] = k[extra]
     print(json.dumps({"kernels": rows}), flush=True)

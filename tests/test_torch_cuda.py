@@ -12,13 +12,19 @@ updates hold to rtol 1e-5 / atol 1e-6 (the plain version divides by a
 scalar as a multiply by its reciprocal on CUDA), and the V update is
 also bit-equal to numpy's IEEE f32 steps; level_hist sums with
 float atomics too and holds to the same bar as the pull and push, with
-every cell that no row reaches exactly 0.
+every cell that no row reaches exactly 0. The host data path on the
+card (the libsvm parse kernel, the pack's sorts and uniques) gives the
+plain routes' bytes exactly.
 """
+
+import threading
 
 import numpy as np
 import pytest
 import torch
 
+from wormhole_tpu_torch import native
+from wormhole_tpu_torch.data.parsers import parse_libsvm, parse_text
 from wormhole_tpu_torch.ops import _cuda
 from wormhole_tpu_torch.ops import coo_kernels as ck
 from wormhole_tpu_torch.ops import fused_update as fu
@@ -730,3 +736,202 @@ def test_coo_spmv_row_counts(cuda, num_rows):
                                           dtype), mag)
     torch.cuda.synchronize()
     assert _cuda.LAUNCHES["coo_spmv"] == n0 + 2
+
+
+# ------------------------------------------------------- host data path
+# The libsvm edge corpus. tests/test_torch_parse.py holds the plain parser
+# against the JAX package's on it, and the card parser's mirror against
+# the plain parser; here the card parser meets the plain parser.
+LIBSVM_EDGE = {
+    "comments-blank": "# a header\n\n1 3:1 5:1\n  # indented 1:2\n\n0 2\n#\n",
+    "bare-keys": "1 3 5 7\n0 2\n1\n",
+    "no-final-newline": "1 3:1\n0 4:2",
+    "crlf-tabs-spaces": "1\t3:1   5:2\r\n0  \t 4 \r\n\r\n  1 6:0.5\t\n",
+    "signs-decimals-exponents": ("-1 3:-2.5 4:1e3 5:+0.125\n"
+                                 "+1.5e-1 2:-3E+2 6:.5 7:5. 8:1.25e-7\n"
+                                 "-0 9:-0.0 10:0007.50\n"),
+    "max-keys": "1 18446744073709551615:1 0:2 09223372036854775808\n",
+    "outside-fast-path": ("1 1:1.00000000000000000001 2:12345678901234567890 "
+                          "3:1e300 4:inf 5:nan 6:-inf 7:1_0 8:1e-400 "
+                          "9:9007199254740993 10:0.1e-22\n1e30 11:Infinity\n"),
+    "all-ones": "1 3:1 4:1.0 5:1e0 6 7:100e-2\n0 8:1.000\n",
+    "underscores-words": ("1_0 1_2:3_0.5 +7:1e1_0 -0:nAn 8:-INFINITY\n"
+                          "-nan 9:+inf 1_0_0:0_0.0_1\n"),
+    "exact-path": ("0.30000000000000004 1:1.2345678901234567e-05 "
+                   "2:4.9406564584124654e-324 3:1.7976931348623157e308\n"
+                   "1 4:2.2250738585072011e-308 "
+                   "5:0.1000000000000000055511151231257827\n"
+                   "0 6:" + "1" * 900 + "e-880 7:1.5" + "0" * 850 + "1\n"),
+}
+# decimals of each corpus entry that the kernel's exact path converts
+LIBSVM_EDGE_EXACT = {"outside-fast-path": 6, "exact-path": 8}
+# chunks the plain parser refuses; the card's raises ValueError
+LIBSVM_ERRORS = {
+    "negative-key": "1 3:1\n0 -2:1\n",
+    "key-2^64": "1 18446744073709551616:1\n",
+    "bad-token": "1 3:1 x:1\n",
+    "control-byte": "1 3:1\n0 2\x013:1\n",
+    "misplaced-underscore": "1 3:1__0\n",
+    "word-key": "1 inf:1\n",
+    "empty-value": "1 3:\n",
+    "sign-label": "+ 3:1\n",
+    "hex-value": "1 3:0x10\n",
+}
+
+
+def _same_arrays(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.dtype == b.dtype and a.shape == b.shape
+    assert a.tobytes() == b.tobytes()
+
+
+def same_block(got, want):
+    """Two RowBlocks with the same bytes (value None in both, or equal)."""
+    for f in ("label", "offset", "index", "value"):
+        a, b = getattr(got, f), getattr(want, f)
+        if a is None or b is None:
+            assert a is None and b is None, f
+        else:
+            _same_arrays(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIBSVM_EDGE))
+def test_parse_libsvm_kernel_edge_corpus(cuda, name):
+    text = LIBSVM_EDGE[name]
+    n0 = _cuda.LAUNCHES["parse_libsvm"]
+    got = native.parse_libsvm_cuda(text, cuda)
+    assert _cuda.LAUNCHES["parse_libsvm"] == n0 + 1
+    same_block(got, parse_libsvm(text))
+    same_block(parse_text(text.encode(), "libsvm", cuda), got)
+    p = native.parse_libsvm_kernel(native.upload(text.encode(), cuda))
+    assert int(p.stats[native.EXACT]) == LIBSVM_EDGE_EXACT.get(name, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(LIBSVM_ERRORS))
+def test_parse_libsvm_kernel_raises_where_plain_raises(cuda, name):
+    text = LIBSVM_ERRORS[name]
+    with pytest.raises((ValueError, OverflowError)):
+        parse_libsvm(text)
+    with pytest.raises(ValueError):
+        native.parse_libsvm_cuda(text, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("values", [False, True, "repr"])
+def test_parse_libsvm_kernel_synthetic_chunk(cuda, values):
+    """4,096 Criteo-shaped rows, keys only, k:v with %.5f values, or k:v
+    with repr() doubles (most through the exact path): the plain parser's
+    bytes."""
+    rng = np.random.default_rng(3)
+    keys = rng.integers(0, 1 << 26, size=(4096, 39))
+    vals = rng.normal(size=keys.shape)
+    fmt = {False: None, True: "{:.5f}", "repr": "{!r}"}[values]
+    lines = []
+    for r in range(4096):
+        toks = ([f"{k}:" + fmt.format(float(v))
+                 for k, v in zip(keys[r], vals[r])] if fmt
+                else [str(k) for k in keys[r]])
+        lines.append(f"{r % 2} " + " ".join(toks))
+    text = "\n".join(lines) + "\n"
+    got = native.parse_libsvm_cuda(text, cuda)
+    same_block(got, parse_libsvm(text))
+    assert got.size == 4096
+
+
+def _pack_inputs(nb, rows=256, nnz=13, seed=1):
+    rng = np.random.default_rng(seed)
+    idx = (rng.zipf(1.3, size=rows * nnz) % nb).astype(np.int32)
+    seg = np.repeat(np.arange(rows, dtype=np.int32), nnz)
+    val = rng.normal(size=idx.size).astype(np.float32)
+    val[rng.random(idx.size) < 0.1] = 0.0
+    return idx, seg, val
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sorted", "tile", "fm"])
+def test_card_pack_matches_numpy_pack(cuda, kind):
+    """The pack with its sorts and uniques on the card gives the numpy
+    pack's bytes: pack_sorted_coo, pack_tile_coo (with the row-major
+    layout) and DiFacto's _pack_fm."""
+    if kind == "sorted":
+        nb = 4 * ck.TILE
+        idx, seg, val = _pack_inputs(nb)
+        a = ck.pack_sorted_coo(idx, seg, val, nb)
+        b = ck.pack_sorted_coo(idx, seg, val, nb, device=cuda)
+        for f in ("idx", "seg", "val", "tmap", "first"):
+            _same_arrays(getattr(a, f), getattr(b, f))
+    elif kind == "tile":
+        nb = 32 * ck.TILE
+        idx, seg, val = _pack_inputs(nb, rows=128, nnz=16)
+        kw = dict(capacity=128 * 16 + 64, rm_rows=128, rm_width=16)
+        a = ck.pack_tile_coo(idx, seg, val, nb, 4 * ck.TILE, **kw)
+        b = ck.pack_tile_coo(idx, seg, val, nb, 4 * ck.TILE, device=cuda,
+                             **kw)
+        for f in ("uniq", "tmap_u", "first_u", "last_u", "rm_slot",
+                  "rm_val"):
+            _same_arrays(getattr(a, f), getattr(b, f))
+        for f in ("idx", "seg", "val", "tmap", "first"):
+            _same_arrays(getattr(a.coo, f), getattr(b.coo, f))
+        assert (a.num_uniq, a.dropped_nnz) == (b.num_uniq, b.dropped_nnz)
+    else:
+        import types
+
+        from wormhole_tpu_torch.models.difacto import (DifactoConfig,
+                                                       DifactoLearner)
+        kw = dict(minibatch=256, num_buckets=2 * ck.TILE, v_buckets=ck.TILE,
+                  nnz_per_row=13, dim=4, threshold=2, kernel="pallas",
+                  kernel_dtype="f32")
+        idx, seg, val = _pack_inputs(2 * ck.TILE)
+        db = types.SimpleNamespace(seg=seg, idx=idx, val=val)
+        packs = []
+        for dev in ("cpu", cuda):
+            lrn = DifactoLearner(DifactoConfig(**kw), device=dev)
+            packs.append([lrn._pack_fm(db, train) for train in (True, False)])
+        for pa, pb in zip(*packs):
+            flat = [DifactoLearner._fm_args(p, np.zeros(256), np.ones(256),
+                                            p[2] is not None)
+                    for p in (pa, pb)]
+            assert len(flat[0]) == len(flat[1])
+            for x, y in zip(*flat):
+                _same_arrays(x, y)
+
+
+@pytest.mark.cuda
+def test_loader_packs_on_a_stream_of_its_own(cuda, tmp_path):
+    """The solver's loaders parse and pack on streams of their own, one a
+    loader, never the steps' stream; the parse runs the card's kernel."""
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.solver.minibatch_solver import MinibatchSolver
+
+    seen = []
+
+    class Recording(LinearLearner):
+        def prepare_batch(self, blk, train=True):
+            seen.append((threading.get_ident(),
+                         torch.cuda.current_stream(self.device).cuda_stream))
+            return super().prepare_batch(blk, train)
+
+    rng = np.random.default_rng(0)
+    path = tmp_path / "train.libsvm"
+    path.write_text("".join(
+        f"{r % 2} " + " ".join(str(k) for k in rng.integers(0, 1 << 22, 13))
+        + "\n" for r in range(2048)))
+    cfg = LinearConfig(train_data=str(path), minibatch=256, nnz_per_row=13,
+                       num_buckets=1 << 22, max_data_pass=1,
+                       num_parts_per_file=4, max_concurrency=2,
+                       kernel="pallas")
+    n0 = _cuda.LAUNCHES["parse_libsvm"]
+    solver = MinibatchSolver(Recording(cfg, device=cuda), cfg,
+                             verbose=False)
+    solver.iterate(cfg.train_data, True)
+    assert _cuda.LAUNCHES["parse_libsvm"] > n0
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    streams = {}
+    for thread, stream in seen:
+        assert stream != default
+        streams.setdefault(thread, set()).add(stream)
+    assert all(len(v) == 1 for v in streams.values())
+    assert len({next(iter(v)) for v in streams.values()}) == len(streams)
+    assert 0.0 <= solver.last_pass_stall_s <= solver.last_pass_wall_s

@@ -95,3 +95,11 @@ def test_blocked_name_matching_is_exact():
     assert not _blocked("wormhole_tpu_torch")
     assert not _blocked("wormhole_tpu_torch.ops.coo_kernels")
     assert not _blocked("jaxtyping")
+
+
+def test_scan_covers_the_native_core():
+    """The host data path's core (native.py, the counterpart of the JAX
+    package's native/) is among the sources scanned above and the
+    modules the probe imports with JAX blocked."""
+    assert PORT / "native.py" in SOURCES
+    assert PORT / "data" / "parsers.py" in SOURCES

@@ -35,7 +35,8 @@ def main(argv=None) -> int:
         with open(cfg.pred_out, "w") as f:
             for blk in iter_rowblocks(cfg.test_data or cfg.train_data,
                                       cfg.num_parts_per_file,
-                                      cfg.data_format, cfg.minibatch):
+                                      cfg.data_format, cfg.minibatch,
+                                      device=lrn.device):
                 for p in lrn.predict_blk(blk):
                     f.write(f"{p:.6g}\n")
                     n += 1

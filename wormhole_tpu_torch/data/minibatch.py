@@ -20,15 +20,16 @@ from wormhole_tpu_torch.data.rowblock import RowBlock
 
 
 def _iter_rowblocks(filename: str, part: int, num_parts: int,
-                    fmt: str) -> Iterator[RowBlock]:
+                    fmt: str, device=None) -> Iterator[RowBlock]:
     for chunk in parsers.iter_file_chunks(filename, part, num_parts):
-        blk = parsers.parse_text(chunk, fmt)
+        blk = parsers.parse_text(chunk, fmt, device)
         if blk.size:
             yield blk
 
 
 class MinibatchIter:
-    """Iterate fixed-size minibatches over (part k of n) of one file."""
+    """Iterate fixed-size minibatches over (part k of n) of one file,
+    parsed on `device` (parsers.parse_text: None is the CPU's parser)."""
 
     def __init__(
         self,
@@ -40,6 +41,7 @@ class MinibatchIter:
         shuf_buf: int = 0,
         neg_sampling: float = 1.0,
         seed: int = 0,
+        device=None,
     ):
         self.filename = filename
         self.part = part
@@ -49,10 +51,11 @@ class MinibatchIter:
         self.shuf_buf = int(shuf_buf)
         self.neg_sampling = float(neg_sampling)
         self.rng = np.random.default_rng(seed)
+        self.device = device
 
     def _transformed(self) -> Iterator[RowBlock]:
         for blk in _iter_rowblocks(self.filename, self.part, self.num_parts,
-                                   self.fmt):
+                                   self.fmt, self.device):
             if self.neg_sampling < 1.0:
                 blk = self._neg_sample(blk)
                 if blk.size == 0:

@@ -1,7 +1,8 @@
 """Text parsing: libsvm -> RowBlock, and chunked reading of local files.
 
-libsvm "label idx:val ..." (dmlc-core LibSVMParser). The criteo, adfea
-and crb formats of the JAX package are not ported yet.
+libsvm "label idx:val ..." (dmlc-core LibSVMParser). parse_libsvm is
+the plain parser, the contract of the card's (native.py, csrc/parse.cu).
+The criteo, adfea and crb formats of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from typing import Iterator
 
 import numpy as np
 
+from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.rowblock import RowBlock
 
 
@@ -48,12 +50,20 @@ def parse_libsvm(text: str) -> RowBlock:
     )
 
 
-def parse_text(text: str, fmt: str) -> RowBlock:
-    """Parse a chunk of text in the given format (libsvm only so far)."""
+def parse_text(text, fmt: str, device=None) -> RowBlock:
+    """Parse a chunk (str or bytes) in the given format (libsvm only so
+    far) on `device`: parse_libsvm on the CPU (None or "cpu"), the card's
+    parser (csrc/parse.cu, native.parse_libsvm_cuda) on CUDA. The
+    learners pass their own device."""
     if fmt != "libsvm":
         raise ValueError(f"unsupported data format: {fmt!r} (the port "
                          f"reads libsvm)")
-    return parse_libsvm(text)
+    dev = native.as_device(device)
+    if dev.type == "cpu":
+        if not isinstance(text, str):
+            text = bytes(text).decode("utf-8", errors="replace")
+        return parse_libsvm(text)
+    return native.parse_libsvm_cuda(text, dev)
 
 
 def iter_file_chunks(
@@ -65,7 +75,11 @@ def iter_file_chunks(
     """Yield text chunks of (part k of n) of a local file, split on line
     boundaries — the InputSplit contract: a part starts at the first line
     beginning at-or-after its byte range start and ends at the first line
-    boundary at-or-after its range end."""
+    boundary at-or-after its range end. A chunk ends at the first line
+    boundary at-or-after chunk_bytes from its start (or the part's end),
+    as the JAX package's line-by-line reader cuts it; the file is read a
+    block at a time (a few calls a chunk, not two a line: loader threads
+    that read line by line queue on the interpreter lock)."""
     size = os.path.getsize(path)
     begin = size * part // num_parts
     end = size * (part + 1) // num_parts
@@ -75,17 +89,11 @@ def iter_file_chunks(
             # consume the partial line belonging to the previous part
             f.readline()
         pos = f.tell()
-        buf: list[bytes] = []
-        buffered = 0
         while pos < end:
-            line = f.readline()
-            if not line:
+            block = f.read(min(chunk_bytes, end - pos))
+            if not block:
                 break
-            pos = f.tell()
-            buf.append(line)
-            buffered += len(line)
-            if buffered >= chunk_bytes:
-                yield b"".join(buf).decode("utf-8", errors="replace")
-                buf, buffered = [], 0
-        if buf:
-            yield b"".join(buf).decode("utf-8", errors="replace")
+            if not block.endswith(b"\n"):
+                block += f.readline()  # finish the line the block cut
+            pos += len(block)
+            yield block.decode("utf-8", errors="replace")

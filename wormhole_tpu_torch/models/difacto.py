@@ -38,6 +38,7 @@ import threading
 import numpy as np
 import torch
 
+from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.rowblock import DeviceBatch, RowBlock, to_device_batch
 from wormhole_tpu_torch.device import resolve_device
 from wormhole_tpu_torch.models.linear import (LinearConfig, _loss_dual,
@@ -303,12 +304,14 @@ class DifactoLearner:
         is serialized by _fm_lock so it sees batches in order): localize w
         keys and V rows into tile-run-aligned compact slots
         (coo_kernels.assign_tile_slots), apply admission to the V values,
-        and lay both out for the kernels. Same arrays as the JAX
-        learner's _pack_fm."""
+        and lay both out for the kernels. The sorts and uniques run on the
+        learner's device (native), the layout around them on the host.
+        Same arrays as the JAX learner's _pack_fm."""
         cfg = self.cfg
+        dev = self.device
         idx64 = db.idx.astype(np.int64)
         live = db.val != 0
-        loc = localize(idx64.astype(np.uint64))
+        loc = localize(idx64.astype(np.uint64), dev)
         uniq = loc.uniq_keys.astype(np.int64)
         inv = loc.local_index
         live_counts = np.bincount(
@@ -324,7 +327,7 @@ class DifactoLearner:
                 blocks_w = ck.tile_blocks_needed(uniq, ck.TILE)
                 uw = (-(-int(scale * blocks_w) * ck.BLK_U // ck.TILE)
                       * ck.TILE)
-                vuniq0 = (np.unique(idx64[live] % cfg.vb)
+                vuniq0 = (native.unique(idx64[live] % cfg.vb, dev)[0]
                           if live.any() else np.zeros(1, np.int64))
                 blocks_v = ck.tile_blocks_needed(vuniq0,
                                                  self._v_rows_per_tile)
@@ -332,7 +335,8 @@ class DifactoLearner:
                 self._fm_caps = (uw, uv)
         uw_cap, uv_cap = self._fm_caps
 
-        ts_w = ck.assign_tile_slots(uniq, ck.TILE, uw_cap, cfg.num_buckets)
+        ts_w = ck.assign_tile_slots(uniq, ck.TILE, uw_cap, cfg.num_buckets,
+                                    dev)
         slot_nz = ts_w.slot_of_uniq[inv]
         keep = slot_nz < uw_cap
         dropped = int(np.count_nonzero(~keep & live))
@@ -354,9 +358,9 @@ class DifactoLearner:
 
         # V domain: localize the (bucket % vb) rows of the kept nonzeros
         vidx = (idx64 % cfg.vb).astype(np.uint64)
-        loc_v = localize(vidx)
+        loc_v = localize(vidx, dev)
         ts_v = ck.assign_tile_slots(loc_v.uniq_keys, self._v_rows_per_tile,
-                                    uv_cap, cfg.vb)
+                                    uv_cap, cfg.vb, dev)
         vslot_nz = ts_v.slot_of_uniq[loc_v.local_index]
         vval = np.where(adm_nz, val, 0.0).astype(np.float32)
         keepv = vslot_nz < uv_cap
@@ -410,12 +414,12 @@ class DifactoLearner:
             return (ts_w, wcnts, None, ts_v, None, None,
                     rm_slot, rm_wval, rm_vval, vslot_w)
         wcoo = ck.pack_sorted_coo(slot_nz, seg, val, uw_cap,
-                                  capacity=cfg.row_capacity)
+                                  capacity=cfg.row_capacity, device=dev)
         vtouched = np.zeros(uv_cap, np.float32)
-        vtouched[np.unique(vslotv[vvalv != 0])] = 1.0
+        vtouched[native.unique(vslotv[vvalv != 0], dev)[0]] = 1.0
         vcoo = ck.pack_sorted_coo(vslotv, segv, vvalv, uv_cap,
                                   capacity=cfg.row_capacity,
-                                  tile=ck.TILE_HI, blk=ck.FM_BLK)
+                                  tile=ck.TILE_HI, blk=ck.FM_BLK, device=dev)
         return (ts_w, wcnts, wcoo, ts_v, vtouched, vcoo,
                 rm_slot, rm_wval, rm_vval, vslot_w)
 
@@ -620,7 +624,7 @@ class DifactoLearner:
         keys = np.flatnonzero(self._admitted())
         if len(keys) == 0:
             return 0.0
-        _, counts = np.unique(keys % self.cfg.vb, return_counts=True)
+        counts = native.unique(keys % self.cfg.vb, self.device)[2]
         return int(np.sum(counts[counts > 1])) / len(keys)
 
 

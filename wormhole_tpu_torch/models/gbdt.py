@@ -126,12 +126,14 @@ class Reservoir:
 
 def _reservoir_sample(pattern: str, fmt: str, num_parts_per_file: int,
                       minibatch: int, seed: int,
-                      cap: int = _SKETCH_ROWS):
+                      cap: int = _SKETCH_ROWS, device=None):
     """One streaming pass: reservoir-sample up to `cap` rows and discover
-    the feature dimension, without materializing the dataset."""
+    the feature dimension, without materializing the dataset. The text
+    is parsed on `device`."""
     res = Reservoir(cap, seed)
     for blk in iter_rowblocks(pattern, num_parts_per_file, fmt,
-                              minibatch, node="gbdt-sketch", seed=seed):
+                              minibatch, node="gbdt-sketch", seed=seed,
+                              device=device):
         res.add_block(blk)
     if res.n_seen == 0:
         raise ValueError(f"no rows in {pattern}")
@@ -257,12 +259,13 @@ class GbdtLearner:
         discovering dim by running max) followed by a binning pass that
         densifies one chunk at a time. The full dataset never exists on
         the host as either CSR or float, only as the uint8 bin matrix
-        that goes to the device."""
+        that goes to the device. Both passes parse on the learner's
+        device."""
         cfg = self.cfg
         if fit_bins or self.edges is None:
             sample, _, max_feat = _reservoir_sample(
                 pattern, cfg.data_format, cfg.num_parts_per_file,
-                cfg.minibatch, cfg.seed)
+                cfg.minibatch, cfg.seed, device=self.device)
             if cfg.dim == 0:
                 cfg.dim = max(max_feat + 1, 1)
             self.edges = quantile_edges(_densify_sample(sample, cfg.dim),
@@ -272,7 +275,7 @@ class GbdtLearner:
         chunks, labels = [], []
         for blk in iter_rowblocks(pattern, cfg.num_parts_per_file,
                                   cfg.data_format, cfg.minibatch,
-                                  node="gbdt-load"):
+                                  node="gbdt-load", device=self.device):
             chunks.append(bin_matrix(_densify(blk, cfg.dim), self.edges))
             labels.append(blk.label.astype(np.float32))
         if not chunks:

@@ -31,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.rowblock import DeviceBatch, RowBlock, to_device_batch
 from wormhole_tpu_torch.device import resolve_device
 from wormhole_tpu_torch.ops import coo_kernels as ck
@@ -355,7 +356,7 @@ class LinearLearner:
         cfg = self.cfg
         if cfg.compact_cap > 0:
             return -(-cfg.compact_cap // ck.TILE) * ck.TILE
-        ids = np.unique(np.asarray(idx, np.int64))
+        ids = native.unique(np.asarray(idx, np.int64), self.device)[0]
         blocks = ck.tile_blocks_needed(ids, ck.TILE)
         cand = -(-int(1.5 * blocks) * ck.BLK_U // ck.TILE) * ck.TILE
         if cfg.num_buckets >= 32 * cand:
@@ -376,8 +377,10 @@ class LinearLearner:
     def prepare_batch(self, blk: RowBlock, train: bool = True):
         """Host-side batch prep (runs in loader threads): pad to the fixed
         shape and, for the kernel paths, sort the COO triples by bucket
-        (the Localizer role). Returns an opaque prepared batch accepted by
-        stage_batch and train/eval/predict_batch."""
+        (the Localizer role; the sorts and uniques run on the learner's
+        device, the layout around them on the host). Returns an opaque
+        prepared batch accepted by stage_batch and
+        train/eval/predict_batch."""
         db = self.make_device_batch(blk)
         if not self.use_pallas:
             return ("xla", db, blk.size)
@@ -386,7 +389,8 @@ class LinearLearner:
                                   self.cfg.num_buckets, self._compact_cap,
                                   capacity=self.cfg.row_capacity,
                                   rm_rows=self.cfg.minibatch,
-                                  rm_width=self.cfg.nnz_per_row)
+                                  rm_width=self.cfg.nnz_per_row,
+                                  device=self.device)
             if tc.dropped_nnz:
                 _log.warning("compaction overflow: dropped %d unique keys "
                              "(%d nonzeros) — raise compact_cap (currently "
@@ -394,7 +398,8 @@ class LinearLearner:
                              self._compact_cap)
             return ("tcoo", tc, db.label, db.row_mask, blk.size)
         p = ck.pack_sorted_coo(db.idx, db.seg, db.val, self.cfg.num_buckets,
-                               capacity=self.cfg.row_capacity)
+                               capacity=self.cfg.row_capacity,
+                               device=self.device)
         return ("coo", p, db.label, db.row_mask, blk.size)
 
     def _prepared(self, x):

@@ -12,7 +12,8 @@ Nothing here runs at import: the CPU tests import every module of the
 port on a machine with no ``nvcc``.
 
 ``LAUNCHES`` counts, per kernel, the launches its wrapper made; a wrapper
-adds one right after its kernel launched, and nowhere else.
+adds one right after its kernel launched, and nowhere else (``count``,
+under a lock, where loader threads launch it at once).
 """
 
 from __future__ import annotations
@@ -30,14 +31,14 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wormhole_tpu_torch"
-SOURCES = ("coo_kernels", "fused_update", "hist")
+SOURCES = ("coo_kernels", "fused_update", "hist", "parse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 LAUNCHES = {"coo_spmv": 0, "coo_spmv_t": 0, "tile_gather": 0,
             "scatter_update": 0, "row_tile_gather": 0,
             "fm_push_contrib": 0, "v_scatter_update": 0,
-            "level_partition": 0, "level_hist": 0}
+            "level_partition": 0, "level_hist": 0, "parse_libsvm": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
@@ -62,18 +63,29 @@ _SIGNATURES = {
         "wh_level_partition": [_P, _P, _I64, _I, _P],
         "wh_level_hist": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     },
+    "parse": {
+        "wh_parse_libsvm": [_I, _P, _I64] + [_P] * 17,
+    },
 }
 _ERROR_STRING = {"coo_kernels": "wh_coo_error_string",
                  "fused_update": "wh_fused_error_string",
-                 "hist": "wh_hist_error_string"}
+                 "hist": "wh_hist_error_string",
+                 "parse": "wh_parse_error_string"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count(name: str) -> None:
+    """Add one launch of `name`, safely from several threads at once."""
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def _nvcc() -> str:

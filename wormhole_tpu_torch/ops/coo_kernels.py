@@ -1,10 +1,12 @@
 """Sparse COO products against a large hashed table, and their host pack.
 
-Host side (numpy, loader threads): the same bucket-sorted, BLK-padded
-layout as the JAX package (``SortedCOO``, ``pack_sorted_coo``) and the
-same tile-aligned compact slot space (``TileCOO``, ``pack_tile_coo``),
-with the same geometry constants, so both packages feed identical arrays
-to their kernels.
+Host side (loader threads): the same bucket-sorted, BLK-padded layout
+as the JAX package (``SortedCOO``, ``pack_sorted_coo``) and the same
+tile-aligned compact slot space (``TileCOO``, ``pack_tile_coo``), with
+the same geometry constants, so both packages feed identical arrays to
+their kernels. The pack's sorts, uniques and gathers run on the device
+the caller names (``native``: numpy on the CPU, torch on the card); the
+tile layout after them is numpy.
 
 Device side: four kernels written by hand in CUDA
 (``csrc/coo_kernels.cu``), each beside a plain PyTorch version:
@@ -30,6 +32,7 @@ import logging
 import numpy as np
 import torch
 
+from wormhole_tpu_torch import native
 from wormhole_tpu_torch.ops import _cuda
 from wormhole_tpu_torch.ops.localizer import localize
 
@@ -116,10 +119,10 @@ def packed_size(capacity: int, num_buckets: int,
 def pack_sorted_coo(idx, seg, val, num_buckets: int,
                     capacity: int | None = None,
                     tile: int | None = None,
-                    blk: int | None = None) -> SortedCOO:
-    """Sort COO triples by bucket id (stable) and lay them out in
-    BLK-padded per-tile runs. Shapes are static given (capacity,
-    num_buckets)."""
+                    blk: int | None = None, device=None) -> SortedCOO:
+    """Sort COO triples by bucket id (stable, on `device`; None: the CPU)
+    and lay them out in BLK-padded per-tile runs. Shapes are static given
+    (capacity, num_buckets)."""
     tile = tile or TILE
     blk = blk or BLK
     if num_buckets % tile:
@@ -130,10 +133,10 @@ def pack_sorted_coo(idx, seg, val, num_buckets: int,
     P = packed_size(capacity, num_buckets, tile, blk)
     nblk = P // blk
 
-    order = np.argsort(np.asarray(idx), kind="stable")
-    sidx = np.asarray(idx, np.int32)[order]
-    sseg = np.asarray(seg, np.int32)[order]
-    sval = np.asarray(val, np.float32)[order]
+    skey, (sseg, sval) = native.sort_by_key(
+        np.asarray(idx), (np.asarray(seg, np.int32),
+                          np.asarray(val, np.float32)), device)
+    sidx = skey.astype(np.int32, copy=False)
 
     tile_of = sidx // tile
     n_t = np.bincount(tile_of, minlength=num_tiles)
@@ -216,17 +219,18 @@ def tile_blocks_needed(ids, rows_per_tile: int) -> int:
 
 
 def assign_tile_slots(uniq, rows_per_tile: int, u_cap: int,
-                      sentinel: int) -> TileSlots:
+                      sentinel: int, device=None) -> TileSlots:
     """Group sorted unique ids by home table tile and give each tile's run
     a BLK_U-aligned contiguous slot range. On overflow, whole tiles (plus
-    a truncated boundary tile) are kept in id order and the rest cut."""
+    a truncated boundary tile) are kept in id order and the rest cut. The
+    unique of the tiles runs on `device` (None: the CPU)."""
     if u_cap % BLK_U:
         raise ValueError(f"u_cap must be a multiple of {BLK_U}")
     uniq = np.asarray(uniq, np.int64)
     nb = u_cap // BLK_U
 
     tile_of = uniq // rows_per_tile
-    t_ids, n_t = np.unique(tile_of, return_counts=True)
+    t_ids, _, n_t = native.unique(tile_of, device)
     b_t = np.maximum((n_t + BLK_U - 1) // BLK_U, 1)
     cum_b = np.cumsum(b_t)
     n_keep_tiles = int(np.searchsorted(cum_b, nb, side="right"))
@@ -276,11 +280,12 @@ def assign_tile_slots(uniq, rows_per_tile: int, u_cap: int,
 def pack_tile_coo(idx, seg, val, num_buckets: int, u_cap: int,
                   capacity: int | None = None,
                   rm_rows: int | None = None,
-                  rm_width: int | None = None) -> TileCOO:
+                  rm_width: int | None = None, device=None) -> TileCOO:
     """Localize bucket ids (sort + unique + remap) into tile-run-aligned
-    compact slots and pack the COO triples over that domain. With
-    rm_rows/rm_width, also emit the row-major companion layout (see
-    build_rm) over the compact slot domain, with u_cap as sentinel."""
+    compact slots and pack the COO triples over that domain; the sorts
+    and uniques run on `device` (None: the CPU). With rm_rows/rm_width,
+    also emit the row-major companion layout (see build_rm) over the
+    compact slot domain, with u_cap as sentinel."""
     if u_cap % TILE:
         raise ValueError(f"u_cap must be a multiple of {TILE}")
     if num_buckets >= 2**31:
@@ -288,8 +293,8 @@ def pack_tile_coo(idx, seg, val, num_buckets: int, u_cap: int,
     idx = np.asarray(idx, np.int64)
     seg = np.asarray(seg, np.int32)
     val = np.asarray(val, np.float32)
-    loc = localize(idx.astype(np.uint64))
-    ts = assign_tile_slots(loc.uniq_keys, TILE, u_cap, num_buckets)
+    loc = localize(idx.astype(np.uint64), device)
+    ts = assign_tile_slots(loc.uniq_keys, TILE, u_cap, num_buckets, device)
 
     new_slot = ts.slot_of_uniq[loc.local_index]
     keep = new_slot < u_cap
@@ -303,7 +308,8 @@ def pack_tile_coo(idx, seg, val, num_buckets: int, u_cap: int,
         if len(over):
             val_k = val_k.copy()
             val_k[over] = 0.0  # pull/push must agree on the nnz set
-    p = pack_sorted_coo(slot_k, seg_k, val_k, u_cap, capacity=capacity)
+    p = pack_sorted_coo(slot_k, seg_k, val_k, u_cap, capacity=capacity,
+                        device=device)
     return TileCOO(ts.uniq, p, ts.tmap_u, ts.first_u, ts.last_u,
                    ts.num_uniq, ts.dropped_uniq, dropped_nnz,
                    rm_slot, rm_val)

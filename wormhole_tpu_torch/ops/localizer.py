@@ -1,8 +1,10 @@
 """Localizer: compact a minibatch's arbitrary uint64 keys to dense ids.
 
 The reference's Localize (learn/base/localizer.h:98-221) as sort + unique
-+ remap with numpy: the sorted unique keys, their occurrence counts, and
-each nonzero's position in the unique list.
++ remap: the sorted unique keys, their occurrence counts, and each
+nonzero's position in the unique list. The unique runs on the device the
+caller names (native.unique: np.unique on the CPU, torch.unique on the
+card), with the same bytes either way.
 """
 
 from __future__ import annotations
@@ -10,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+from wormhole_tpu_torch import native
 
 
 @dataclasses.dataclass
@@ -19,10 +23,9 @@ class Localized:
     local_index: np.ndarray  # int32[nnz] positions into uniq_keys
 
 
-def localize(block_index: np.ndarray) -> Localized:
-    """Map raw keys to [0, n_uniq)."""
+def localize(block_index: np.ndarray, device=None) -> Localized:
+    """Map raw keys to [0, n_uniq), on `device` (None: the CPU)."""
     keys = np.ascontiguousarray(block_index, dtype=np.uint64)
-    uniq, inv, counts = np.unique(keys, return_inverse=True,
-                                  return_counts=True)
+    uniq, inv, counts = native.unique(keys, device)
     return Localized(uniq_keys=uniq, counts=counts.astype(np.int32),
                      local_index=inv.astype(np.int32).reshape(-1))

@@ -12,7 +12,14 @@ the JAX package's single-process MinibatchSolver:
   may end the run early after a pass;
 - each pass splits the matched files into virtual parts; loader threads
   (max_concurrency of them) parse, pack and stage minibatches into a
-  bounded queue while the main thread runs the device steps;
+  bounded queue while the main thread runs the device steps. They parse
+  and pack on the learner's device; on CUDA each loader does so on a
+  stream of its own, off the steps' stream, and stages the packed
+  arrays on the steps' stream, as the steps read them;
+- the main thread's wait for the queue is the pass's loader stall
+  (``last_pass_stall_s``, beside ``last_pass_wall_s``), logged as a
+  share of the pass's wall with the pass line (the JAX solver's
+  loader.stall_s);
 - a progress row prints every print_sec;
 - predict writes one output file per part (iter_solver.h:140-156).
 """
@@ -25,6 +32,8 @@ import re
 import threading
 import time
 from typing import Callable, Optional
+
+import torch
 
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
 from wormhole_tpu_torch.solver.progress import Progress
@@ -71,6 +80,14 @@ class MinibatchSolver:
         self.t0 = time.time()
         # early-stop hook: (pass progress, data_pass, key) -> bool
         self.stop_hook: Optional[Callable] = None
+        # the last TRAIN/VAL pass: its wall, and the main thread's wait
+        # for the loaders within it
+        self.last_pass_wall_s = 0.0
+        self.last_pass_stall_s = 0.0
+
+    @property
+    def _device(self) -> Optional[torch.device]:
+        return getattr(self.learner, "device", None)
 
     @property
     def _ckpt_store(self):
@@ -136,23 +153,33 @@ class MinibatchSolver:
                     continue
             return False
 
+        dev = self._device
+        on_card = dev is not None and dev.type == "cuda"
+
         def loader():
             try:
+                # parse and pack on a stream of this loader's own (no-op
+                # off CUDA); stage on the steps' stream
+                pack_stream = torch.cuda.Stream(dev) if on_card else None
                 while not stop.is_set():
                     with part_lock:
                         if not parts:
                             return
                         part_id, (fname, part, nparts) = parts.pop(0)
-                    for blk in MinibatchIter(
-                            fname, part, nparts, cfg.data_format,
-                            minibatch_size=cfg.minibatch,
-                            shuf_buf=(cfg.rand_shuffle * cfg.minibatch
-                                      if train else 0),
-                            neg_sampling=cfg.neg_sampling if train else 1.0,
-                            seed=data_pass * 7919 + part_id):
-                        b = lrn.stage_batch(lrn.prepare_batch(blk, train),
-                                            train=train)
-                        if not put(b):
+                    it = iter(MinibatchIter(
+                        fname, part, nparts, cfg.data_format,
+                        minibatch_size=cfg.minibatch,
+                        shuf_buf=(cfg.rand_shuffle * cfg.minibatch
+                                  if train else 0),
+                        neg_sampling=cfg.neg_sampling if train else 1.0,
+                        seed=data_pass * 7919 + part_id, device=dev))
+                    while True:
+                        with torch.cuda.stream(pack_stream):
+                            blk = next(it, None)
+                            if blk is None:
+                                break
+                            prepared = lrn.prepare_batch(blk, train)
+                        if not put(lrn.stage_batch(prepared, train=train)):
                             return
             except Exception as e:  # relayed to the main thread
                 errors.append(e)
@@ -168,12 +195,14 @@ class MinibatchSolver:
         self._log(f"{mode} pass {data_pass}: {data}")
         self._log(Progress.header())
         done = n_steps = 0
-        t_step = 0.0
+        t_step = stall = 0.0
         t_pass0 = time.perf_counter()
         last_print = time.time()
         try:
             while done < len(threads):
+                t_w = time.perf_counter()
                 item = q.get()
+                stall += time.perf_counter() - t_w
                 if item is end:
                     done += 1
                     continue
@@ -192,10 +221,13 @@ class MinibatchSolver:
             raise errors[0]
         self._log(prog.row(self.t0))
         wall = time.perf_counter() - t_pass0
+        self.last_pass_wall_s, self.last_pass_stall_s = wall, stall
         if n_steps:
             self._log(f"{mode} pass {data_pass}: {n_steps} minibatches, "
                       f"avg {1e3 * t_step / n_steps:.1f}ms/step, "
-                      f"wall {wall:.2f}s")
+                      f"wall {wall:.3f}s, loader stall {stall:.3f}s "
+                      f"({100.0 * stall / max(wall, 1e-9):.1f}% of the "
+                      f"wall)")
         return prog
 
     def predict(self, data: str, out_base: str) -> list[str]:
@@ -209,7 +241,8 @@ class MinibatchSolver:
             with open(path, "w") as fh:
                 for blk in MinibatchIter(fname, part, nparts,
                                          cfg.data_format,
-                                         minibatch_size=cfg.minibatch):
+                                         minibatch_size=cfg.minibatch,
+                                         device=self._device):
                     for m in self.learner.predict_batch(blk):
                         fh.write(f"{m:.6g}\n")
             out_files.append(path)

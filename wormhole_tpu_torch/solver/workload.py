@@ -35,9 +35,11 @@ def iter_parts(pattern: str, num_parts_per_file: int = 1,
 
 def iter_rowblocks(pattern: str, num_parts_per_file: int = 1,
                    fmt: str = "libsvm", minibatch_size: int = 65536,
-                   node: str = "loader", seed: int = 0):
+                   node: str = "loader", seed: int = 0, device=None):
     """Yield the RowBlocks of every part of `pattern`, minibatch_size rows
-    at a time (the reference's RowBlockIter(rank, world) path)."""
+    at a time (the reference's RowBlockIter(rank, world) path), parsed on
+    `device` (None: the CPU's parser)."""
     for f in iter_parts(pattern, num_parts_per_file, fmt, node):
         yield from MinibatchIter(f.filename, f.part, f.num_parts, f.format,
-                                 minibatch_size=minibatch_size, seed=seed)
+                                 minibatch_size=minibatch_size, seed=seed,
+                                 device=device)
