@@ -7,8 +7,9 @@
       checkout (e.g. the parent commit from git archive) against this
       one, in turns: other, this, this, other
 
-Drives the port (wormhole_tpu_torch) through its three main paths at the
-bench's full width. Two run over 65,536-row minibatches of 39
+Drives the port (wormhole_tpu_torch) through its main paths at the
+bench's full width: three minibatch learners and the two BSP batch
+learners. Two run over 65,536-row minibatches of 39
 Criteo-shaped features: linear FTRL logistic regression, and the DiFacto
 factorization machine (dim 8, w over 2^22 buckets, V over 2^20 rows,
 threshold 2; the reference's learn/difacto/guide/criteo.conf, as bench.py
@@ -66,9 +67,31 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
 7. passes from a file ([e2e]): one train pass of the linear app at 2^26
    and 2^22 buckets and of the difacto app, each over a libsvm file of 8
    full minibatches read as 4 parts by 4 loaders, giving examples/s, the
-   pass's wall, ms a step and the loader stall's share of the wall.
+   pass's wall, ms a step and the loader stall's share of the wall;
+8. k-means at the bench's MNIST-784 shape ([kmeans]; bench.py
+   bench_kmeans: 16,384 rows of 160 uniform column ids of 784, values
+   U[0, 1), k 10): the packed assignment (coo_spmv_t over 14,680,064
+   flat (row, col) buckets), f32 and bf16, against the scatter densify
+   for the same centroids, and the sparse assignment against the dense
+   one on rows that name each column once; the assignment's ms on staged
+   batches with the profiler's device ms and idle share; coo_spmv_t at
+   this shape against its plain version, its bound and index_add_; the
+   sparse path timed at a hashed 2^20 width; then the main path:
+   KmeansLearner from a libsvm file of 4 minibatches (dim discovered),
+   five Lloyd iterations each timed, and the app with model_out;
+9. L-BFGS/OWL-QN ([lbfgs]): the lbfgs_linear app at the agaricus shape
+   (6,513 rows, 22 one-hot groups over 126 ids; reg_L2 0.1, 30
+   iterations, then task=pred), on phase 7's 524,288-row file at 2^22
+   with L2 and with OWL-QN (exact zeros of w counted), and the lbfgs_fm
+   app (nfactor 8) on its first 131,072 rows: each app's objective must
+   never rise; then ms an iteration, of an eval and of a grad over all
+   batches, host syncs an iteration and the profiler's idle share, and
+   eval and grad at the initial point against the CPU in float64.
 
-The apps' and passes' launches of parse_libsvm make its launch count.
+The launches of parse_libsvm over the apps, the passes, the k-means run
+and the L-BFGS apps make its launch count; coo_spmv_t's count includes
+the k-means run's and app's, and its row carries the k-means shape's
+numbers ("kmeans").
 
 Every check raises on failure, so any failed phase exits non-zero. The
 last two lines are one JSON object of per-kernel numbers and the result
@@ -78,6 +101,7 @@ package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import math
 import os
@@ -114,6 +138,16 @@ GBDT_APP_ROWS = (65_536, 16_384)  # train, eval rows of the app's files
 PARSE_ROWS = 65_536  # rows of each [parse] chunk
 E2E_BATCHES = 8      # full minibatches in each [e2e] file
 E2E_PARTS = 4        # its num_parts_per_file, and max_concurrency
+KM_MINIBATCH = 16_384  # k-means at bench.py bench_kmeans's MNIST-784 shape
+KM_DIM = 784
+KM_K = 10
+KM_NNZ = 160
+KM_FILE_BATCHES = 4    # minibatches in the [kmeans] libsvm file
+KM_ITERS = 5
+KM_SPARSE_DIM = 1 << 20  # the hashed width the sparse path is timed at
+AGARICUS_ROWS = 6_513  # the agaricus shape: 126 ids, 22 one-hot groups
+LBFGS_FM_ROWS = 131_072  # rows of the [e2e] 2^22 file the FM run takes
+LBFGS_ITERS = 20       # iterations of the runs on the Criteo-shaped file
 
 KERNELS = {
     "coo_spmv": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
@@ -1986,6 +2020,439 @@ def run_e2e(device, files: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------- batch learners
+def uniform_rows(rng, rows: int, dim: int, nnz: int, distinct: bool):
+    """(seg, idx, val) of `rows` MNIST-shaped rows: `nnz` column ids
+    each, uniform over `dim` (drawn with repeats, as the bench's rows
+    are, or distinct within a row), values U[0, 1)."""
+    seg = np.repeat(np.arange(rows, dtype=np.int32), nnz)
+    if distinct:
+        idx = np.argsort(rng.random((rows, dim)), axis=1)[:, :nnz]
+        idx = idx.reshape(-1).astype(np.int32)
+    else:
+        idx = rng.integers(0, dim, size=rows * nnz).astype(np.int32)
+    return seg, idx, rng.random(rows * nnz).astype(np.float32)
+
+
+def mnist_text(rows: int, seed: int) -> str:
+    """MNIST-shaped libsvm rows (label 0, KM_NNZ uniform ids of KM_DIM,
+    3-decimal values)."""
+    rng = np.random.default_rng(seed)
+    _, idx, val = uniform_rows(rng, rows, KM_DIM, KM_NNZ, distinct=False)
+    toks = np.char.add(np.char.add(idx.astype(str), ":"),
+                       np.char.mod("%.3f", val)).reshape(rows, KM_NNZ)
+    return "\n".join("0 " + " ".join(t) for t in toks) + "\n"
+
+
+def check_assign(name: str, got, want, atol: float, ties: int = 0) -> None:
+    """(sums, counts, cost) of two assignment paths on the same batch:
+    counts equal, sums within rtol 1e-5 + atol, cost within rtol 1e-5.
+    `ties` rows whose best two similarities lie within 1e-6 may change
+    cluster between paths that sum in another order; each moves one row
+    (a unit vector) between two clusters."""
+    (s1, c1, o1), (s2, c2, o2) = got, want
+    moved = float((c1 - c2).abs().sum())
+    if moved > 2 * ties:
+        raise AssertionError(f"{name}: counts differ by {moved} with "
+                             f"{ties} near-tie rows")
+    err = float((s1 - s2).abs().max())
+    if not ((s1 - s2).abs() <= atol + 2 * ties + 1e-5 * s2.abs()).all():
+        raise AssertionError(f"{name}: sums max abs err {err}")
+    if abs(float(o1) - float(o2)) > 1e-5 * abs(float(o2)) + 2 * ties:
+        raise AssertionError(f"{name}: cost {float(o1)} vs {float(o2)}")
+    log(f"[kmeans] {name}: counts differ by {moved:g} ({ties} near-tie "
+        f"rows), sums max abs err {err:.3g}, cost {float(o1):.6f} vs "
+        f"{float(o2):.6f}")
+
+
+def near_ties(lrn, C, X, mask) -> int:
+    """Rows of a row-normalized batch X whose two best cosine
+    similarities to C lie within 1e-6."""
+    import torch
+
+    Cn = C / torch.linalg.norm(C, dim=1, keepdim=True).clamp_min(1e-12)
+    top = (X @ Cn.T).topk(2, dim=1).values
+    return int((((top[:, 0] - top[:, 1]) < 1e-6) & (mask > 0)).sum())
+
+
+def run_kmeans(device, minibatch=KM_MINIBATCH, file_batches=KM_FILE_BATCHES,
+               iters=KM_ITERS, timed=TIMED_STEPS, windows=TIMED_WINDOWS,
+               sparse_dim=KM_SPARSE_DIM) -> dict:
+    """[kmeans] at the bench's MNIST-784 shape (bench.py bench_kmeans):
+    the packed assignment (coo_spmv_t), f32 and bf16, and the sparse one,
+    against the dense assignment (the scatter densify) for the same
+    centroids; the assignment timed on staged batches; coo_spmv_t at this
+    shape against its plain version, its bound and index_add_; then
+    KmeansLearner.run and the app from a libsvm file of `file_batches`
+    minibatches parsed on the card. Returns coo_spmv_t's row numbers at
+    this shape ("kmeans") and the main path's launches."""
+    import contextlib
+    import io
+
+    import torch
+
+    from wormhole_tpu_torch.apps import kmeans as app
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.ops import coo_kernels as ck
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    put = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    cfg = dict(num_clusters=KM_K, dim=KM_DIM, minibatch=minibatch,
+               nnz_per_row=KM_NNZ)
+    lrn = KmeansLearner(KmeansConfig(**cfg), device=device)
+    if not lrn._use_packed:
+        raise AssertionError("the MNIST shape did not take the packed path")
+    rng = np.random.default_rng(2)  # bench.py bench_kmeans's seed
+    mask = torch.ones(minibatch, device=device)
+    staged, raw, pack_s = [], [], []
+    for _ in range(4):
+        seg, idx, val = uniform_rows(rng, minibatch, KM_DIM, KM_NNZ,
+                                     distinct=False)
+        t = time.perf_counter()
+        pk = lrn.pack_batch(seg, idx, val)
+        pack_s.append(time.perf_counter() - t)
+        staged.append(tuple(put(a) for a in pk))
+        raw.append((put(seg), put(idx), put(val)))
+    C = put(rng.standard_normal((KM_K, KM_DIM)).astype(np.float32))
+    sidx, sseg, sval, tmap, first = staged[0]
+    P, n_live = sidx.numel(), int((sval != 0).sum())
+    buckets = int(torch.unique(sidx[sval != 0]).numel())
+    log(f"[kmeans] {minibatch} x {KM_DIM} rows, k {KM_K}, {KM_NNZ} nonzeros "
+        f"a row: P={P} packed entries, {n_live} live, {buckets} distinct "
+        f"(row, col) buckets of {lrn._num_flat}; pack (sorts on the "
+        f"learner's device) "
+        f"{statistics.median(pack_s):.4f} s a batch (median of 4: "
+        f"{', '.join(f'{x:.4f}' for x in pack_s)})")
+
+    # the packed densify against the scatter densify, same centroids
+    for dt, tol in ((f32, 1e-6), (bf16, 1e-4)):
+        lrn._kdt = dt
+        for b, (seg, idx, val) in zip(staged, raw):
+            got = lrn._assign_packed(C, *b, mask)
+            want = lrn._assign_dense(C, seg, idx, ck.round_to(val, dt), mask)
+            check_assign(f"packed {dt} vs scatter densify", got, want, tol)
+    lrn._kdt = f32
+    # the sparse path assumes a row names a column once (its norms sum
+    # val^2 per nonzero, as the JAX package's do): rows of distinct ids
+    for _ in range(2):
+        seg, idx, val = (put(a) for a in uniform_rows(
+            rng, minibatch, KM_DIM, KM_NNZ, distinct=True))
+        X = lrn.densify(seg, idx, val, mask)
+        check_assign("sparse vs dense", lrn._assign_sparse(
+            C, seg, idx, val, mask), lrn._assign_from_dense(C, X, mask),
+            1e-4, near_ties(lrn, C, X, mask))
+
+    # the assignment on staged batches
+    def chain(n):
+        for i in range(n):
+            lrn._assign_packed(C, *staged[i % 4], mask)
+
+    per = []
+    for _ in range(windows):
+        t = time.perf_counter()
+        chain(timed)
+        sync(device)
+        per.append((time.perf_counter() - t) / timed)
+    dt_s = statistics.median(per)
+    prof = profile_steps(lambda i: lrn._assign_packed(
+        C, *staged[i % 4], mask), 2 * timed) if device.type == "cuda" else {}
+    out = {"assign_ms": 1e3 * dt_s, "assign_examples_per_s": minibatch / dt_s,
+           "assign_range_ms": [1e3 * min(per), 1e3 * max(per)],
+           "assign_device_ms": prof.get("device_ms_per_step"),
+           "assign_idle_share": prof.get("device_idle_share"),
+           "pack_s": statistics.median(pack_s)}
+    log(f"[kmeans] assignment (packed, f32) {1e3 * dt_s:.3f} ms a batch "
+        f"median of {windows} windows of {timed} (range "
+        f"{1e3 * min(per):.3f}-{1e3 * max(per):.3f}), "
+        f"{minibatch / dt_s:.0f} examples/s (staged batches)")
+    log(f"[profile] kmeans assignment: {json.dumps(prof)}")
+
+    # coo_spmv_t at this shape: d = ones over the flat buckets
+    ones = torch.ones(minibatch, device=device)
+    nf = lrn._num_flat
+    got = ck.coo_spmv_t(ones, sidx, sseg, sval, tmap, first, nf, f32)
+    want = ck.coo_spmv_t_plain(ones, sidx, sseg, sval, nf, f32)
+    err = compare("coo_spmv_t kmeans f32", got, want, 1e-5, 1e-4,
+                  ck.coo_spmv_t_plain(ones, sidx, sseg, sval.abs(), nf,
+                                      f32))
+    # the table written once, each live entry's (idx, seg, val), each pad
+    # entry's val, d read once
+    nb = nf * 4 + n_live * 12 + (P - n_live) * 4 + minibatch * 4
+    b_ms, b_by = bound_ms(nb, 2 * n_live)
+    out["coo_spmv_t"] = dict(
+        max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
+        **timings(lambda: ck.coo_spmv_t(ones, sidx, sseg, sval, tmap, first,
+                                        nf, f32), device),
+        plain_ms=time_ms(lambda: ck.coo_spmv_t_plain(
+            ones, sidx, sseg, sval, nf, f32), device),
+        library_ms=time_ms(lambda: torch.zeros(nf, device=device).index_add_(
+            0, sidx, ones.index_select(0, sseg) * sval), device))
+    log(f"[kernel] coo_spmv_t at the k-means shape: "
+        + json.dumps(out["coo_spmv_t"]))
+
+    # the sparse path at a hashed width, timed only
+    sp = KmeansLearner(KmeansConfig(num_clusters=KM_K, dim=sparse_dim,
+                                    minibatch=minibatch, nnz_per_row=39),
+                       device=device)
+    from wormhole_tpu_torch.data.synth import synth_criteo_batch
+
+    seg, idx, val, _, m = (put(a) for a in synth_criteo_batch(
+        np.random.default_rng(5), minibatch, sparse_dim))
+    Cs = torch.randn(KM_K, sparse_dim, device=device)
+    out["sparse_hashed_ms"] = time_ms(
+        lambda: sp._assign_sparse(Cs, seg, idx, val, m), device)
+    log(f"[kmeans] sparse assignment at d = {sparse_dim}, {minibatch} "
+        f"Criteo-shaped rows: {out['sparse_hashed_ms']} ms a batch")
+    del sp, Cs, staged, raw
+
+    # the main path: Lloyd iterations and the app from a libsvm file
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mnist.libsvm")
+        t = time.perf_counter()
+        with open(path, "w") as f:
+            f.write(mnist_text(file_batches * minibatch, seed=71))
+        log(f"[kmeans] {file_batches * minibatch}-row file written in "
+            f"{time.perf_counter() - t:.1f}s")
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        km = KmeansLearner(KmeansConfig(train_data=path, max_iter=0,
+                                        **dict(cfg, dim=0)), device=device)
+        km.init_centroids()
+        sync(device)
+        init_s = time.perf_counter() - t
+        costs, walls = [], []
+        for it in range(iters):  # one iteration a call, each timed
+            km.start_iter, km.cfg.max_iter = it, it + 1
+            t = time.perf_counter()
+            costs.append(km.run(verbose=False))
+            sync(device)
+            walls.append(time.perf_counter() - t)
+        C_run = km.centroids
+        if km.cfg.dim != KM_DIM or C_run.shape != (KM_K, KM_DIM) or \
+                not torch.isfinite(C_run).all():
+            raise AssertionError(f"kmeans run: dim {km.cfg.dim}, centroids "
+                                 f"{tuple(C_run.shape)}")
+        if any(b > a + 1e-6 for a, b in zip(costs, costs[1:])) or \
+                not all(math.isfinite(c) for c in costs):
+            raise AssertionError(f"kmeans cost not non-increasing: {costs}")
+        model = os.path.join(tmp, "centroids.txt")
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = app.main([f"data={path}", f"num_clusters={KM_K}",
+                           "max_iter=1", f"minibatch={minibatch}",
+                           f"nnz_per_row={KM_NNZ}", f"model_out={model}",
+                           f"device={device}"])
+        saved = np.loadtxt(model)
+        if rc != 0 or saved.shape != (KM_K, KM_DIM) or \
+                "final cosine objective" not in text.getvalue():
+            raise AssertionError(f"kmeans app: rc {rc}, model {saved.shape}")
+        out["launches"] = dict(_cuda.LAUNCHES)
+    rows = file_batches * minibatch
+    it_s = statistics.median(walls)
+    out.update(iter_s=it_s, iter_examples_per_s=rows / it_s, init_s=init_s)
+    log(f"[kmeans] Lloyd from the file ({rows} rows, {file_batches} "
+        f"batches): dim discovery ({KM_DIM}) and init {init_s:.3f} s, "
+        f"iterations {', '.join(f'{w:.3f}' for w in walls)} s (median "
+        f"{it_s:.3f} s, {rows / it_s:.0f} examples/s), costs "
+        f"{', '.join(f'{c:.6f}' for c in costs)}; app: one iteration, "
+        f"model_out {saved.shape}")
+    return out
+
+
+def agaricus_text(rows: int, seed: int) -> str:
+    """Agaricus-shaped libsvm rows: 22 one-hot groups over 126 feature
+    ids (16 groups of 6 ids, 6 of 5), one id of each group a row as
+    `id:1`, and a 0/1 label from a fixed linear rule plus noise."""
+    rng = np.random.default_rng(seed)
+    sizes = [6] * 16 + [5] * 6
+    base = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    pick = base + (rng.random((rows, 22)) * sizes).astype(np.int64)
+    w = np.random.default_rng(1234).normal(size=126)
+    y = (w[pick].sum(axis=1) + rng.normal(scale=0.5, size=rows) > 0)
+    return "".join(f"{int(l)} " + " ".join(f"{i}:1" for i in r) + "\n"
+                   for l, r in zip(y, pick))
+
+
+def f64_check(name: str, obj, p, make) -> None:
+    """The card's eval and grad at p against the same objective on the
+    CPU in float64 (`make(cpu_batches)` builds it): eval within rtol
+    1e-5, grad within 1e-5 of its largest entry plus 1e-6."""
+    cpu = [(s.cpu(), i.cpu(), v.cpu().double(), y.cpu().double(),
+            m.cpu().double()) for s, i, v, y, m in obj.batches]
+    ref = make(cpu)
+    p64 = p.cpu().double()
+    e32, e64 = obj.eval(p), ref.eval(p64)
+    g32, g64 = obj.grad(p).cpu().double(), ref.grad(p64)
+    gerr = float((g32 - g64).abs().max())
+    gmax = float(g64.abs().max())
+    if abs(e32 - e64) > 1e-5 * abs(e64) or gerr > 1e-5 * gmax + 1e-6:
+        raise AssertionError(f"[lbfgs] {name}: eval {e32} vs f64 {e64}, "
+                             f"grad max abs err {gerr} (largest {gmax})")
+    log(f"[lbfgs] {name}: eval and grad at the initial point vs the CPU "
+        f"in float64: eval {e32:.6f} vs {e64:.6f}, grad max abs err "
+        f"{gerr:.3g} (largest entry {gmax:.4g})")
+
+
+def measure_lbfgs(name: str, obj, solver_cfg, device, make_ref) -> dict:
+    """The solver on an objective already loaded: ms of one eval and one
+    grad over all batches, ms an iteration and host syncs an iteration of
+    a run, and the profiler's idle share over a second, shorter run; the
+    eval and grad at the initial point against the CPU in float64."""
+    import dataclasses
+
+    from wormhole_tpu_torch.solver.lbfgs import LBFGSSolver
+
+    w0 = obj.init_model()
+    f64_check(name, obj, w0, make_ref)
+    eval_s, _ = _median_s(lambda: obj.eval(w0))
+
+    def grad():
+        g = obj.grad(w0)
+        sync(device)
+        return g
+
+    grad_s, _ = _median_s(grad)
+    # the runs below start from w0 without drawing it again (the FM's
+    # draw of 33.5M normals on the host takes about half a second), and
+    # the initial grad and eval (a run of 0 iterations) are taken off
+    obj.init_model = lambda: w0.clone()
+    t = time.perf_counter()
+    LBFGSSolver(obj, dataclasses.replace(solver_cfg, max_iter=0)).run(
+        verbose=False)
+    sync(device)
+    init_s = time.perf_counter() - t
+    solver = LBFGSSolver(obj, solver_cfg)
+    t = time.perf_counter()
+    _, objv = solver.run(verbose=False)
+    sync(device)
+    wall = time.perf_counter() - t - init_s
+    iters = max(solver.iter, 1)
+    short = LBFGSSolver(obj, dataclasses.replace(solver_cfg, max_iter=5))
+    prof = profile_steps(lambda i: short.run(verbose=False), 1) if (
+        device.type == "cuda") else {}
+    rec = {"eval_ms": 1e3 * eval_s, "grad_ms": 1e3 * grad_s,
+           "iter_ms": 1e3 * wall / iters, "iters": solver.iter,
+           "host_syncs_per_iter": solver.host_syncs / iters,
+           "idle_share": prof.get("device_idle_share"), "objv": objv}
+    log(f"[lbfgs] {name}: {solver.iter} iterations, "
+        f"{rec['iter_ms']:.2f} ms an iteration, eval {rec['eval_ms']:.2f} "
+        f"ms, grad {rec['grad_ms']:.2f} ms, {rec['host_syncs_per_iter']:.2f}"
+        f" host syncs an iteration, idle share {rec['idle_share']} "
+        f"(profiled over the initial grad and eval and 5 iterations), "
+        f"final objective {objv:.6f}")
+    return rec
+
+
+def drive_lbfgs_app(app, args: list, device) -> tuple[list, str]:
+    """An L-BFGS app's main() in-process: (the objective after init and
+    each iteration, from its lines; its stdout). Raises unless it exits
+    0 with a history that never rises."""
+    import contextlib
+    import io
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = app.main([*args, f"device={device}"])
+    hist = [float(l.split("objv ")[1].split()[0])
+            for l in text.getvalue().splitlines()
+            if l.startswith("lbfgs ") and "objv " in l]
+    if rc != 0 or len(hist) < 2 or any(
+            b > a for a, b in zip(hist, hist[1:])):
+        raise AssertionError(f"{app.__name__} {args}: rc {rc}, objective "
+                             f"{hist}")
+    return hist, text.getvalue()
+
+
+def run_lbfgs(device, criteo_file: str, agaricus_rows=AGARICUS_ROWS,
+              fm_rows=LBFGS_FM_ROWS, iters=LBFGS_ITERS, names=None) -> dict:
+    """[lbfgs]: (a) the lbfgs_linear app at the agaricus shape (train
+    reg_L2=0.1 for 30 iterations, then task=pred); (b) the lbfgs_linear
+    app on the Criteo-shaped file of [e2e] (ids below 2^22), with L2 and
+    with OWL-QN; (c) the lbfgs_fm app (nfactor 8) on its first `fm_rows`
+    rows. Each also measured through the objective and solver (the
+    apps' own classes) on the same data. `names` picks some of the four
+    runs (None: all). Returns the records and the apps' parse_libsvm
+    launches."""
+    from wormhole_tpu_torch.apps import lbfgs_fm, lbfgs_linear
+    from wormhole_tpu_torch.models.batch_objectives import (
+        FmObjFunction, LinearObjFunction, load_batches)
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.solver.lbfgs import LBFGSConfig
+
+    out, parses = {}, 0
+    with tempfile.TemporaryDirectory() as tmp:
+        aga = os.path.join(tmp, "agaricus.libsvm")
+        with open(aga, "w") as f:
+            f.write(agaricus_text(agaricus_rows, seed=81))
+        fm_path = os.path.join(tmp, "fm.libsvm")
+        with open(criteo_file) as src, open(fm_path, "w") as dst:
+            for _, line in zip(range(fm_rows), src):
+                dst.write(line)
+        model, pred = os.path.join(tmp, "m.npz"), os.path.join(tmp, "p.txt")
+        crit = [f"minibatch={MINIBATCH}", f"nnz_per_row={NNZ_PER_ROW}"]
+        runs = (
+            ("agaricus", lbfgs_linear, aga, ["reg_L2=0.1"], [], 0.1, 0.0),
+            ("criteo-l2", lbfgs_linear, criteo_file, ["reg_L2=1"], crit,
+             1.0, 0.0),
+            ("criteo-owlqn", lbfgs_linear, criteo_file,
+             ["reg_L2=1", "reg_L1=1"], crit, 1.0, 1.0),
+            ("criteo-fm", lbfgs_fm, fm_path, ["reg_L2=1", "nfactor=8"], crit,
+             1.0, 0.0))
+        for name, app, path, reg, shape, l2, l1 in runs:
+            if names is not None and name not in names:
+                continue
+            n_it = 30 if name == "agaricus" else iters
+            _cuda.reset_launches()
+            t = time.perf_counter()
+            hist, _ = drive_lbfgs_app(app, [
+                f"data={path}", f"max_lbfgs_iter={n_it}", f"model_out={model}",
+                *reg, *shape], device)
+            app_s = time.perf_counter() - t
+            n = _cuda.LAUNCHES["parse_libsvm"]
+            if n == 0 and device.type == "cuda":
+                raise AssertionError(f"[lbfgs] {name}: no parse_libsvm")
+            parses += n
+            st = np.load(model)
+            w, nf = st["w"], int(st["num_feature"])
+            zeros = int((w[:nf] == 0).sum())
+            log(f"[lbfgs] {name} app: {len(hist) - 1} iterations in "
+                f"{app_s:.2f} s (load included), objective {hist[0]:.6f} -> "
+                f"{hist[-1]:.6f}, never rising; num_feature {nf}, "
+                f"{w.shape[0]} parameters, {zeros} exact zeros among w")
+            if name == "agaricus":
+                _cuda.reset_launches()
+                lbfgs_linear.main([f"data={path}", "task=pred",
+                                   f"model_in={model}", f"pred_out={pred}",
+                                   f"device={device}"])
+                parses += _cuda.LAUNCHES["parse_libsvm"]
+                p = np.loadtxt(pred, ndmin=1)
+                if p.shape != (agaricus_rows,) or not np.isfinite(p).all():
+                    raise AssertionError(f"agaricus pred: {p.shape}")
+                log(f"[lbfgs] agaricus pred: {p.shape[0]} margins, one a "
+                    f"row")
+            batches, nf = load_batches(path, minibatch=(
+                MINIBATCH if shape else 4096), nnz_per_row=(
+                NNZ_PER_ROW if shape else 64), device=device)
+            if "fm" in name:
+                obj = FmObjFunction(batches, nf, 8, device)
+                make = lambda b, nf=nf: FmObjFunction(b, nf, 8, "cpu")  # noqa: E731
+            else:
+                obj = LinearObjFunction(batches, nf, device)
+                make = lambda b, nf=nf: LinearObjFunction(b, nf, "cpu")  # noqa: E731
+            rec = measure_lbfgs(name, obj, LBFGSConfig(
+                max_iter=n_it, reg_l2=l2, reg_l1=l1), device, make)
+            rec.update(app_s=app_s, app_iters=len(hist) - 1, zeros=zeros,
+                       num_dim=obj.num_dim)
+            out[name] = rec
+            del obj, batches
+    # absent features stay exactly 0 under L2 alone; L1 zeroes more
+    if names is None and not (out["criteo-owlqn"]["zeros"]
+                              > out["criteo-l2"]["zeros"]):
+        raise AssertionError("OWL-QN zeroed no more of w than L2 alone")
+    return out, parses
+
+
 # --------------------------------------------------------------- turns
 def learner_steps(device) -> dict:
     """The kernel path's step times, ms (medians of TIMED_WINDOWS windows
@@ -2030,9 +2497,11 @@ def kernel_turn(checkout: str, e2e_dir: str) -> int:
     """One turn of a comparison of two checkouts: the kernel phases
     (phase 1 above, minus level_hist), the learners' step times and the
     passes from the files in `e2e_dir` (phase 7), with the package of
-    `checkout` on the path, its kernels built from its own csrc/. Prints
-    one JSON line of every kernel row's numbers, the step times and the
-    passes' numbers."""
+    `checkout` on the path, its kernels built from its own csrc/, and,
+    where the checkout has the batch learners, [kmeans] (two iterations)
+    and [lbfgs]'s criteo-l2 run. Prints one JSON line of every kernel
+    row's numbers, the step times, the passes' numbers and the batch
+    learners' times."""
     import torch
 
     sys.path.insert(0, checkout)
@@ -2054,9 +2523,19 @@ def kernel_turn(checkout: str, e2e_dir: str) -> int:
     e2e = {k: {a: v[a] for a in ("examples_per_s", "wall_s", "ms_per_step",
                                  "stall_share", "app_s")}
            for k, v in run_e2e(device, files).items()}
+    batch = {}  # a checkout without the batch learners has none
+    if importlib.util.find_spec("wormhole_tpu_torch.models.kmeans"):
+        km = run_kmeans(device, iters=2)
+        knums["coo_spmv_t_kmeans"] = km.pop("coo_spmv_t")
+        batch["kmeans"] = {a: km[a] for a in (
+            "assign_ms", "assign_device_ms", "pack_s", "iter_s")}
+        lb, _ = run_lbfgs(device, files[DENSE_BUCKETS],
+                          names=("criteo-l2",))
+        batch["lbfgs"] = {a: lb["criteo-l2"][a] for a in (
+            "iter_ms", "eval_ms", "grad_ms", "idle_share")}
     print(json.dumps({"turn": checkout, "kernels": {
         k: {a: v[a] for a in keep if a in v} for k, v in knums.items()},
-        "steps": steps, "e2e": e2e}), flush=True)
+        "steps": steps, "e2e": e2e, "batch": batch}), flush=True)
     return 0
 
 
@@ -2095,8 +2574,11 @@ def run_turns(other: str) -> int:
         turns.append(("this" if checkout == ROOT else "other", got))
     summary = {name: {f"{who}{i}": {a: g["kernels"][name][a] for a in
                                     ("ms", "device_ms", "host_us")}
-                      for i, (who, g) in enumerate(turns)}
+                      for i, (who, g) in enumerate(turns)
+                      if name in g["kernels"]}
                for name in turns[1][1]["kernels"]}
+    summary["batch"] = {f"{who}{i}": g.get("batch", {})
+                        for i, (who, g) in enumerate(turns)}
     summary["steps"] = {f"{who}{i}": g["steps"]
                         for i, (who, g) in enumerate(turns)}
     summary["e2e"] = {f"{who}{i}": g["e2e"]
@@ -2189,6 +2671,20 @@ def main(argv=None) -> int:
             f"{json.dumps({k: round(v, 2) for k, v in rates.items()})}")
         log(f"[phase] {name} learner {time.perf_counter() - t:.1f}s")
 
+    # k-means: its run and app are the main path (launch counts are taken
+    # inside, over them alone); the staged checks before them are not
+    t = time.perf_counter()
+    km = run_kmeans(device)
+    counts = km.pop("launches")
+    log(f"[kmeans] launches on the main path: {counts}")
+    for k in ("coo_spmv_t", "parse_libsvm"):
+        if counts[k] == 0:
+            raise AssertionError(f"the kmeans path launched no {k}")
+        launches[k] += counts[k]
+    knums["coo_spmv_t"]["kmeans"] = km.pop("coo_spmv_t")
+    log(f"[kmeans] {smi}: " + json.dumps(km))
+    log(f"[phase] kmeans {time.perf_counter() - t:.1f}s")
+
     # the apps and the passes from a file parse on the card: they make
     # parse_libsvm's launch count
     for name, run, want in (
@@ -2212,6 +2708,12 @@ def main(argv=None) -> int:
         log(f"[e2e] files of {E2E_BATCHES} minibatches written in "
             f"{time.perf_counter() - t:.1f}s")
         passes = run_e2e(device, files)
+        log(f"[phase] e2e {time.perf_counter() - t:.1f}s")
+        t = time.perf_counter()
+        lbfgs, n_parse = run_lbfgs(device, files[DENSE_BUCKETS])
+        launches["parse_libsvm"] += n_parse
+        log(f"[lbfgs] {smi}: " + json.dumps(lbfgs))
+        log(f"[phase] lbfgs {time.perf_counter() - t:.1f}s")
     for name, rec in passes.items():
         n = rec["launches"]["parse_libsvm"]
         if n == 0:
@@ -2220,7 +2722,6 @@ def main(argv=None) -> int:
     log(f"[e2e] {smi}: " + json.dumps(
         {k: {a: v for a, v in r.items() if a != "launches"}
          for k, r in passes.items()}))
-    log(f"[phase] e2e {time.perf_counter() - t:.1f}s")
 
     rows = []
     for name, (src, repl) in KERNELS.items():
@@ -2233,7 +2734,7 @@ def main(argv=None) -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
         for extra in ("floor_ms", "per_level", "probe", "compact",
-                      "call_ms", "mb"):
+                      "kmeans", "call_ms", "mb"):
             if extra in k:
                 rows[-1][extra] = k[extra]
     print(json.dumps({"kernels": rows}), flush=True)

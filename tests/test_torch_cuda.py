@@ -935,3 +935,79 @@ def test_loader_packs_on_a_stream_of_its_own(cuda, tmp_path):
     assert all(len(v) == 1 for v in streams.values())
     assert len({next(iter(v)) for v in streams.values()}) == len(streams)
     assert 0.0 <= solver.last_pass_stall_s <= solver.last_pass_wall_s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kdt", ["f32", "bf16"])
+def test_kmeans_packed_densify_matches_plain(cuda, kdt):
+    """k-means' packed densify (coo_spmv_t over the flat (row * stride +
+    col) buckets, d = ones) on an MNIST-shaped batch, 160 uniform columns
+    a row of 784, so columns repeat in a row: the kernel's dense rows
+    against the plain version's (sums' bar), and the assignment against
+    the scatter densify's (f32: counts equal)."""
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
+
+    B, d, nnz = 1024, 784, 160
+    lrn = KmeansLearner(KmeansConfig(num_clusters=10, dim=d, minibatch=B,
+                                     nnz_per_row=nnz, kernel_dtype=kdt),
+                        device=cuda)
+    assert lrn._use_packed
+    rng = np.random.default_rng(7)
+    seg = np.repeat(np.arange(B, dtype=np.int32), nnz)
+    idx = rng.integers(0, d, size=B * nnz).astype(np.int32)
+    val = rng.random(B * nnz).astype(np.float32)
+    pk = [torch.from_numpy(a).to(cuda) for a in lrn.pack_batch(seg, idx,
+                                                                 val)]
+    ones = torch.ones(B, device=cuda)
+    n0 = _cuda.LAUNCHES["coo_spmv_t"]
+    got = ck.coo_spmv_t(ones, *pk, lrn._num_flat, dtype=lrn._kdt)
+    assert _cuda.LAUNCHES["coo_spmv_t"] == n0 + 1
+    want = ck.coo_spmv_t_plain(ones, *pk[:3], lrn._num_flat, lrn._kdt)
+    mag = ck.coo_spmv_t_plain(ones, pk[0], pk[1], pk[2].abs(),
+                              lrn._num_flat, torch.float32)
+    _sum_close(got, want, mag)
+    assert not got[mag == 0].any()
+    mask = torch.ones(B, device=cuda)
+    C = torch.randn(10, d, device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3))
+    sp, cp, cop = lrn._assign_packed(C, *pk, mask)
+    dev = [torch.from_numpy(a).to(cuda) for a in (seg, idx, val)]
+    sd, cd, cod = lrn._assign_dense(C, *dev, mask)
+    if kdt == "f32":
+        assert torch.equal(cp, cd)
+        torch.testing.assert_close(sp, sd, rtol=1e-5, atol=1e-4)
+        torch.testing.assert_close(cop, cod, rtol=1e-5, atol=0)
+    assert torch.isfinite(sp).all() and float(cp.sum()) == B
+
+
+@pytest.mark.cuda
+def test_batch_learners_parse_on_the_card(cuda, tmp_path):
+    """k-means (dim discovery and every iteration's batches) and the
+    L-BFGS loader parse on the card: parse_libsvm launches over each."""
+    from wormhole_tpu_torch.models.batch_objectives import (
+        LinearObjFunction, load_batches)
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
+    from wormhole_tpu_torch.solver.lbfgs import LBFGSConfig, LBFGSSolver
+
+    rng = np.random.default_rng(2)
+    path = tmp_path / "km.libsvm"
+    path.write_text("".join(
+        f"{r % 2} " + " ".join(f"{k}:{v:.4f}" for k, v in zip(
+            rng.integers(0, 64, 12), rng.random(12))) + "\n"
+        for r in range(1024)))
+    n0 = dict(_cuda.LAUNCHES)
+    lrn = KmeansLearner(KmeansConfig(train_data=str(path), num_clusters=4,
+                                     max_iter=2, minibatch=256,
+                                     nnz_per_row=12), device=cuda)
+    cost = lrn.run(verbose=False)
+    assert np.isfinite(cost) and lrn.cfg.dim == 64
+    assert _cuda.LAUNCHES["parse_libsvm"] > n0["parse_libsvm"]
+    assert _cuda.LAUNCHES["coo_spmv_t"] >= n0["coo_spmv_t"] + 8
+    n1 = _cuda.LAUNCHES["parse_libsvm"]
+    batches, nf = load_batches(str(path), minibatch=256, nnz_per_row=12,
+                               device=cuda)
+    assert _cuda.LAUNCHES["parse_libsvm"] > n1 and nf == 64
+    obj = LinearObjFunction(batches, nf, cuda)
+    solver = LBFGSSolver(obj, LBFGSConfig(max_iter=3, reg_l2=0.1))
+    w, objv = solver.run(verbose=False)
+    assert w.is_cuda and objv < solver.objv_history[0]

@@ -103,3 +103,12 @@ def test_scan_covers_the_native_core():
     modules the probe imports with JAX blocked."""
     assert PORT / "native.py" in SOURCES
     assert PORT / "data" / "parsers.py" in SOURCES
+
+
+def test_scan_covers_the_batch_learners():
+    """k-means, L-BFGS, their objectives and their apps are among the
+    sources scanned and the modules the probe imports."""
+    for rel in ("models/kmeans.py", "models/batch_objectives.py",
+                "solver/lbfgs.py", "apps/kmeans.py", "apps/lbfgs_linear.py",
+                "apps/lbfgs_fm.py"):
+        assert PORT / rel in SOURCES

@@ -4,6 +4,10 @@ points:
   python -m wormhole_tpu_torch.apps.linear   conf [key=val ...]   linear.dmlc
   python -m wormhole_tpu_torch.apps.difacto  conf [key=val ...]   difacto.dmlc
   python -m wormhole_tpu_torch.apps.gbdt     conf [key=val ...]   xgboost.dmlc
+  python -m wormhole_tpu_torch.apps.kmeans   data=... [key=val ...]   kmeans.dmlc
+  python -m wormhole_tpu_torch.apps.lbfgs_linear data=... [key=val ...]
+                                                          lbfgs linear.dmlc
+  python -m wormhole_tpu_torch.apps.lbfgs_fm data=... [key=val ...]   fm.dmlc
 
 Each reads a `key = value` conf file plus CLI overrides (arg_parser.h
 semantics) and runs single-process on one device (`device=cuda` by

@@ -1,0 +1,128 @@
+"""lbfgs linear.dmlc: batch logistic regression trained by L-BFGS/OWL-QN
+(reference learn/lbfgs-linear/lbfgs.cc), on one device. Rabit-style
+key=value args:
+
+  python -m wormhole_tpu_torch.apps.lbfgs_linear data=train.libsvm \
+      reg_L1=1 max_lbfgs_iter=30 model_out=model.npz device=cuda \
+      task=train|pred [test_data=... pred_out=...]
+
+task=pred reads model_in (an .npz of w and num_feature, the JAX app's
+or this one's) and writes one margin a row, %.6g. A test row with a
+feature id the model does not have raises. bsp=1 (the BSP allreduce
+ring) and global_mesh=1 (several devices) raise until their slices.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import sys
+from typing import Optional
+
+import numpy as np
+
+from wormhole_tpu_torch.apps._runner import parse_cli
+from wormhole_tpu_torch.interop import lbfgs_state_from_numpy
+from wormhole_tpu_torch.models.batch_objectives import (
+    LinearObjFunction, load_batches,
+)
+from wormhole_tpu_torch.solver.lbfgs import LBFGSConfig, LBFGSSolver
+
+
+@dataclasses.dataclass
+class LbfgsLinearConfig:
+    """Key surface of the reference lbfgs.cc SetParam loop (:236-241):
+    reg_L1, max_lbfgs_iter, lbfgs_stop_tol, model_in/out, task. The same
+    keys and defaults as the JAX app's."""
+
+    data: str = ""
+    test_data: Optional[str] = None
+    data_format: str = "libsvm"
+    task: str = "train"         # train | pred  (lbfgs.cc:55-69)
+    model_in: Optional[str] = None
+    model_out: Optional[str] = None
+    pred_out: str = "pred.txt"
+    reg_L1: float = 0.0
+    reg_L2: float = 0.0
+    max_lbfgs_iter: int = 30
+    lbfgs_stop_tol: float = 1e-7
+    m: int = 10
+    minibatch: int = 4096
+    nnz_per_row: int = 64
+    num_parts_per_file: int = 1
+    # several processes over one device mesh (the multi-GPU slice)
+    global_mesh: bool = False
+    # several processes over the BSP allreduce ring (the BSP slice)
+    bsp: bool = False
+
+
+def solver_config(cfg) -> LBFGSConfig:
+    return LBFGSConfig(max_iter=cfg.max_lbfgs_iter, m=cfg.m,
+                       reg_l1=cfg.reg_L1, reg_l2=cfg.reg_L2,
+                       min_rel_decrease=cfg.lbfgs_stop_tol)
+
+
+def check_single_process(cfg) -> None:
+    if cfg.bsp:
+        raise NotImplementedError(
+            "bsp=1 (L-BFGS over the BSP allreduce ring) waits for the "
+            "port's BSP slice; run single-process")
+    if getattr(cfg, "global_mesh", False):
+        raise NotImplementedError(
+            "global_mesh=1 (L-BFGS with the vector sharded over several "
+            "devices) waits for the port's multi-GPU slice; run "
+            "single-process")
+
+
+def predict(cfg, device) -> int:
+    """The reference's TaskPred: load the model, write one margin a row
+    (lbfgs.cc:70-85)."""
+    if not cfg.model_in:
+        raise ValueError("task=pred needs model_in")
+    path = cfg.model_in if cfg.model_in.endswith(".npz") else (
+        cfg.model_in + ".npz")
+    with np.load(path) as f:
+        arrays = {k: f[k] for k in f.files}
+    # a file without num_feature holds [w; bias] and nothing past it
+    nf = int(arrays.get("num_feature", len(arrays["w"]) - 1))
+    batches, data_nf = load_batches(
+        cfg.test_data or cfg.data, cfg.data_format, cfg.minibatch,
+        cfg.nnz_per_row, cfg.num_parts_per_file, device)
+    if data_nf > nf:
+        raise ValueError(f"test data has feature id {data_nf - 1}; the "
+                         f"model has {nf} features")
+    obj = LinearObjFunction(batches, nf, device)
+    w = lbfgs_state_from_numpy({"w": arrays["w"]}, obj.num_dim,
+                               obj.device)["w"]
+    n = 0
+    with open(cfg.pred_out, "w") as f:
+        for seg, idx, val, _, mask in batches:
+            margins = obj.predict(w, seg, idx, val, cfg.minibatch)
+            for m in margins[mask > 0].cpu().numpy():
+                f.write(f"{m:.6g}\n")
+            n += int((mask > 0).sum())
+    print(f"wrote {n} predictions to {cfg.pred_out}")
+    return 0
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    cfg, device = parse_cli(LbfgsLinearConfig, argv)
+    check_single_process(cfg)
+    if cfg.task == "pred":
+        return predict(cfg, device)
+    if cfg.task != "train":
+        raise ValueError(f"task must be train or pred, got {cfg.task!r}")
+    batches, num_feature = load_batches(
+        cfg.data, cfg.data_format, cfg.minibatch, cfg.nnz_per_row,
+        cfg.num_parts_per_file, device)
+    obj = LinearObjFunction(batches, num_feature, device)
+    w, objv = LBFGSSolver(obj, solver_config(cfg)).run()
+    print(f"final objective: {objv:.6f}")
+    if cfg.model_out:
+        np.savez(cfg.model_out, w=w.cpu().numpy(), num_feature=num_feature)
+        print(f"saved model to {cfg.model_out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -16,6 +16,13 @@ The GBDT model is host state: the arrays of the JAX learner's model file
 checks them and ``load_gbdt_state`` puts them into a port GbdtLearner,
 whose own ``save`` writes the same keys: each package loads the other's
 file.
+
+The batch learners' state is small and host-made: k-means' centroids
+(``kmeans_state_from_numpy``, from a JAX ``state.npz`` or text model) and
+L-BFGS's vectors (``lbfgs_state_from_numpy``, from a JAX
+``lbfgs_state.npz`` or ``model_out``). A JAX vector may carry zero
+padding past the objective's last slot, which a multi-device mesh left;
+the port strips it.
 """
 
 from __future__ import annotations
@@ -134,3 +141,57 @@ def load_gbdt_state(learner, arrays: dict) -> None:
     for k in _GBDT_SCALARS:
         setattr(learner.cfg, k, st[k])
     learner.trees = st["trees"]
+
+
+def kmeans_state_from_numpy(arrays, cfg, device=None) -> torch.Tensor:
+    """The (num_clusters, dim) f32 centroids on `device`, from a k-means
+    state file's arrays (a dict with ``centroids``, as ``state.npz``
+    holds them) or from the rows of a text model (an array, as
+    ``np.loadtxt`` reads it). Raises unless the shape fits cfg."""
+    C = np.asarray(arrays["centroids"] if isinstance(arrays, dict)
+                   else arrays)
+    if C.ndim == 1:  # one centroid a line: a one-row text model
+        C = C[None, :]
+    want = (cfg.num_clusters, cfg.dim)
+    if C.shape != want:
+        raise ValueError(f"centroids of shape {C.shape}, expected {want} "
+                         f"(num_clusters, dim)")
+    return torch.from_numpy(np.array(C, dtype=np.float32)).to(
+        resolve_device(device))
+
+
+def lbfgs_state_from_numpy(arrays: dict, num_dim: int,
+                           device=None) -> dict:
+    """The L-BFGS state in a JAX ``lbfgs_state.npz`` or ``model_out``, for
+    an objective of num_dim slots (a model_out's ``num_feature`` sizes
+    it: the caller reads it): ``w`` (and ``g``, and the rows of ``S`` and
+    ``Y`` as lists) as f32 tensors on `device` cut to num_dim, ``iter``
+    an int and ``objv`` a list of floats, each where the arrays have it.
+    Raises if a vector is shorter than num_dim, or nonzero past it (a
+    mesh's padding is zero), or if S and Y differ in length."""
+    dev = resolve_device(device)
+
+    def vec(v, name):
+        v = np.asarray(v, np.float32)
+        if v.ndim != 1 or v.shape[0] < num_dim:
+            raise ValueError(f"{name}: shape {v.shape}, expected at least "
+                             f"({num_dim},)")
+        if np.any(v[num_dim:]):
+            raise ValueError(f"{name}: nonzero past slot {num_dim}; the "
+                             f"file is for another objective")
+        return torch.from_numpy(np.array(v[:num_dim])).to(dev)
+
+    out = {"w": vec(arrays["w"], "w")}
+    if "g" in arrays:
+        out["g"] = vec(arrays["g"], "g")
+    for name in ("S", "Y"):
+        if name in arrays:
+            out[name] = [vec(v, f"{name}[{i}]")
+                         for i, v in enumerate(np.asarray(arrays[name]))]
+    if len(out.get("S", ())) != len(out.get("Y", ())):
+        raise ValueError("S and Y hold different numbers of pairs")
+    if "iter" in arrays:
+        out["iter"] = int(arrays["iter"])
+    if "objv" in arrays:
+        out["objv"] = [float(o) for o in np.asarray(arrays["objv"])]
+    return out
