@@ -86,12 +86,33 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    app (nfactor 8) on its first 131,072 rows: each app's objective must
    never rise; then ms an iteration, of an eval and of a grad over all
    batches, host syncs an iteration and the profiler's idle share, and
-   eval and grad at the initial point against the CPU in float64.
+   eval and grad at the initial point against the CPU in float64;
+10. the loader plane ([cache]; the knobs set inside the phase and
+   restored after it): k-means over phase 8's file with the epoch pack
+   cache on (WH_PACK_CACHE=1), five Lloyd iterations each timed against
+   the same iterations with the cache off from the same centroids
+   (iterations 2-5 must miss nothing and launch no parse_libsvm; the
+   replayed packs equal fresh packs of the same batches byte for byte;
+   centroids within atol 1e-5), then the disk tier (WH_PACK_CACHE_DIR):
+   one learner fills it, a second one's first iteration must find every
+   batch there; the linear learner at 2^26 over phase 7's file, three
+   train passes through the solver with the cache sized from nbytes_of a
+   prepared batch and the loaders sized by the LoaderController
+   (examples/s, wall, stall share, hits and misses, the median and p90
+   of each train.stage.*_s timer, a pass at a time, and the
+   controller's decisions), then one loader with the cache on and off,
+   w within rtol 1e-4 / atol 1e-6 (the learner checks' bar), z and n
+   within 4x the difference of two runs with the cache off (the float
+   atomics' floor, measured in the same call) over a floor of 1e-5 of
+   the table's largest magnitude; and a DiFacto train pass
+   with the cache on, which must touch no entry, its tables within rtol
+   2e-3 / atol 2e-5 of the pass with the cache off.
 
-The launches of parse_libsvm over the apps, the passes, the k-means run
-and the L-BFGS apps make its launch count; coo_spmv_t's count includes
-the k-means run's and app's, and its row carries the k-means shape's
-numbers ("kmeans").
+The launches of parse_libsvm over the apps, the passes, the k-means run,
+the L-BFGS apps and [cache] make its launch count; coo_spmv_t's count
+includes the k-means run's and app's and [cache]'s, and its row carries
+the k-means shape's numbers ("kmeans"); every kernel's count includes
+[cache]'s.
 
 Every check raises on failure, so any failed phase exits non-zero. The
 last two lines are one JSON object of per-kernel numbers and the result
@@ -101,6 +122,7 @@ package beside it, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import math
@@ -2075,8 +2097,17 @@ def near_ties(lrn, C, X, mask) -> int:
     return int((((top[:, 0] - top[:, 1]) < 1e-6) & (mask > 0)).sum())
 
 
-def run_kmeans(device, minibatch=KM_MINIBATCH, file_batches=KM_FILE_BATCHES,
-               iters=KM_ITERS, timed=TIMED_STEPS, windows=TIMED_WINDOWS,
+def write_mnist(path: str, rows: int) -> None:
+    t = time.perf_counter()
+    with open(path, "w") as f:
+        f.write(mnist_text(rows, seed=71))
+    log(f"[kmeans] {rows}-row file written in "
+        f"{time.perf_counter() - t:.1f}s")
+
+
+def run_kmeans(device, path=None, minibatch=KM_MINIBATCH,
+               file_batches=KM_FILE_BATCHES, iters=KM_ITERS,
+               timed=TIMED_STEPS, windows=TIMED_WINDOWS,
                sparse_dim=KM_SPARSE_DIM) -> dict:
     """[kmeans] at the bench's MNIST-784 shape (bench.py bench_kmeans):
     the packed assignment (coo_spmv_t), f32 and bf16, and the sparse one,
@@ -2084,7 +2115,7 @@ def run_kmeans(device, minibatch=KM_MINIBATCH, file_batches=KM_FILE_BATCHES,
     centroids; the assignment timed on staged batches; coo_spmv_t at this
     shape against its plain version, its bound and index_add_; then
     KmeansLearner.run and the app from a libsvm file of `file_batches`
-    minibatches parsed on the card. Returns coo_spmv_t's row numbers at
+    minibatches (`path`, else one written here) parsed on the card. Returns coo_spmv_t's row numbers at
     this shape ("kmeans") and the main path's launches."""
     import contextlib
     import io
@@ -2208,12 +2239,9 @@ def run_kmeans(device, minibatch=KM_MINIBATCH, file_batches=KM_FILE_BATCHES,
 
     # the main path: Lloyd iterations and the app from a libsvm file
     with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "mnist.libsvm")
-        t = time.perf_counter()
-        with open(path, "w") as f:
-            f.write(mnist_text(file_batches * minibatch, seed=71))
-        log(f"[kmeans] {file_batches * minibatch}-row file written in "
-            f"{time.perf_counter() - t:.1f}s")
+        if path is None:
+            path = os.path.join(tmp, "mnist.libsvm")
+            write_mnist(path, file_batches * minibatch)
         _cuda.reset_launches()
         t = time.perf_counter()
         km = KmeansLearner(KmeansConfig(train_data=path, max_iter=0,
@@ -2454,6 +2482,378 @@ def run_lbfgs(device, criteo_file: str, agaricus_rows=AGARICUS_ROWS,
 
 
 # --------------------------------------------------------------- turns
+# ------------------------------------------------------------ [cache]
+CACHE_KNOBS = ("WH_PACK_CACHE", "WH_PACK_CACHE_DIR", "WH_PACK_CACHE_MB",
+               "WH_NUM_LOADERS")
+CACHE_PASSES = 3  # linear train passes of [cache]
+STAGES = ("load", "pack", "h2d", "step", "metrics")
+
+
+@contextlib.contextmanager
+def cache_knobs(**env):
+    """The loader plane's knobs for a block: those in `env` set, the rest
+    unset; restored after, so the phases around it run unchanged."""
+    old = {k: os.environ.get(k) for k in CACHE_KNOBS}
+    try:
+        for k in CACHE_KNOBS:
+            os.environ.pop(k, None)
+        os.environ.update(env)
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches inside the block (a check's, not the main path's)
+    leave the launch counts as they were."""
+    from wormhole_tpu_torch.ops import _cuda
+
+    before = dict(_cuda.LAUNCHES)
+    try:
+        yield
+    finally:
+        _cuda.LAUNCHES.update(before)
+
+
+def same_leaves(name: str, got, want) -> None:
+    """Two prepared batches: the same structure, every array leaf equal
+    byte for byte."""
+    from wormhole_tpu_torch.data import pack_cache as pc
+
+    la, lb = [], []
+    sa, sb = pc._flatten(got, la), pc._flatten(want, lb)
+    if repr(sa) != repr(sb) or len(la) != len(lb):
+        raise AssertionError(f"{name}: structures differ")
+    for a, b in zip(la, lb):
+        a, b = np.asarray(a), np.asarray(b)
+        if (a.dtype, a.shape) != (b.dtype, b.shape) or \
+                a.tobytes() != b.tobytes():
+            raise AssertionError(f"{name}: a leaf differs")
+
+
+def lloyd_iterations(km, n: int, device) -> list:
+    """`n` Lloyd iterations of a KmeansLearner, one a call, each timed,
+    with its cache counts and kernel launches."""
+    from wormhole_tpu_torch.ops import _cuda
+
+    recs = []
+    for it in range(n):
+        km.start_iter, km.cfg.max_iter = it, it + 1
+        st0 = km.pack_cache.stats() if km.pack_cache else None
+        l0 = dict(_cuda.LAUNCHES)
+        t = time.perf_counter()
+        cost = km.run(verbose=False)
+        sync(device)
+        rec = {"wall_s": time.perf_counter() - t, "cost": cost,
+               "parse_libsvm": _cuda.LAUNCHES["parse_libsvm"]
+               - l0["parse_libsvm"],
+               "coo_spmv_t": _cuda.LAUNCHES["coo_spmv_t"] - l0["coo_spmv_t"]}
+        if st0 is not None:
+            st = km.pack_cache.stats()
+            rec.update({k: st[k] - st0[k]
+                        for k in ("hits", "misses", "disk_hits")})
+        recs.append(rec)
+    return recs
+
+
+def cache_kmeans(device, path: str, data_dir: str, minibatch: int,
+                 iters: int, file_batches: int) -> dict:
+    """[cache] k-means: Lloyd iterations over the [kmeans] file, packed f32,
+    with WH_PACK_CACHE=1 against the same iterations with the cache off
+    from the same centroids; the replayed packs against fresh packs of
+    the same batches; then the disk tier: one learner fills
+    WH_PACK_CACHE_DIR, a second one's first iteration reads it."""
+    from wormhole_tpu_torch.data import pack_cache as pc
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
+    from wormhole_tpu_torch.solver.workload import iter_parts
+
+    cfg = dict(train_data=path, num_clusters=KM_K, dim=KM_DIM,
+               minibatch=minibatch, nnz_per_row=KM_NNZ, max_iter=0)
+
+    def learner(C):
+        km = KmeansLearner(KmeansConfig(**cfg), device=device)
+        km.centroids = C.clone()
+        return km
+
+    with cache_knobs():
+        off = KmeansLearner(KmeansConfig(**cfg), device=device)
+        if off.pack_cache is not None or not off._use_packed:
+            raise AssertionError("[cache] k-means: a cache with no knob set, "
+                                 "or not the packed path")
+        off.init_centroids()
+        C0 = off.centroids.clone()
+        uncached = lloyd_iterations(off, iters, device)
+    with cache_knobs(WH_PACK_CACHE="1"):
+        on = learner(C0)
+        cached = lloyd_iterations(on, iters, device)
+        # every replayed pack against a fresh pack of the same batch
+        (f,) = iter_parts(path)
+        key = on._part_key(f, "packed")
+        mem = on.pack_cache.stats()
+        n = 0
+        with uncounted():
+            for i, blk in enumerate(MinibatchIter(
+                    path, minibatch_size=minibatch, device=device)):
+                db = on._prep_db(blk)
+                same_leaves(f"[cache] k-means batch {i}",
+                            on.pack_cache.get(pc.fingerprint(key, i)),
+                            (on.pack_batch(db.seg, db.idx, db.val),
+                             db.row_mask))
+                n += 1
+    if n != file_batches:
+        raise AssertionError(f"[cache] k-means: {n} batches in the file")
+    launches = file_batches if device.type == "cuda" else 0
+    for it, r in enumerate(cached[1:], 2):
+        if r["misses"] or r["parse_libsvm"] or \
+                r["hits"] != file_batches + 1 or \
+                r["coo_spmv_t"] != launches:
+            raise AssertionError(f"[cache] k-means iteration {it}: {r}")
+    err = float((on.centroids - off.centroids).abs().max())
+    if err > 1e-5 or abs(cached[-1]["cost"] - uncached[-1]["cost"]) > 1e-5:
+        raise AssertionError(f"[cache] k-means centroids off by {err}, "
+                             f"costs {cached[-1]['cost']} {uncached[-1]['cost']}")
+    log(f"[cache] k-means, {file_batches} batches of {minibatch} rows: "
+        f"iterations cache off {[round(r['wall_s'], 4) for r in uncached]} s, "
+        f"cache on {[round(r['wall_s'], 4) for r in cached]} s; hits/misses "
+        f"{[(r['hits'], r['misses']) for r in cached]}, parse_libsvm launches "
+        f"{[r['parse_libsvm'] for r in cached]}; {n} replayed packs equal "
+        f"to fresh ones byte for byte; centroids max abs err {err:.3g} "
+        f"(atol 1e-5); memory tier {mem['mem_bytes']} B in "
+        f"{mem['mem_entries']} entries")
+    del off, on
+    with cache_knobs(WH_PACK_CACHE_DIR=os.path.join(data_dir, "pack-cache")):
+        fill = lloyd_iterations(learner(C0), 1, device)
+        again = learner(C0)
+        disk = lloyd_iterations(again, 1, device)
+    d = disk[0]
+    if d["disk_hits"] != file_batches + 1 or d["misses"] or \
+            d["parse_libsvm"]:
+        raise AssertionError(f"[cache] k-means from disk: {d}")
+    if abs(d["cost"] - uncached[0]["cost"]) > 1e-5:
+        raise AssertionError(f"[cache] k-means from disk: cost {d['cost']} "
+                             f"vs {uncached[0]['cost']}")
+    log(f"[cache] k-means disk tier: a first learner's iteration "
+        f"{fill[0]['wall_s']:.4f} s (fills the directory), a second's "
+        f"{d['wall_s']:.4f} s with {d['disk_hits']} disk hits "
+        f"({file_batches} batches and the part's count entry), "
+        f"{d['misses']} misses")
+    del again
+    rows = file_batches * minibatch
+    return {"uncached_iter_s": [r["wall_s"] for r in uncached],
+            "cached_iter_s": [r["wall_s"] for r in cached],
+            "cached_hits": [r["hits"] for r in cached],
+            "cached_misses": [r["misses"] for r in cached],
+            "warm_examples_per_s": rows / statistics.median(
+                r["wall_s"] for r in cached[1:]),
+            "disk_fill_s": fill[0]["wall_s"], "disk_iter_s": d["wall_s"],
+            "disk_hits": d["disk_hits"], "centroid_err": err,
+            "mem_bytes": mem["mem_bytes"]}
+
+
+def tables_close(name: str, got: dict, want: dict, rtol: float,
+                 atol: float) -> tuple:
+    """(max abs err, largest share of the tolerance) over every table;
+    raises where an entry is beyond atol + rtol * |want|."""
+    err = share = 0.0
+    for k in got:
+        d = (got[k] - want[k]).abs()
+        err = max(err, float(d.max()))
+        share = max(share, float((d / (atol + rtol * want[k].abs())).max()))
+        if not bool(d.le(atol + rtol * want[k].abs()).all()):
+            raise AssertionError(f"{name} table {k}: max abs err {err}")
+    return err, share
+
+
+def stage_counts() -> dict:
+    from wormhole_tpu_torch.obs.metrics import REGISTRY
+
+    return {k: REGISTRY.histogram(f"train.stage.{k}_s").count
+            for k in STAGES}
+
+
+def stage_split(before: dict) -> dict:
+    """Median and p90 (ms) of each train stage's observations since
+    `before` (stage_counts()); the reservoir holds every observation
+    while a stage has at most its 256."""
+    from wormhole_tpu_torch.obs.metrics import REGISTRY
+
+    out = {}
+    for k in STAGES:
+        h = REGISTRY.histogram(f"train.stage.{k}_s").snapshot()
+        if h["count"] > len(h["res"]):
+            raise AssertionError(f"train.stage.{k}_s outgrew its reservoir")
+        xs = sorted(h["res"][before[k]:])
+        out[k] = ([1e3 * xs[len(xs) // 2], 1e3 * xs[int(0.9 * len(xs))]]
+                  if xs else None)
+    return out
+
+
+def solver_passes(device, cfg, passes: int) -> tuple:
+    """`passes` train passes of a LinearLearner or DifactoLearner through
+    MinibatchSolver.iterate, each with its wall, stall share, cache
+    counts, parse launches and stage split."""
+    from wormhole_tpu_torch.models.difacto import (DifactoConfig,
+                                                   DifactoLearner)
+    from wormhole_tpu_torch.models.linear import LinearLearner
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.solver.minibatch_solver import MinibatchSolver
+
+    lrn = (DifactoLearner if isinstance(cfg, DifactoConfig)
+           else LinearLearner)(cfg, device=device)
+    sol = MinibatchSolver(lrn, cfg, verbose=False)
+    recs = []
+    for dp in range(passes):
+        st0 = sol.pack_cache.stats() if sol.pack_cache else None
+        c0, p0 = stage_counts(), _cuda.LAUNCHES["parse_libsvm"]
+        sol.iterate(cfg.train_data, True, dp)
+        sync(device)
+        wall = sol.last_pass_wall_s
+        rec = {"wall_s": wall, "stall_share": sol.last_pass_stall_s / wall,
+               "parse_libsvm": _cuda.LAUNCHES["parse_libsvm"] - p0,
+               "stages_ms": stage_split(c0)}
+        if st0 is not None:
+            st = sol.pack_cache.stats()
+            rec.update({k: st[k] - st0[k] for k in ("hits", "misses")})
+        recs.append(rec)
+    return lrn, sol, recs
+
+
+def cache_linear(device, path: str, passes: int,
+                 num_buckets=COMPACT_BUCKETS) -> dict:
+    """[cache] linear: the [e2e] 2^26 file, `passes` train passes with the
+    cache on and the loaders sized by the controller (budget from
+    nbytes_of a prepared batch), per pass; then one loader with the cache
+    on and off (and off again, the float atomics' floor), w held to
+    each other at the learner checks' tolerance, z and n to 4x that
+    floor."""
+    from wormhole_tpu_torch.data import pack_cache as pc
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+
+    cfg = LinearConfig(train_data=path, minibatch=MINIBATCH,
+                       nnz_per_row=NNZ_PER_ROW, num_buckets=num_buckets,
+                       algo="ftrl", lr_eta=0.1, lambda_l1=1.0,
+                       kernel="pallas", kernel_dtype="f32",
+                       num_parts_per_file=E2E_PARTS,
+                       max_concurrency=E2E_PARTS)
+    with uncounted():
+        probe = LinearLearner(cfg, device=device)
+        blk = next(iter(MinibatchIter(path, 0, E2E_PARTS,
+                                      minibatch_size=MINIBATCH,
+                                      device=device)))
+        nb = pc.nbytes_of(probe.prepare_batch(blk))
+    del probe
+    # every part's batches, a short tail each included, all padded to one
+    # shape, with a tenth to spare
+    budget_mb = -(-(E2E_BATCHES + E2E_PARTS) * nb * 11 // 10 >> 20)
+    log(f"[cache] linear {num_buckets} buckets: a prepared batch is {nb} B "
+        f"(nbytes_of); "
+        f"WH_PACK_CACHE_MB={budget_mb}")
+    rows = E2E_BATCHES * MINIBATCH
+    with cache_knobs(WH_PACK_CACHE="1", WH_PACK_CACHE_MB=str(budget_mb)):
+        lrn, sol, recs = solver_passes(device, cfg, passes)
+        decisions = sol.controller.decisions
+    del lrn, sol
+    for dp, r in enumerate(recs):
+        r["examples_per_s"] = rows / r["wall_s"]
+        log(f"[cache] linear pass {dp + 1}: {r['examples_per_s']:.0f} "
+            f"examples/s, wall {r['wall_s']:.3f} s, stall "
+            f"{100 * r['stall_share']:.1f}%, hits/misses {r['hits']}/"
+            f"{r['misses']}, parse_libsvm launches {r['parse_libsvm']}, "
+            f"stages (median, p90 ms) {json.dumps(r['stages_ms'])}")
+    log(f"[cache] linear controller (WH_NUM_LOADERS unset): "
+        f"{json.dumps(decisions)}")
+    if recs[-1]["misses"] or recs[-1]["parse_libsvm"] or \
+            recs[-1]["hits"] == 0:
+        raise AssertionError(f"[cache] linear: last pass {recs[-1]}")
+    # one loader: the batches in file order, so two runs differ only by
+    # the order of the float atomics in coo_spmv_t; a second run with the
+    # cache off shows that floor
+    runs = []
+    for cache in ({"WH_PACK_CACHE": "1", "WH_PACK_CACHE_MB": str(budget_mb)},
+                  {}, {}):
+        with cache_knobs(WH_NUM_LOADERS="1", **cache):
+            lrn, _, one = solver_passes(device, cfg, passes)
+        runs.append((lrn.store.state, one))
+        del lrn
+    (on, one), (off, _), (off2, _) = runs
+    # held as the learner checks hold it: w at rtol 1e-4 / atol 1e-6
+    err, share = tables_close("[cache] linear", {"w": on["w"]},
+                              {"w": off["w"]}, 1e-4, 1e-6)
+    # z and n, where sums cancel, against this run's own control: 4x what
+    # two uncached runs differ by, over a floor of 1e-5 of the table's
+    # largest magnitude
+    diffs = {}
+    for k in on:
+        d_on = float((on[k] - off[k]).abs().max())
+        d_off = float((off2[k] - off[k]).abs().max())
+        bound = 4 * d_off + 1e-5 * float(off[k].abs().max()) + 1e-6
+        diffs[k] = [d_on, d_off, bound]
+        if k != "w" and not d_on <= bound:
+            raise AssertionError(f"[cache] linear: {k} cache on vs off max "
+                                 f"abs err {d_on:.4g} > {bound:.4g} (4x "
+                                 f"the off-vs-off {d_off:.4g} + floor)")
+    log(f"[cache] linear, one loader, {passes} passes: w cache on vs off "
+        f"max abs err {err:.3g}, {share:.3f} of the tolerance (rtol 1e-4, "
+        f"atol 1e-6); every table's max abs err [on vs off, off vs off, "
+        f"bound] {json.dumps(diffs)} (z, n held to their bound); the "
+        f"cached run's passes {[round(r['wall_s'], 3) for r in one]} s")
+    del runs, on, off, off2
+    return {"passes": recs, "decisions": decisions, "batch_bytes": nb,
+            "budget_mb": budget_mb, "w_err": err, "table_diffs": diffs,
+            "one_loader_cached_s": [r["wall_s"] for r in one]}
+
+
+def cache_difacto(device, path: str, num_buckets=DENSE_BUCKETS,
+                  v_buckets=V_BUCKETS) -> dict:
+    """[cache] DiFacto: one train pass (compact FM kind, one loader) with
+    the cache on touches no entry, and its tables equal the pass with the
+    cache off within the DiFacto checks' tolerance."""
+    import dataclasses
+
+    cfg = dataclasses.replace(
+        difacto_config("pallas", num_buckets, v_buckets), train_data=path,
+        num_parts_per_file=E2E_PARTS)
+    out = []
+    for cache in ({"WH_PACK_CACHE": "1"}, {}):
+        with cache_knobs(WH_NUM_LOADERS="1", **cache):
+            lrn, sol, recs = solver_passes(device, cfg, 1)
+        st = sol.pack_cache.stats() if sol.pack_cache else None
+        out.append((lrn.ckpt_store.state, st, recs[0]))
+        del lrn, sol
+    (on, st, rec), (off, _, _) = out
+    if st["hits"] or st["misses"] or st["mem_entries"]:
+        raise AssertionError(f"[cache] difacto train pass touched the "
+                             f"cache: {st}")
+    err, share = tables_close("[cache] difacto", on, off, 2e-3, 2e-5)
+    log(f"[cache] difacto train pass, cache on: no entry ({st}); tables vs "
+        f"cache off max abs err {err:.3g}, {share:.3f} of the tolerance "
+        f"(rtol 2e-3, atol 2e-5); pass wall {rec['wall_s']:.3f} s")
+    return {"table_err": err, "wall_s": rec["wall_s"]}
+
+
+def run_cache(device, km_path: str, files: dict, data_dir: str,
+              km_minibatch=KM_MINIBATCH, km_iters=KM_ITERS,
+              km_batches=KM_FILE_BATCHES, passes=CACHE_PASSES,
+              compact_buckets=COMPACT_BUCKETS, dense_buckets=DENSE_BUCKETS,
+              v_buckets=V_BUCKETS) -> dict:
+    """[cache]: the epoch pack cache and the loader plane on the card
+    (k-means, linear, DiFacto; see the module docstring). `files` maps a
+    bucket count to its [e2e] file."""
+    return {"kmeans": cache_kmeans(device, km_path, data_dir, km_minibatch,
+                                   km_iters, km_batches),
+            "linear": cache_linear(device, files[compact_buckets], passes,
+                                   compact_buckets),
+            "difacto": cache_difacto(device, files[dense_buckets],
+                                     dense_buckets, v_buckets)}
+
+
 def learner_steps(device) -> dict:
     """The kernel path's step times, ms (medians of TIMED_WINDOWS windows
     on staged batches): the linear learner at 2^26 buckets, DiFacto, and
@@ -2589,6 +2989,84 @@ def run_turns(other: str) -> int:
 
 
 # ---------------------------------------------------------------- main
+def data_phases(device, smi: str, data_dir: str, knums: dict,
+                launches: dict) -> None:
+    """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
+    [lbfgs] and [cache]. Adds their main paths' launches to `launches`
+    and coo_spmv_t's k-means numbers to `knums`."""
+    from wormhole_tpu_torch.ops import _cuda
+
+    # k-means: its run and app are the main path (launch counts are taken
+    # inside, over them alone); the staged checks before them are not
+    km_path = os.path.join(data_dir, "mnist.libsvm")
+    write_mnist(km_path, KM_FILE_BATCHES * KM_MINIBATCH)
+    t = time.perf_counter()
+    km = run_kmeans(device, km_path)
+    counts = km.pop("launches")
+    log(f"[kmeans] launches on the main path: {counts}")
+    for k in ("coo_spmv_t", "parse_libsvm"):
+        if counts[k] == 0:
+            raise AssertionError(f"the kmeans path launched no {k}")
+        launches[k] += counts[k]
+    knums["coo_spmv_t"]["kmeans"] = km.pop("coo_spmv_t")
+    log(f"[kmeans] {smi}: " + json.dumps(km))
+    log(f"[phase] kmeans {time.perf_counter() - t:.1f}s")
+
+    # the apps and the passes from a file parse on the card: they make
+    # parse_libsvm's launch count
+    for name, run, want in (
+            ("app", run_app, ("tile_gather", "coo_spmv_t",
+                              "scatter_update")),
+            ("difacto-app", run_difacto_app, FM_KERNELS),
+            ("gbdt-app", run_gbdt_app, GBDT_KERNELS)):
+        t = time.perf_counter()
+        _cuda.reset_launches()
+        run(device)
+        app_launches = dict(_cuda.LAUNCHES)
+        log(f"[{name}] launches: {app_launches}")
+        for k in (*want, "parse_libsvm"):
+            if app_launches[k] == 0:
+                raise AssertionError(f"{name} run launched no {k}")
+        launches["parse_libsvm"] += app_launches["parse_libsvm"]
+        log(f"[phase] {name} {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    files = write_e2e_files(data_dir)
+    log(f"[e2e] files of {E2E_BATCHES} minibatches written in "
+        f"{time.perf_counter() - t:.1f}s")
+    passes = run_e2e(device, files)
+    log(f"[phase] e2e {time.perf_counter() - t:.1f}s")
+    t = time.perf_counter()
+    lbfgs, n_parse = run_lbfgs(device, files[DENSE_BUCKETS])
+    launches["parse_libsvm"] += n_parse
+    log(f"[lbfgs] {smi}: " + json.dumps(lbfgs))
+    log(f"[phase] lbfgs {time.perf_counter() - t:.1f}s")
+    for name, rec in passes.items():
+        n = rec["launches"]["parse_libsvm"]
+        if n == 0:
+            raise AssertionError(f"[e2e] {name} launched no parse_libsvm")
+        launches["parse_libsvm"] += n
+    log(f"[e2e] {smi}: " + json.dumps(
+        {k: {a: v for a, v in r.items() if a != "launches"}
+         for k, r in passes.items()}))
+
+    # the loader plane: cached passes and Lloyd iterations are the main
+    # path's too; a warm one launches no parse_libsvm
+    t = time.perf_counter()
+    _cuda.reset_launches()
+    cache = run_cache(device, km_path, files, data_dir)
+    counts = dict(_cuda.LAUNCHES)
+    log(f"[cache] launches: {counts}")
+    for k in ("coo_spmv_t", "tile_gather", "scatter_update",
+              "parse_libsvm", *FM_KERNELS):
+        if counts[k] == 0:
+            raise AssertionError(f"the [cache] phase launched no {k}")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    log(f"[cache] {smi}: " + json.dumps(cache))
+    log(f"[phase] cache {time.perf_counter() - t:.1f}s")
+
+
+
 def main(argv=None) -> int:
     import torch
 
@@ -2671,57 +3149,11 @@ def main(argv=None) -> int:
             f"{json.dumps({k: round(v, 2) for k, v in rates.items()})}")
         log(f"[phase] {name} learner {time.perf_counter() - t:.1f}s")
 
-    # k-means: its run and app are the main path (launch counts are taken
-    # inside, over them alone); the staged checks before them are not
-    t = time.perf_counter()
-    km = run_kmeans(device)
-    counts = km.pop("launches")
-    log(f"[kmeans] launches on the main path: {counts}")
-    for k in ("coo_spmv_t", "parse_libsvm"):
-        if counts[k] == 0:
-            raise AssertionError(f"the kmeans path launched no {k}")
-        launches[k] += counts[k]
-    knums["coo_spmv_t"]["kmeans"] = km.pop("coo_spmv_t")
-    log(f"[kmeans] {smi}: " + json.dumps(km))
-    log(f"[phase] kmeans {time.perf_counter() - t:.1f}s")
-
-    # the apps and the passes from a file parse on the card: they make
-    # parse_libsvm's launch count
-    for name, run, want in (
-            ("app", run_app, ("tile_gather", "coo_spmv_t",
-                              "scatter_update")),
-            ("difacto-app", run_difacto_app, FM_KERNELS),
-            ("gbdt-app", run_gbdt_app, GBDT_KERNELS)):
-        t = time.perf_counter()
-        _cuda.reset_launches()
-        run(device)
-        app_launches = dict(_cuda.LAUNCHES)
-        log(f"[{name}] launches: {app_launches}")
-        for k in (*want, "parse_libsvm"):
-            if app_launches[k] == 0:
-                raise AssertionError(f"{name} run launched no {k}")
-        launches["parse_libsvm"] += app_launches["parse_libsvm"]
-        log(f"[phase] {name} {time.perf_counter() - t:.1f}s")
-    t = time.perf_counter()
-    with tempfile.TemporaryDirectory() as tmp:
-        files = write_e2e_files(tmp)
-        log(f"[e2e] files of {E2E_BATCHES} minibatches written in "
-            f"{time.perf_counter() - t:.1f}s")
-        passes = run_e2e(device, files)
-        log(f"[phase] e2e {time.perf_counter() - t:.1f}s")
-        t = time.perf_counter()
-        lbfgs, n_parse = run_lbfgs(device, files[DENSE_BUCKETS])
-        launches["parse_libsvm"] += n_parse
-        log(f"[lbfgs] {smi}: " + json.dumps(lbfgs))
-        log(f"[phase] lbfgs {time.perf_counter() - t:.1f}s")
-    for name, rec in passes.items():
-        n = rec["launches"]["parse_libsvm"]
-        if n == 0:
-            raise AssertionError(f"[e2e] {name} launched no parse_libsvm")
-        launches["parse_libsvm"] += n
-    log(f"[e2e] {smi}: " + json.dumps(
-        {k: {a: v for a, v in r.items() if a != "launches"}
-         for k, r in passes.items()}))
+    data_dir = tempfile.mkdtemp(prefix="wh-smoke-")
+    try:
+        data_phases(device, smi, data_dir, knums, launches)
+    finally:
+        shutil.rmtree(data_dir)
 
     rows = []
     for name, (src, repl) in KERNELS.items():

@@ -1011,3 +1011,75 @@ def test_batch_learners_parse_on_the_card(cuda, tmp_path):
     solver = LBFGSSolver(obj, LBFGSConfig(max_iter=3, reg_l2=0.1))
     w, objv = solver.run(verbose=False)
     assert w.is_cuda and objv < solver.objv_history[0]
+
+
+@pytest.mark.cuda
+def test_prefetch_parses_on_a_stream_of_its_own(cuda, tmp_path,
+                                                monkeypatch):
+    """MinibatchIter's prefetch thread parses on the card on a stream of
+    its own, not the steps' default stream, and its batches equal those
+    of the unprefetched iterator."""
+    from wormhole_tpu_torch.data import minibatch
+
+    seen = []
+
+    def recording(chunk, fmt, device=None):
+        seen.append((threading.get_ident(),
+                     torch.cuda.current_stream(device).cuda_stream))
+        return parse_text(chunk, fmt, device)
+
+    monkeypatch.setattr(minibatch.parsers, "parse_text", recording)
+    rng = np.random.default_rng(4)
+    path = tmp_path / "d.libsvm"
+    path.write_text("".join(
+        f"{r % 2} " + " ".join(str(k) for k in rng.integers(0, 1 << 20, 9))
+        + "\n" for r in range(3000)))
+    got = [list(minibatch.MinibatchIter(str(path), minibatch_size=256,
+                                        device=cuda, prefetch=pf))
+           for pf in (True, False)]
+    default = torch.cuda.default_stream(cuda).cuda_stream
+    (thread, stream), (thread2, stream2) = seen[0], seen[-1]
+    assert thread != threading.get_ident() and stream != default
+    assert thread2 == threading.get_ident() and stream2 == default
+    assert len(got[0]) == len(got[1]) == 12
+    for a, b in zip(*got):
+        for f in ("label", "offset", "index"):
+            np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.cuda
+def test_kmeans_replays_cached_packs_on_the_card(cuda, tmp_path,
+                                                 monkeypatch):
+    """With WH_PACK_CACHE=1, Lloyd iterations 2-3 parse nothing and launch
+    the packed densify once a batch; the centroids stay within atol 1e-5
+    of the run with the cache off (the densify sums with float atomics)."""
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
+
+    rng = np.random.default_rng(5)
+    path = tmp_path / "km.libsvm"
+    path.write_text("".join(
+        "0 " + " ".join(f"{k}:{v:.4f}" for k, v in zip(
+            rng.integers(0, 96, 20), rng.random(20))) + "\n"
+        for _ in range(1024)))
+    kw = dict(train_data=str(path), num_clusters=4, dim=96, max_iter=3,
+              minibatch=256, nnz_per_row=20)
+    for k in ("WH_PACK_CACHE", "WH_PACK_CACHE_DIR"):
+        monkeypatch.delenv(k, raising=False)
+    off = KmeansLearner(KmeansConfig(**kw), device=cuda)
+    assert off.pack_cache is None and off._use_packed
+    off.init_centroids()
+    C0 = off.centroids.clone()
+    off.run(verbose=False)
+    monkeypatch.setenv("WH_PACK_CACHE", "1")
+    on = KmeansLearner(KmeansConfig(**kw), device=cuda)
+    on.centroids = C0.clone()
+    on.cfg.max_iter = 1
+    on.run(verbose=False)
+    n0 = dict(_cuda.LAUNCHES)
+    on.start_iter, on.cfg.max_iter = 1, 3
+    on.run(verbose=False)
+    assert _cuda.LAUNCHES["parse_libsvm"] == n0["parse_libsvm"]
+    assert _cuda.LAUNCHES["coo_spmv_t"] == n0["coo_spmv_t"] + 2 * 4
+    st = on.pack_cache.stats()
+    assert (st["hits"], st["misses"]) == (2 * 5, 1)
+    assert float((on.centroids - off.centroids).abs().max()) <= 1e-5

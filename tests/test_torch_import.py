@@ -112,3 +112,12 @@ def test_scan_covers_the_batch_learners():
                 "solver/lbfgs.py", "apps/kmeans.py", "apps/lbfgs_linear.py",
                 "apps/lbfgs_fm.py"):
         assert PORT / rel in SOURCES
+
+
+def test_scan_covers_the_loader_plane():
+    """The metrics registry, the epoch pack cache, the prefetching
+    MinibatchIter and the solver are among the sources scanned and the
+    modules the probe imports."""
+    for rel in ("obs/metrics.py", "data/pack_cache.py", "data/minibatch.py",
+                "solver/minibatch_solver.py"):
+        assert PORT / rel in SOURCES

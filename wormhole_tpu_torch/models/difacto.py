@@ -32,6 +32,7 @@ A step runs one of two prepared-batch kinds:
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import logging
 import threading
 
@@ -150,6 +151,9 @@ class _CombinedStore:
 
 class DifactoLearner:
     """FM train/eval/predict steps over one device's w and V tables."""
+
+    #: bump when prepare_batch's output changes for identical input
+    _PACK_VERSION = 1
 
     def __init__(self, cfg: DifactoConfig, device=None, seed: int = 0):
         if not 0 < cfg.vb <= cfg.num_buckets:
@@ -541,6 +545,31 @@ class DifactoLearner:
             return ("xla", db, blk.size)
         return ("fm", self._pack_fm(db, train), db.label, db.row_mask,
                 blk.size, train)
+
+    def pack_cache_token(self, train: bool = True):
+        """Everything (beyond the raw batch bytes) that decides what
+        prepare_batch emits, or None where a pack cannot be replayed. The
+        compact train pack reads the count mirror and moves it (_pack_fm),
+        so a replayed one would be stale and skip its count push: None.
+        An eval pack is pure given the mirror, keyed by a digest of the
+        mirror's bytes once the slot caps are sized: a counter local to the
+        process
+        would let a run that shares the disk tier replay another run's
+        admissions. The digest reads the whole mirror, once a pass. The
+        xla kind packs with no host state and caches for both."""
+        cfg = self.cfg
+        base = ("difacto", self._PACK_VERSION, self._use_fm_pallas,
+                cfg.minibatch, cfg.nnz_per_row, cfg.num_buckets, cfg.vb,
+                cfg.dim, cfg.threshold, cfg.l1_shrk)
+        if not self._use_fm_pallas:
+            return base
+        if train or self._fm_caps is None:
+            return None
+        with self._fm_lock:
+            mirror = hashlib.blake2b(self._cnt_host.data,
+                                     digest_size=16).hexdigest()
+        return base + (self._fm_caps, mirror, ck.TILE, ck.BLK_U,
+                       ck.TILE_HI, ck.FM_BLK, ck.LANES)
 
     def _prepared(self, x, train: bool):
         # prepared and staged batches are tuples; anything else is a

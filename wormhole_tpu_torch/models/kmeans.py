@@ -25,9 +25,12 @@ counts, cost), by one of three paths:
 The loop takes the packed path for the dense assignment when the
 minibatch is a multiple of 128 (the kernel's dual vector), else dense.
 
-The epoch pack cache of the JAX package (data/pack_cache.py, off unless
-an environment variable turns it on) is not ported: every iteration
-parses and packs its batches again, as the JAX package does by default.
+Every Lloyd iteration reads the same batches, so with the epoch pack cache
+on (data/pack_cache.py: WH_PACK_CACHE, WH_PACK_CACHE_DIR) iterations 2 on
+replay each part's prepared batches (the raw DeviceBatch, or the packed
+batch and its row mask) instead of parsing and packing them again; with no
+knob set every iteration parses and packs, as the JAX package does by
+default.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from wormhole_tpu_torch.data import pack_cache as _pc
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
 from wormhole_tpu_torch.data.rowblock import RowBlock, to_device_batch
 from wormhole_tpu_torch.device import resolve_device
@@ -93,6 +97,9 @@ def _unit_rows(X):
 
 
 class KmeansLearner:
+    #: bump when _prep_db's or pack_batch's output changes for one input
+    _PACK_VERSION = 1
+
     def __init__(self, cfg: KmeansConfig, device=None):
         self.device = resolve_device(device)
         if cfg.dim == 0:
@@ -122,6 +129,7 @@ class KmeansLearner:
         self._use_packed = not self._use_sparse and B % ck.LANES == 0
         self._kdt = (torch.bfloat16 if cfg.kernel_dtype == "bf16"
                      else torch.float32)
+        self.pack_cache = _pc.from_env()
 
     # -- assignment -----------------------------------------------------------
     def densify(self, seg, idx, val, mask):
@@ -210,29 +218,45 @@ class KmeansLearner:
         return to_device_batch(blk, cfg.minibatch,
                                cfg.minibatch * cfg.nnz_per_row, cfg.dim)
 
-    def _host_dbs(self):
-        """DeviceBatches of every part in file order, parsed on the
-        learner's device."""
+    def _part_key(self, f, mode: str):
+        """Every input of a part's prepared batches, beside its bytes."""
+        cfg = self.cfg
+        return ("kmeans", self._PACK_VERSION, mode, cfg.dim,
+                cfg.minibatch, cfg.nnz_per_row, self._flat_stride,
+                self._num_flat, ck.TILE, ck.BLK, ck.LANES,
+                f.filename, f.part, f.num_parts, cfg.data_format,
+                _pc.file_stamp(f.filename))
+
+    def _host_dbs(self, mode: str, prep):
+        """`prep` of every minibatch of every part in file order, parsed on
+        the learner's device, through the pack cache part by part (the
+        plain loop when it is off)."""
         cfg = self.cfg
         for f in iter_parts(cfg.train_data, cfg.num_parts_per_file,
                             cfg.data_format, node="kmeans"):
-            for blk in MinibatchIter(f.filename, f.part, f.num_parts,
+            def raw(f=f):
+                return MinibatchIter(f.filename, f.part, f.num_parts,
                                      f.format, minibatch_size=cfg.minibatch,
-                                     device=self.device):
-                yield self._prep_db(blk)
+                                     device=self.device)
+            key = (self._part_key(f, mode)
+                   if self.pack_cache is not None else None)
+            yield from _pc.iter_part_cached(self.pack_cache, key, raw, prep)
 
     def _batches(self):
         """(seg, idx, val, mask) of each minibatch, on the device."""
-        for db in self._host_dbs():
+        for db in self._host_dbs("raw", self._prep_db):
             yield (self._put(db.seg), self._put(db.idx), self._put(db.val),
                    self._put(db.row_mask))
 
     def _batches_packed(self):
         """(packed flat-bucket COO, mask) of each minibatch, on the
         device, for the packed path."""
-        for db in self._host_dbs():
-            pk = self.pack_batch(db.seg, db.idx, db.val)
-            yield tuple(self._put(a) for a in pk), self._put(db.row_mask)
+        def prep(blk):
+            db = self._prep_db(blk)
+            return (self.pack_batch(db.seg, db.idx, db.val), db.row_mask)
+
+        for pk, mask in self._host_dbs("packed", prep):
+            yield tuple(self._put(a) for a in pk), self._put(mask)
 
     # -- init: random rows (kmeans.cc:89-106) ---------------------------------
     def init_centroids(self) -> None:

@@ -10,16 +10,25 @@ the JAX package's single-process MinibatchSolver:
 - the learner's `on_pass_start` hook, where it has one, runs at the start
   of every pass; `stop_hook(pass progress, data_pass, "val" | "train")`
   may end the run early after a pass;
-- each pass splits the matched files into virtual parts; loader threads
-  (max_concurrency of them) parse, pack and stage minibatches into a
-  bounded queue while the main thread runs the device steps. They parse
-  and pack on the learner's device; on CUDA each loader does so on a
-  stream of its own, off the steps' stream, and stages the packed
-  arrays on the steps' stream, as the steps read them;
+- each pass splits the matched files into virtual parts, taken in file
+  order; loader threads parse, pack and stage minibatches into a bounded
+  queue while the main thread runs the device steps. They parse and pack
+  on the learner's device; on CUDA each loader does so on a stream of its
+  own, off the steps' stream, and stages the packed arrays on the steps'
+  stream, as the steps read them;
+- the loader pool has ``WH_NUM_LOADERS`` threads, else
+  ``cfg.max_concurrency``; unless ``WH_NUM_LOADERS`` pinned that count, a
+  LoaderController resizes it between passes from the pass's loader
+  stall;
+- with the epoch pack cache on (``WH_PACK_CACHE``, ``WH_PACK_CACHE_DIR``;
+  data/pack_cache.py) the loaders replay a part's prepared batches from
+  the second pass on, where the learner's ``pack_cache_token`` allows it;
 - the main thread's wait for the queue is the pass's loader stall
   (``last_pass_stall_s``, beside ``last_pass_wall_s``), logged as a
-  share of the pass's wall with the pass line (the JAX solver's
-  loader.stall_s);
+  share of the pass's wall with the pass line; the gauges ``queue.depth``,
+  ``loader.stall_s`` and ``loader.pool_size`` and the train-stage
+  histograms ``train.stage.{load,pack,h2d,step,metrics,total}_s`` go to
+  obs.metrics.REGISTRY, as the JAX solver's do;
 - a progress row prints every print_sec;
 - predict writes one output file per part (iter_solver.h:140-156).
 """
@@ -35,7 +44,9 @@ from typing import Callable, Optional
 
 import torch
 
+from wormhole_tpu_torch.data import pack_cache as _pc
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
+from wormhole_tpu_torch.obs.metrics import REGISTRY
 from wormhole_tpu_torch.solver.progress import Progress
 from wormhole_tpu_torch.utils import checkpoint as ckpt
 
@@ -65,6 +76,75 @@ def list_parts(pattern: str, num_parts_per_file: int) -> list[tuple]:
     return [(f, k, n) for f in files for k in range(n)]
 
 
+class LoaderController:
+    """Stall-driven sizing of the loader thread pool, between passes (the
+    JAX solver's policy, unchanged). Inputs a pass: the main thread's
+    total queue wait (``loader.stall_s``) and how often it found the queue
+    at least half full (``queue.depth``).
+
+    - stall above ``grow_stall`` of the wall: the device out-ran the
+      loaders; grow by 1 (by 2 when starved hard, over 3x the threshold);
+    - stall under ``shrink_stall`` AND the queue at least half full on
+      most gets: the loaders are over-provisioned; shrink by 1. The
+      queue gate stops a shrink where the stall is low only because the
+      pass was short.
+    Passes under 4 steps change nothing. Every decision is recorded."""
+
+    def __init__(self, initial: int, lo: int = 1, hi: int | None = None,
+                 grow_stall: float = 0.15, shrink_stall: float = 0.02):
+        self.n = max(int(initial), lo)
+        self.lo = lo
+        # loaders mostly wait on I/O, the card and GIL-free numpy: 2x the
+        # cores is the ceiling
+        self.hi = hi if hi is not None else max(2 * (os.cpu_count() or 2),
+                                                self.n)
+        self.grow_stall = grow_stall
+        self.shrink_stall = shrink_stall
+        self.decisions: list[dict] = []
+
+    def record_pass(self, stall_s: float, wall_s: float, n_steps: int,
+                    queue_high_frac: float) -> int:
+        """Fold one pass's numbers in; returns the pool size for the next
+        pass."""
+        stall_frac = stall_s / max(wall_s, 1e-9)
+        new = self.n
+        why = "steady"
+        if n_steps >= 4:
+            if stall_frac > self.grow_stall:
+                step = 2 if stall_frac > 3 * self.grow_stall else 1
+                new = min(self.n + step, self.hi)
+                why = "starved"
+            elif stall_frac < self.shrink_stall and queue_high_frac > 0.5:
+                new = max(self.n - 1, self.lo)
+                why = "overfed"
+        self.decisions.append({
+            "from": self.n, "to": new, "why": why,
+            "stall_frac": round(stall_frac, 4),
+            "queue_high_frac": round(queue_high_frac, 3),
+            "n_steps": n_steps,
+        })
+        self.n = new
+        return new
+
+
+_QDEPTH = REGISTRY.gauge("queue.depth")
+_STALL = REGISTRY.gauge("loader.stall_s")
+_POOL = REGISTRY.gauge("loader.pool_size")
+
+# a train batch's stages: the main thread's wall a batch is load (queue
+# wait) + step + metrics (merge, print); pack and h2d run in the loader
+# threads, overlapped with the steps. All are host times: the pack's sorts
+# on the card and the parse sync before they return, the staging copies
+# from pageable memory on the steps' stream (so h2d also waits for the
+# steps queued ahead of it), and a step reads its progress back.
+_ST_LOAD = REGISTRY.histogram("train.stage.load_s")
+_ST_PACK = REGISTRY.histogram("train.stage.pack_s")
+_ST_H2D = REGISTRY.histogram("train.stage.h2d_s")
+_ST_STEP = REGISTRY.histogram("train.stage.step_s")
+_ST_METRICS = REGISTRY.histogram("train.stage.metrics_s")
+_ST_TOTAL = REGISTRY.histogram("train.stage.total_s")
+
+
 class MinibatchSolver:
     """Drives a learner (prepare_batch / stage_batch / train_batch /
     eval_batch / predict_batch / store) over files in one process."""
@@ -75,15 +155,33 @@ class MinibatchSolver:
     def __init__(self, learner, cfg, verbose: bool = True):
         self.learner = learner
         self.cfg = cfg
-        self.num_loaders = max(1, int(cfg.max_concurrency))
+        env = os.environ.get("WH_NUM_LOADERS")
+        pinned = bool(env)
+        if pinned:
+            self.num_loaders, src = max(1, int(env)), "WH_NUM_LOADERS"
+        else:
+            self.num_loaders = max(1, int(cfg.max_concurrency))
+            src = "cfg.max_concurrency"
         self.verbose = verbose
         self.t0 = time.time()
+        # adaptive sizing is on unless the count was pinned
+        self.controller: Optional[LoaderController] = (
+            None if pinned else LoaderController(self.num_loaders))
+        self.pack_cache = _pc.from_env()
         # early-stop hook: (pass progress, data_pass, key) -> bool
         self.stop_hook: Optional[Callable] = None
         # the last TRAIN/VAL pass: its wall, and the main thread's wait
         # for the loaders within it
         self.last_pass_wall_s = 0.0
         self.last_pass_stall_s = 0.0
+        cache_desc = "off"
+        if self.pack_cache is not None:
+            cache_desc = f"mem={self.pack_cache.mem_bytes >> 20}MB"
+            if self.pack_cache.disk_dir:
+                cache_desc += f" disk={self.pack_cache.disk_dir}"
+        self._log(f"[loader] {self.num_loaders} loader thread(s) ({src}), "
+                  f"adaptive={'on' if self.controller else 'off'}, "
+                  f"pack_cache={cache_desc}")
 
     @property
     def _device(self) -> Optional[torch.device]:
@@ -124,6 +222,19 @@ class MinibatchSolver:
         key = "val" if "val" in result else "train"
         return bool(self.stop_hook(result[key], dp, key))
 
+    def _pass_cache_token(self, train: bool):
+        """The learner's pack version for this pass, or None where the
+        pass's batches cannot be replayed: shuffle and negative sampling
+        draw from a seed that changes every pass."""
+        if self.pack_cache is None:
+            return None
+        tok_fn = getattr(self.learner, "pack_cache_token", None)
+        if tok_fn is None:
+            return None
+        if train and (self.cfg.rand_shuffle or self.cfg.neg_sampling < 1.0):
+            return None
+        return tok_fn(train=train)
+
     def iterate(self, data: str, train: bool, data_pass: int = 0) -> Progress:
         """One TRAIN (train=True) or VAL pass over `data`."""
         cfg = self.cfg
@@ -156,6 +267,15 @@ class MinibatchSolver:
         dev = self._device
         on_card = dev is not None and dev.type == "cuda"
 
+        token = self._pass_cache_token(train)
+
+        def prep(blk):
+            t0 = time.perf_counter()
+            out = lrn.prepare_batch(blk, train)
+            if train:
+                _ST_PACK.observe(time.perf_counter() - t0)
+            return out
+
         def loader():
             try:
                 # parse and pack on a stream of this loader's own (no-op
@@ -166,53 +286,89 @@ class MinibatchSolver:
                         if not parts:
                             return
                         part_id, (fname, part, nparts) = parts.pop(0)
-                    it = iter(MinibatchIter(
-                        fname, part, nparts, cfg.data_format,
-                        minibatch_size=cfg.minibatch,
-                        shuf_buf=(cfg.rand_shuffle * cfg.minibatch
-                                  if train else 0),
-                        neg_sampling=cfg.neg_sampling if train else 1.0,
-                        seed=data_pass * 7919 + part_id, device=dev))
+
+                    def raw_iter(fname=fname, part=part, nparts=nparts,
+                                 part_id=part_id):
+                        return MinibatchIter(
+                            fname, part, nparts, cfg.data_format,
+                            minibatch_size=cfg.minibatch,
+                            shuf_buf=(cfg.rand_shuffle * cfg.minibatch
+                                      if train else 0),
+                            neg_sampling=cfg.neg_sampling if train else 1.0,
+                            seed=data_pass * 7919 + part_id, device=dev)
+
+                    # the same (token, part, file bytes, batch geometry)
+                    # packs the same batches; anything else misses
+                    part_key = None
+                    if token is not None:
+                        part_key = ("train" if train else "eval", token,
+                                    fname, part, nparts, cfg.data_format,
+                                    cfg.minibatch, _pc.file_stamp(fname))
+                    batches = _pc.iter_part_cached(self.pack_cache, part_key,
+                                                   raw_iter, prep)
                     while True:
                         with torch.cuda.stream(pack_stream):
-                            blk = next(it, None)
-                            if blk is None:
-                                break
-                            prepared = lrn.prepare_batch(blk, train)
-                        if not put(lrn.stage_batch(prepared, train=train)):
+                            b = next(batches, None)
+                        if b is None:
+                            break
+                        # staging in the loader: batch N+1's arrays go to
+                        # the device while the main thread steps batch N
+                        t0 = time.perf_counter()
+                        b = lrn.stage_batch(b, train=train)
+                        if train:
+                            _ST_H2D.observe(time.perf_counter() - t0)
+                        if not put(b):
                             return
             except Exception as e:  # relayed to the main thread
                 errors.append(e)
             finally:
                 put(end)
 
+        n_loaders = self.controller.n if self.controller else self.num_loaders
+        _POOL.set(n_loaders)
         threads = [threading.Thread(target=loader, daemon=True)
-                   for _ in range(self.num_loaders)]
+                   for _ in range(n_loaders)]
         for t in threads:
             t.start()
         mode = "train" if train else "eval"
         step = lrn.train_batch if train else lrn.eval_batch
         self._log(f"{mode} pass {data_pass}: {data}")
         self._log(Progress.header())
-        done = n_steps = 0
+        done = n_steps = gets = high = 0
         t_step = stall = 0.0
         t_pass0 = time.perf_counter()
         last_print = time.time()
         try:
             while done < len(threads):
+                depth = q.qsize()
+                _QDEPTH.set(depth)
+                gets += 1
+                if depth >= max(1, self.MAX_QUEUED // 2):
+                    high += 1
                 t_w = time.perf_counter()
                 item = q.get()
-                stall += time.perf_counter() - t_w
+                dw = time.perf_counter() - t_w
+                stall += dw
+                _STALL.set(stall)
                 if item is end:
                     done += 1
                     continue
                 t_s = time.perf_counter()
-                prog.merge(step(item))
-                t_step += time.perf_counter() - t_s
+                out = step(item)
+                dt = time.perf_counter() - t_s
+                t_step += dt
                 n_steps += 1
+                t_m = time.perf_counter()
+                prog.merge(out)
                 if time.time() - last_print >= cfg.print_sec:
                     self._log(prog.row(self.t0))
                     last_print = time.time()
+                if train:
+                    dm = time.perf_counter() - t_m
+                    _ST_LOAD.observe(dw)
+                    _ST_STEP.observe(dt)
+                    _ST_METRICS.observe(dm)
+                    _ST_TOTAL.observe(dw + dt + dm)
         finally:
             stop.set()
             for t in threads:
@@ -228,6 +384,23 @@ class MinibatchSolver:
                       f"wall {wall:.3f}s, loader stall {stall:.3f}s "
                       f"({100.0 * stall / max(wall, 1e-9):.1f}% of the "
                       f"wall)")
+        if self.pack_cache is not None:
+            st = self.pack_cache.stats()
+            self._log(
+                f"[loader] pack cache: {st['hits']} hits / "
+                f"{st['misses']} misses ({100 * st['hit_rate']:.0f}%), "
+                f"mem {st['mem_bytes'] >> 20}MB/{st['mem_entries']} entries")
+        if self.controller is not None:
+            self.controller.record_pass(stall, wall, n_steps,
+                                        high / max(gets, 1))
+            d = self.controller.decisions[-1]
+            if d["from"] != d["to"]:
+                self._log(
+                    f"[loader] controller: {d['from']} -> {d['to']} "
+                    f"loaders ({d['why']}, stall "
+                    f"{100 * d['stall_frac']:.0f}% of wall, queue "
+                    f">=half-full {100 * d['queue_high_frac']:.0f}% "
+                    f"of gets)")
         return prog
 
     def predict(self, data: str, out_base: str) -> list[str]:
