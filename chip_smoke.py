@@ -9,7 +9,8 @@
 
 Drives the port (wormhole_tpu_torch) through its main paths at the
 bench's full width: three minibatch learners and the two BSP batch
-learners. Two run over 65,536-row minibatches of 39
+learners, and the linear and GBDT learners on a device mesh of four
+ranks. Two run over 65,536-row minibatches of 39
 Criteo-shaped features: linear FTRL logistic regression, and the DiFacto
 factorization machine (dim 8, w over 2^22 buckets, V over 2^20 rows,
 threshold 2; the reference's learn/difacto/guide/criteo.conf, as bench.py
@@ -104,15 +105,41 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    w within rtol 1e-4 / atol 1e-6 (the learner checks' bar), z and n
    within 4x the difference of two runs with the cache off (the float
    atomics' floor, measured in the same call) over a floor of 1e-5 of
-   the table's largest magnitude; and a DiFacto train pass
+   the table's largest magnitude, and every replayed pack of the cached
+   one-loader run equal to a fresh pack of the same batch byte for byte;
+   and a DiFacto train pass
    with the cache on, which must touch no entry, its tables within rtol
-   2e-3 / atol 2e-5 of the pass with the cache off.
+   2e-3 / atol 2e-5 of the pass with the cache off;
+11. the device mesh ([mesh]): four ranks (this script with --mesh-rank,
+   one process each, spawned after the build) join a gloo group, all on
+   cuda:0, since NCCL will not put two ranks on one GPU. A 2x2 mesh runs
+   the linear learner at 2^22 buckets, 65,536 rows a batch (kind mcoo:
+   each rank packs its cell, mesh_coo_spmv = coo_spmv + all_reduce over
+   the model axis, mesh_coo_spmv_t = coo_spmv_t + all_reduce over the
+   data axis): the train steps, an eval and a predict against one device
+   on the same batches (progress within 1e-3, w at rtol 1e-4 / atol
+   1e-6, z and n within 4x two one-device runs' difference + 1e-5 of the
+   table's largest magnitude), each model shard equal bit for bit on its
+   two data ranks; a 4x1 mesh runs GBDT at the HIGGS shape, 500,000 rows
+   a rank (mesh_level_hist = level_hist + all_reduce over the data axis):
+   its trees against one device's (a split may differ only at a near
+   tie), its leaves within 1e-5 of f64 sums. Each rank holds the
+   wrappers against their plain twins on its cell or rows (every level
+   of a round for the histogram), times its own kernel while the other
+   ranks wait at a barrier, and times the all_reduce; the parent holds
+   the 2x2 products against coo_spmv and coo_spmv_t on one device. Then a
+   one-rank NCCL mesh on cuda:0 runs mesh_coo_spmv and mesh_coo_spmv_t
+   through NCCL's all_reduce against kernels 1 and 2: the NCCL route
+   starts; several cards are not checked.
 
 The launches of parse_libsvm over the apps, the passes, the k-means run,
 the L-BFGS apps and [cache] make its launch count; coo_spmv_t's count
 includes the k-means run's and app's and [cache]'s, and its row carries
 the k-means shape's numbers ("kmeans"); every kernel's count includes
-[cache]'s.
+[cache]'s. The rows mesh_coo_spmv, mesh_coo_spmv_t and mesh_level_hist
+carry the [mesh] ranks' launches (summed, and per rank), the slowest
+rank's kernel times, the bound of the largest cell, and the all_reduce's
+ms (gloo over one card: host-staged, not a multi-GPU number).
 
 Every check raises on failure, so any failed phase exits non-zero. The
 last two lines are one JSON object of per-kernel numbers and the result
@@ -193,7 +220,18 @@ KERNELS = {
     "parse_libsvm": ("wormhole_tpu_torch/csrc/parse.cu",
                      "wormhole_tpu/native/src/parsers.cc:41 parse_libsvm "
                      "(host C++)"),
+    # the mesh wrappers: kernel 1, 2 or 8 on each rank's shard, then an
+    # all_reduce ([mesh])
+    "mesh_coo_spmv": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
+                      "wormhole_tpu/ops/coo_kernels.py:787"),
+    "mesh_coo_spmv_t": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
+                        "wormhole_tpu/ops/coo_kernels.py:813"),
+    "mesh_level_hist": ("wormhole_tpu_torch/csrc/hist.cu",
+                        "wormhole_tpu/models/gbdt.py:382"),
 }
+MESH_WRAPPERS = {"mesh_coo_spmv": "wormhole_tpu_torch/ops/coo_kernels.py",
+                 "mesh_coo_spmv_t": "wormhole_tpu_torch/ops/coo_kernels.py",
+                 "mesh_level_hist": "wormhole_tpu_torch/ops/hist.py"}
 LINEAR_KERNELS = ("coo_spmv", "coo_spmv_t", "tile_gather", "scatter_update")
 FM_KERNELS = ("tile_gather", "row_tile_gather", "coo_spmv_t",
               "fm_push_contrib", "scatter_update", "v_scatter_update")
@@ -1624,6 +1662,36 @@ def time_rounds(lrn, train, timed: int, windows: int, tag: str):
     return dt, one_round
 
 
+def compare_trees(tag: str, la, lb, ds, rounds: int) -> tuple:
+    """Trees of two GBDT learners, node by node: a split may differ only
+    at a near tie (gains within 1e-4 relative, taken in f64 over lb's
+    node's rows), after which the rounds are not comparable. Returns
+    (splits that differ, the round of the near tie or None)."""
+    differing, tie_round = 0, None
+    for r in range(rounds):
+        for t in np.nonzero(la.trees["is_split"][r]
+                            | lb.trees["is_split"][r])[0]:
+            a = tuple(int(la.trees[k][r][t])
+                      for k in ("is_split", "split_feat", "split_bin"))
+            b = tuple(int(lb.trees[k][r][t])
+                      for k in ("is_split", "split_feat", "split_bin"))
+            if a == b:
+                continue
+            differing += 1
+            ga, gb = split_gains(lb, ds, r, int(t), [a[1:], b[1:]])
+            log(f"[{tag}] round {r} node {t}: (split, feature, bin) {a} vs "
+                f"{b}; gains in the second's node {ga!r} vs {gb!r}, gap "
+                f"{abs(ga - gb):.3g}")
+            if a[0] != b[0] or abs(ga - gb) > 1e-4 * max(abs(ga), abs(gb)):
+                raise AssertionError(f"[{tag}] round {r} node {t}: the "
+                                     f"splits differ and not at a near tie")
+            tie_round = r
+            break
+        if tie_round is not None:
+            break
+    return differing, tie_round
+
+
 def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
              timed=GBDT_TIMED_ROUNDS, windows=TIMED_WINDOWS,
              max_bin=GBDT_BINS) -> dict:
@@ -1669,29 +1737,8 @@ def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
     if not (np.isfinite(pk).all() and pk.shape == (ye.shape[0],)):
         raise AssertionError("gbdt predictions not finite / wrong shape")
 
-    differing, tie_round = 0, None
-    for r in range(rounds):
-        for t in np.nonzero(lk.trees["is_split"][r]
-                            | lx.trees["is_split"][r])[0]:
-            a = tuple(int(lk.trees[k][r][t])
-                      for k in ("is_split", "split_feat", "split_bin"))
-            b = tuple(int(lx.trees[k][r][t])
-                      for k in ("is_split", "split_feat", "split_bin"))
-            if a == b:
-                continue
-            differing += 1
-            ga, gb = split_gains(lx, train, r, int(t), [a[1:], b[1:]])
-            log(f"[gbdt] round {r} node {t}: kernel path (split, feature, "
-                f"bin) {a}, xla path {b}; gains in the xla path's node "
-                f"{ga!r} vs {gb!r}")
-            if a[0] != b[0] or abs(ga - gb) > 1e-4 * max(abs(ga), abs(gb)):
-                raise AssertionError(
-                    f"round {r} node {t}: the paths split differently and "
-                    f"not at a near tie")
-            tie_round = r
-            break
-        if tie_round is not None:
-            break
+    # the kernel path's splits against the xla path's
+    differing, tie_round = compare_trees("gbdt", lk, lx, train, rounds)
     log(f"[gbdt] splits that differ between the kernel path and "
         f"hist_kernel=xla: {differing}"
         + ("" if tie_round is None else
@@ -2731,7 +2778,8 @@ def cache_linear(device, path: str, passes: int,
     nbytes_of a prepared batch), per pass; then one loader with the cache
     on and off (and off again, the float atomics' floor), w held to
     each other at the learner checks' tolerance, z and n to 4x that
-    floor."""
+    floor; and every replayed pack of the cached run against a fresh pack
+    of the same batch, byte for byte."""
     from wormhole_tpu_torch.data import pack_cache as pc
     from wormhole_tpu_torch.data.minibatch import MinibatchIter
     from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
@@ -2779,9 +2827,11 @@ def cache_linear(device, path: str, passes: int,
     for cache in ({"WH_PACK_CACHE": "1", "WH_PACK_CACHE_MB": str(budget_mb)},
                   {}, {}):
         with cache_knobs(WH_NUM_LOADERS="1", **cache):
-            lrn, _, one = solver_passes(device, cfg, passes)
+            lrn, sol, one = solver_passes(device, cfg, passes)
+            if cache:
+                n_same = same_linear_packs(device, lrn, sol, path)
         runs.append((lrn.store.state, one))
-        del lrn
+        del lrn, sol
     (on, one), (off, _), (off2, _) = runs
     # held as the learner checks hold it: w at rtol 1e-4 / atol 1e-6
     err, share = tables_close("[cache] linear", {"w": on["w"]},
@@ -2799,6 +2849,9 @@ def cache_linear(device, path: str, passes: int,
             raise AssertionError(f"[cache] linear: {k} cache on vs off max "
                                  f"abs err {d_on:.4g} > {bound:.4g} (4x "
                                  f"the off-vs-off {d_off:.4g} + floor)")
+    log(f"[cache] linear replay: {n_same} replayed packs of the cached "
+        f"one-loader run equal to fresh packs of the same batches byte for "
+        f"byte")
     log(f"[cache] linear, one loader, {passes} passes: w cache on vs off "
         f"max abs err {err:.3g}, {share:.3f} of the tolerance (rtol 1e-4, "
         f"atol 1e-6); every table's max abs err [on vs off, off vs off, "
@@ -2807,7 +2860,39 @@ def cache_linear(device, path: str, passes: int,
     del runs, on, off, off2
     return {"passes": recs, "decisions": decisions, "batch_bytes": nb,
             "budget_mb": budget_mb, "w_err": err, "table_diffs": diffs,
+            "replayed_packs_equal": n_same,
             "one_loader_cached_s": [r["wall_s"] for r in one]}
+
+
+def same_linear_packs(device, lrn, sol, path: str) -> int:
+    """Every batch of the file's parts: the prepared batch the solver's
+    cache replays against a fresh pack of the same batch by the same
+    learner, byte for byte. Returns the number of batches held."""
+    from wormhole_tpu_torch.data import pack_cache as pc
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.solver.minibatch_solver import list_parts
+
+    token = sol._pass_cache_token(True)
+    if token is None:
+        raise AssertionError("[cache] linear: the learner gave no token")
+    n = 0
+    with uncounted():
+        for fname, part, nparts in list_parts(path, sol.cfg.num_parts_per_file):
+            key = sol.part_key(True, token, fname, part, nparts)
+            for i, blk in enumerate(MinibatchIter(
+                    fname, part, nparts, minibatch_size=sol.cfg.minibatch,
+                    device=device)):
+                got = sol.pack_cache.get(pc.fingerprint(key, i))
+                if got is None:
+                    raise AssertionError(f"[cache] linear part {part} batch "
+                                         f"{i}: not in the cache")
+                same_leaves(f"[cache] linear part {part} batch {i}", got,
+                            lrn.prepare_batch(blk, True))
+                n += 1
+    if n < E2E_BATCHES:
+        raise AssertionError(f"[cache] linear: {n} batches held, the file "
+                             f"has {E2E_BATCHES} full ones")
+    return n
 
 
 def cache_difacto(device, path: str, num_buckets=DENSE_BUCKETS,
@@ -2989,6 +3074,583 @@ def run_turns(other: str) -> int:
 
 
 # ---------------------------------------------------------------- main
+# ------------------------------------------------------------- [mesh]
+MESH_RANKS = 4       # ranks of [mesh]: a 2x2 mesh (linear), a 4x1 (GBDT)
+MESH_SEED = 3        # the linear batches', as run_learners draws them
+MESH_TIMEOUT_S = 600  # the ranks' wall; the kernels are built before
+
+
+def mesh_linear_config(minibatch: int, num_buckets: int):
+    """The linear configuration of run_learners, on the kernel path."""
+    from wormhole_tpu_torch.models.linear import LinearConfig
+
+    return LinearConfig(minibatch=minibatch, nnz_per_row=NNZ_PER_ROW,
+                        num_buckets=num_buckets, algo="ftrl", lr_eta=0.1,
+                        lambda_l1=1.0, kernel="pallas", kernel_dtype="f32")
+
+
+def mesh_batches(spec: dict) -> list:
+    """The [mesh] linear batches: train steps, then one to evaluate and
+    one to predict, made from MESH_SEED by every rank and the parent."""
+    from wormhole_tpu_torch.data.synth import synth_criteo_batch
+
+    rng = np.random.default_rng(MESH_SEED)
+    return [synth_criteo_batch(rng, spec["minibatch"], spec["buckets"])
+            for _ in range(spec["steps"] + 2)]
+
+
+def mesh_wd(spec: dict) -> tuple:
+    """w over the table and d over a batch's rows that the kernel checks
+    read (seed 11), on every rank and in the parent."""
+    gen = np.random.default_rng(11)
+    return (gen.standard_normal(spec["buckets"]).astype(np.float32),
+            gen.standard_normal(spec["minibatch"]).astype(np.float32))
+
+
+def parked(fn):
+    """fn() on each rank in turn while the others wait at a barrier, so
+    a time taken inside is the rank's own. Returns this rank's result."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if dist.get_rank() == r:
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def collective_ms(fn, device, iters: int = 10) -> float:
+    """Host wall of one collective call, every rank calling together, the
+    card synchronised after the calls (None off the card)."""
+    import torch.distributed as dist
+
+    if device.type != "cuda":
+        return None
+    fn()
+    sync(device)
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync(device)
+    return (time.perf_counter() - t0) / iters * 1e3
+
+
+def mesh_rank_linear(device, spec: dict, out: dict, arrays: dict) -> None:
+    """A rank of the 2x2 linear mesh: the main path (train steps, one
+    eval, one predict through the learner's entry points), its launches;
+    then mesh_coo_spmv and mesh_coo_spmv_t on this rank's cell of the
+    first batch against their plain twins, and the cell kernels and the
+    two all_reduce calls timed."""
+    import torch
+
+    from wormhole_tpu_torch.models.linear import LinearLearner
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.ops import coo_kernels as ck
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                  batch_range, make_mesh,
+                                                  table_range)
+
+    rows, nb, steps = spec["minibatch"], spec["buckets"], spec["steps"]
+    mesh = make_mesh(2, 2, device=device, backend="gloo")
+    data = mesh_batches(spec)
+    blks = [to_rowblock(s, i, v, y) for s, i, v, y, _ in data]
+    lrn = LinearLearner(mesh_linear_config(rows, nb), mesh=mesh)
+    if lrn.prepare_batch(blks[0])[0] != "mcoo":
+        raise AssertionError("[mesh] the 2x2 learner is not on the mcoo kind")
+    _cuda.reset_launches()
+    progs = [lrn.train_batch(b) for b in blks[:steps]]
+    ev = lrn.eval_batch(blks[steps])
+    pred = lrn.predict_batch(blks[steps + 1])
+    sync(device)
+    counts = dict(_cuda.LAUNCHES)
+    for k in ("mesh_coo_spmv", "mesh_coo_spmv_t", "coo_spmv", "coo_spmv_t"):
+        if device.type == "cuda" and counts[k] == 0:
+            raise AssertionError(f"[mesh] linear rank launched no {k}")
+    out["linear"] = {"launches": counts, "progs": progs, "eval": ev}
+    arrays["pred"] = pred
+    arrays.update({f"shard_{k}": v.cpu().numpy()
+                   for k, v in lrn.store.state.items()})
+    cap = lrn._shard_cap
+    del lrn
+
+    f32 = torch.float32
+    dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+    seg, idx, val, _, _ = data[0]
+    with uncounted():
+        cell, dropped = ck.pack_mesh_cell(idx, seg, val, nb, rows, 2, 2,
+                                          *mesh.coords, cap, device=device)
+        args = [dev(a) for a in (cell.idx, cell.seg, cell.val, cell.tmap,
+                                 cell.first)]
+        sidx, sseg, sval = args[:3]
+        w_np, d_np = mesh_wd(spec)
+        w = dev(w_np[slice(*table_range(mesh, nb))])
+        d = dev(d_np[slice(*batch_range(mesh, rows))])
+        rank = mesh.rank
+        xw = ck.mesh_coo_spmv(mesh, w, *args, rows, f32)
+        mag = ck.mesh_coo_spmv_plain(mesh, w.abs(), sidx, sseg, sval.abs(),
+                                     *args[3:], rows, f32)
+        e1 = compare(f"mesh_coo_spmv rank {rank}", xw, ck.mesh_coo_spmv_plain(
+            mesh, w, *args, rows, f32), 1e-5, 1e-4, mag)
+        g = ck.mesh_coo_spmv_t(mesh, d, *args, nb, f32)
+        mag = ck.mesh_coo_spmv_t_plain(mesh, d.abs(), sidx, sseg, sval.abs(),
+                                       *args[3:], nb, f32)
+        e2 = compare(f"mesh_coo_spmv_t rank {rank}", g,
+                     ck.mesh_coo_spmv_t_plain(mesh, d, *args, nb, f32),
+                     1e-5, 1e-4, mag)
+        arrays.update(xw=xw.cpu().numpy(), g=g.cpu().numpy())
+        rows_d, nb_m = rows // 2, nb // 2
+        live = cell.val != 0
+        n_live = int(live.sum())
+        stream_b = n_live * 12 + (cell.idx.shape[0] - n_live) * 4
+        n_lb = int(np.unique(cell.idx[live]).size)
+        pull = dict(
+            max_abs_err=e1, dropped=dropped, **dict(zip(
+                ("bound_ms", "bound_by"),
+                bound_ms(stream_b + n_lb * 4 + rows_d * 4, 2 * n_live))),
+            **parked(lambda: dict(
+                **timings(lambda: ck.coo_spmv(w, *args, rows_d, f32), device),
+                plain_ms=time_ms(lambda: ck.coo_spmv_plain(
+                    w, sidx, sseg, sval, rows_d, f32), device),
+                library_ms=time_ms(lambda: torch.zeros(
+                    rows_d, device=device).index_add_(
+                    0, sseg, w.index_select(0, sidx) * sval), device))),
+            collective_ms=collective_ms(lambda: collectives.allreduce_sum(
+                torch.zeros_like(xw), mesh, MODEL_AXIS), device),
+            launches=counts["mesh_coo_spmv"])
+        push = dict(
+            max_abs_err=e2, **dict(zip(
+                ("bound_ms", "bound_by"),
+                bound_ms(stream_b + rows_d * 4 + nb_m * 4, 2 * n_live))),
+            **parked(lambda: dict(
+                **timings(lambda: ck.coo_spmv_t(d, *args, nb_m, f32), device),
+                plain_ms=time_ms(lambda: ck.coo_spmv_t_plain(
+                    d, sidx, sseg, sval, nb_m, f32), device),
+                library_ms=time_ms(lambda: torch.zeros(
+                    nb_m, device=device).index_add_(
+                    0, sidx, d.index_select(0, sseg) * sval), device))),
+            collective_ms=collective_ms(lambda: collectives.allreduce_sum(
+                torch.zeros_like(g), mesh, DATA_AXIS), device),
+            launches=counts["mesh_coo_spmv_t"])
+    out["mesh_coo_spmv"], out["mesh_coo_spmv_t"] = pull, push
+
+
+def mesh_rank_gbdt(device, spec: dict, workdir: str, out: dict,
+                   arrays: dict) -> None:
+    """A rank of the 4x1 GBDT mesh: fit_prepared on its quarter of the
+    rows (the main path), its launches; then mesh_level_hist at every
+    level of one more round against its plain twin with f64
+    accumulators, the shard's level_hist and the block's all_reduce
+    timed."""
+    import torch
+
+    from wormhole_tpu_torch.models import gbdt as gb
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.ops import hist as hk
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel.mesh import DATA_AXIS, make_mesh
+
+    mesh = make_mesh(MESH_RANKS, 1, device=device, backend="gloo")
+    edges = np.load(os.path.join(workdir, "edges.npy"))
+    binned = np.load(os.path.join(workdir, "binned.npy"), mmap_mode="r")
+    y = np.load(os.path.join(workdir, "y.npy"), mmap_mode="r")
+    F, B = binned.shape[1], spec["max_bin"]
+    lrn = gb.GbdtLearner(gb.GbdtConfig(
+        dim=F, max_depth=spec["depth"], num_round=spec["rounds"], eta=0.3,
+        max_bin=B, hist_kernel="mxu"), mesh=mesh)
+    lrn.edges = edges
+    train = lrn._dataset(binned, y)
+    _cuda.reset_launches()
+    last = lrn.fit_prepared(train, [("train", train)], verbose=False)
+    sync(device)
+    counts = dict(_cuda.LAUNCHES)
+    for k in ("mesh_level_hist", *GBDT_KERNELS):
+        if device.type == "cuda" and counts[k] == 0:
+            raise AssertionError(f"[mesh] gbdt rank launched no {k}")
+    out["gbdt"] = {"launches": counts, "last": last,
+                   "rows": int(train.binned.shape[0])}
+    arrays.update({f"tree_{k}": v for k, v in lrn.trees.items()})
+
+    calls = []
+    real = gb.mesh_level_hist
+
+    def recording(mesh, binned, g, h, rel, num_nodes, B):
+        calls.append((g, h, rel, num_nodes))
+        return real(mesh, binned, g, h, rel, num_nodes, B)
+
+    with uncounted():
+        gb.mesh_level_hist = recording
+        try:
+            _, _, margin = lrn._round(train, lrn._base_margins(train))
+            calls.clear()
+            lrn._round(train, margin)
+        finally:
+            gb.mesh_level_hist = real
+        bins = train.binned
+        rows = bins.shape[0]
+        ones = torch.ones(rows, device=device)
+        levels = []
+        for lv, (g, h, rel, nodes) in enumerate(calls):
+            tag = f"mesh_level_hist rank {mesh.rank} level {lv} nodes {nodes}"
+            G, H = hk.mesh_level_hist(mesh, bins, g, h, rel, nodes, B)
+            Gp, Hp = hk.mesh_level_hist_plain(mesh, bins, g, h, rel, nodes, B,
+                                              acc_dtype=torch.float64)
+            Gmag, cnt = hk.mesh_level_hist_plain(
+                mesh, bins, g.abs(), ones, rel, nodes, B,
+                acc_dtype=torch.float64)
+            e = max(compare(f"{tag} G", G, Gp, 1e-5, 1e-4, Gmag),
+                    compare(f"{tag} H", H, Hp, 1e-5, 1e-4, Hp))
+            if G[cnt == 0].any() or H[cnt == 0].any():
+                raise AssertionError(f"{tag}: a cell no row reaches is not 0")
+            n_active = int(((rel >= 0) & (rel < nodes)).sum())
+            flat = hk.hist_index(bins, rel, nodes, B)
+            gsrc = g[:, None].expand(rows, F).reshape(-1)
+            hsrc = h[:, None].expand(rows, F).reshape(-1)
+            cells = (nodes + 1) * F * B
+
+            def library():
+                for src in (gsrc, hsrc):
+                    torch.zeros(cells, device=device).index_add_(0, flat, src)
+
+            block = torch.zeros(2, nodes, F, B, device=device)
+            levels.append(dict(
+                level=lv, num_nodes=nodes, active_rows=n_active,
+                max_abs_err=e, **dict(zip(
+                    ("bound_ms", "bound_by"),
+                    bound_ms(rows * 4 + n_active * (8 + F)
+                             + 2 * nodes * F * B * 4, 2 * n_active * F))),
+                **parked(lambda: dict(
+                    **timings(lambda: hk.level_hist(bins, g, h, rel, nodes, B),
+                              device, iters=10),
+                    plain_ms=time_ms(lambda: hk.level_hist_plain(
+                        bins, g, h, rel, nodes, B), device, iters=5,
+                        warmup=1),
+                    library_ms=time_ms(library, device, iters=5, warmup=1))),
+                collective_ms=collective_ms(lambda: collectives.allreduce_sum(
+                    block, mesh, DATA_AXIS), device)))
+            del flat, gsrc, hsrc, Gp, Hp, Gmag, cnt
+    row = mean_over_levels(levels)
+    row["collective_ms"] = (None if levels[0]["collective_ms"] is None else
+                            statistics.mean(lv["collective_ms"]
+                                            for lv in levels))
+    row["launches"] = counts["mesh_level_hist"]
+    out["mesh_level_hist"] = row
+
+
+def mesh_rank(rank: int, world: int, workdir: str) -> int:
+    """One rank of the [mesh] phase (chip_smoke.py --mesh-rank R W DIR):
+    joins the gloo group of the ranks through a file in DIR, runs the
+    linear 2x2 and the GBDT 4x1 meshes, writes rank-R.json / .npz."""
+    import torch
+    import torch.distributed as dist
+
+    spec = json.load(open(os.path.join(workdir, "spec.json")))
+    device = torch.device(spec["device"])
+    dist.init_process_group(
+        "gloo", init_method="file://" + os.path.join(workdir, "rendezvous"),
+        world_size=world, rank=rank)
+    out, arrays = {}, {}
+    try:
+        mesh_rank_linear(device, spec, out, arrays)
+        mesh_rank_gbdt(device, spec, workdir, out, arrays)
+    finally:
+        dist.destroy_process_group()
+    np.savez(os.path.join(workdir, f"rank-{rank}.npz"), **arrays)
+    with open(os.path.join(workdir, f"rank-{rank}.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
+def launch_mesh_ranks(workdir: str, timeout: float) -> list:
+    """Start the MESH_RANKS ranks, wait for all; print each rank's
+    output. Raises if one fails or they outlast `timeout` (every rank is
+    killed then). Returns each rank's (json, arrays)."""
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--mesh-rank", str(r),
+         str(MESH_RANKS), workdir], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True) for r in range(MESH_RANKS)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"[mesh] the ranks outlasted {timeout} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        for line in o.splitlines():
+            log(f"[mesh rank {r}] {line}")
+        if p.returncode:
+            raise AssertionError(f"[mesh] rank {r} exited {p.returncode}")
+    return [(json.load(open(os.path.join(workdir, f"rank-{r}.json"))),
+             dict(np.load(os.path.join(workdir, f"rank-{r}.npz"))))
+            for r in range(MESH_RANKS)]
+
+
+def nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def mesh_row(per_rank: list) -> dict:
+    """A W row of the kernels line from the ranks' numbers: the slowest
+    rank's times (a step waits for it), the largest error and bound, the
+    launches summed and per rank."""
+    def worst(k):
+        xs = [r[k] for r in per_rank]
+        return None if xs[0] is None else max(xs)
+
+    big = max(per_rank, key=lambda r: r["bound_ms"])
+    row = {k: worst(k) for k in ("max_abs_err", "ms", "device_ms",
+                                 "host_us", "plain_ms", "library_ms",
+                                 "collective_ms")}
+    row.update(bound_ms=big["bound_ms"], bound_by=big["bound_by"],
+               launches=sum(r["launches"] for r in per_rank),
+               launches_per_rank=[r["launches"] for r in per_rank],
+               ms_per_rank=[r["ms"] for r in per_rank],
+               backend=f"gloo, {len(per_rank)} ranks on one card")
+    return row
+
+
+def mesh_nccl_check(device, spec: dict, workdir: str) -> dict:
+    """A one-rank NCCL mesh on the card: W1 and W2 through NCCL's
+    all_reduce equal kernels 1 and 2 on the same cell (at their
+    tolerance), and the all_reduce timed. It shows that the NCCL route
+    starts; it says nothing of several cards."""
+    import torch
+    import torch.distributed as dist
+
+    from wormhole_tpu_torch.ops import coo_kernels as ck
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS,
+                                                  make_mesh)
+
+    rows, nb = spec["minibatch"], spec["buckets"]
+    dist.init_process_group(
+        "nccl", init_method="file://" + os.path.join(workdir, "nccl-rdv"),
+        world_size=1, rank=0)
+    try:
+        mesh = make_mesh(1, 1, device=device)
+        if mesh.backend != "nccl" or mesh.group(MODEL_AXIS) is None:
+            raise AssertionError("[mesh] the one-rank mesh is not on NCCL")
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        seg, idx, val, _, _ = mesh_batches(spec)[0]
+        cap = ck.mesh_capacity(rows * NNZ_PER_ROW, 1, 1)
+        cell, _ = ck.pack_mesh_cell(idx, seg, val, nb, rows, 1, 1, 0, 0, cap,
+                                    device=device)
+        args = [dev(a) for a in (cell.idx, cell.seg, cell.val, cell.tmap,
+                                 cell.first)]
+        w_np, d_np = mesh_wd(spec)
+        w, d = dev(w_np), dev(d_np)
+        f32 = torch.float32
+        with uncounted():
+            mag = ck.coo_spmv_plain(w.abs(), args[0], args[1],
+                                    args[2].abs(), rows, f32)
+            e1 = compare("mesh_coo_spmv on one NCCL rank vs coo_spmv",
+                         ck.mesh_coo_spmv(mesh, w, *args, rows, f32),
+                         ck.coo_spmv(w, *args, rows, f32), 1e-5, 1e-4, mag)
+            mag = ck.coo_spmv_t_plain(d.abs(), args[0], args[1],
+                                      args[2].abs(), nb, f32)
+            e2 = compare("mesh_coo_spmv_t on one NCCL rank vs coo_spmv_t",
+                         ck.mesh_coo_spmv_t(mesh, d, *args, nb, f32),
+                         ck.coo_spmv_t(d, *args, nb, f32), 1e-5, 1e-4, mag)
+        xs, gs = torch.zeros(rows, device=device), torch.zeros(nb,
+                                                               device=device)
+        out = {"max_abs_err": [e1, e2], "allreduce_xw_ms": collective_ms(
+            lambda: collectives.allreduce_sum(xs, mesh, MODEL_AXIS), device),
+            "allreduce_g_ms": collective_ms(
+            lambda: collectives.allreduce_sum(gs, mesh, DATA_AXIS), device)}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def run_mesh(device, higgs, data_dir: str, minibatch=MINIBATCH,
+             dense_buckets=DENSE_BUCKETS, steps=TRAIN_STEPS,
+             depth=GBDT_DEPTH, rounds=GBDT_ROUNDS, max_bin=GBDT_BINS,
+             timeout=MESH_TIMEOUT_S) -> dict:
+    """[mesh]: the device mesh on the one card (see the module docstring).
+    Returns the W rows of the kernels line and the ranks' launches."""
+    import torch
+
+    from wormhole_tpu_torch.models.linear import LinearLearner
+    from wormhole_tpu_torch.ops import coo_kernels as ck
+
+    workdir = os.path.join(data_dir, "mesh")
+    os.makedirs(workdir)
+    spec = {"device": str(device), "minibatch": minibatch,
+            "buckets": dense_buckets, "steps": steps, "depth": depth,
+            "rounds": rounds, "max_bin": max_bin}
+    with open(os.path.join(workdir, "spec.json"), "w") as f:
+        json.dump(spec, f)
+    edges, binned_np, y, _, _ = higgs
+    for name, a in (("edges", edges), ("binned", binned_np), ("y", y)):
+        np.save(os.path.join(workdir, f"{name}.npy"), a)
+    log(f"[mesh] {MESH_RANKS} ranks on one card: a 2x2 mesh (linear, "
+        f"{dense_buckets} buckets, {minibatch} rows a batch) and a "
+        f"{MESH_RANKS}x1 mesh (GBDT, {binned_np.shape[0]} x "
+        f"{binned_np.shape[1]}, depth {depth}), over gloo: the ranks share "
+        f"one card, and NCCL will not put two ranks on one GPU. This holds "
+        f"the kernels, the cells and the reductions on the card; it does "
+        f"not check NCCL across GPUs")
+
+    # the references on one device, before the ranks start (the card is
+    # theirs while they time)
+    cfg = mesh_linear_config(minibatch, dense_buckets)
+    data = mesh_batches(spec)
+    blks = [to_rowblock(s, i, v, yy) for s, i, v, yy, _ in data]
+    refs = []
+    with uncounted():
+        for _ in range(2):  # the second is the float atomics' control
+            lrn = LinearLearner(cfg, device=device)
+            refs.append(([lrn.train_batch(b) for b in blks[:steps]],
+                         lrn.eval_batch(blks[steps]),
+                         lrn.predict_batch(blks[steps + 1]),
+                         {k: v.clone() for k, v in lrn.store.state.items()}))
+            del lrn
+        seg, idx, val, _, _ = data[0]
+        p = ck.pack_sorted_coo(idx, seg, val, dense_buckets,
+                               capacity=minibatch * NNZ_PER_ROW, device=device)
+        dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        args = [dev(a) for a in (p.idx, p.seg, p.val, p.tmap, p.first)]
+        w_np, d_np = mesh_wd(spec)
+        w, d = dev(w_np), dev(d_np)
+        f32 = torch.float32
+        xw1 = ck.coo_spmv(w, *args, minibatch, f32)
+        xmag = ck.coo_spmv_plain(w.abs(), args[0], args[1], args[2].abs(),
+                                 minibatch, f32)
+        g1 = ck.coo_spmv_t(d, *args, dense_buckets, f32)
+        gmag = ck.coo_spmv_t_plain(d.abs(), args[0], args[1], args[2].abs(),
+                                   dense_buckets, f32)
+        train = binned_dataset(device, binned_np, y)
+        one = gbdt_learner(device, "mxu", edges, binned_np.shape[1], depth,
+                           rounds, max_bin)
+        one_last = one.fit_prepared(train, [("train", train)], verbose=False)
+    sync(device)
+
+    t = time.perf_counter()
+    ranks = launch_mesh_ranks(workdir, timeout)
+    log(f"[mesh] the {MESH_RANKS} ranks took {time.perf_counter() - t:.1f}s")
+    js = [r[0] for r in ranks]
+    ar = [r[1] for r in ranks]
+
+    # linear: every rank reports the global batch's progress; the data
+    # ranks' copies of a model shard are equal bit for bit
+    for r in range(1, MESH_RANKS):
+        if js[r]["linear"]["progs"] != js[0]["linear"]["progs"] or \
+                js[r]["linear"]["eval"] != js[0]["linear"]["eval"] or \
+                not np.array_equal(ar[r]["pred"], ar[0]["pred"]):
+            raise AssertionError(f"[mesh] rank {r}'s progress differs")
+    for k in refs[0][3]:
+        for m in (0, 1):
+            if ar[m][f"shard_{k}"].tobytes() != \
+                    ar[m + 2][f"shard_{k}"].tobytes():
+                raise AssertionError(f"[mesh] table {k} shard {m}: the two "
+                                     f"data ranks' copies differ")
+    pk, ek, yk, tk = refs[0]
+    for a, b in zip(js[0]["linear"]["progs"] + [js[0]["linear"]["eval"]],
+                    pk + [ek]):
+        for k in ("objv", "logloss", "auc", "acc"):
+            if abs(a[k] / a["nex"] - b[k] / b["nex"]) > 1e-3:
+                raise AssertionError(f"[mesh] linear {k}: {a} vs one "
+                                     f"device {b}")
+    np.testing.assert_allclose(ar[0]["pred"], yk, rtol=1e-4, atol=1e-5)
+    if not (np.isfinite(ar[0]["pred"]).all()
+            and ar[0]["pred"].shape == (minibatch,)):
+        raise AssertionError("[mesh] predictions not finite / wrong shape")
+    full = {k: torch.from_numpy(np.concatenate(
+        [ar[0][f"shard_{k}"], ar[1][f"shard_{k}"]])).to(device) for k in tk}
+    err, share = tables_close("[mesh] linear 2x2 vs one device",
+                              {"w": full["w"]}, {"w": tk["w"]}, 1e-4, 1e-6)
+    diffs = {}
+    for k in ("z", "n"):
+        d_mesh = float((full[k] - tk[k]).abs().max())
+        d_ctrl = float((refs[1][3][k] - tk[k]).abs().max())
+        bound = 4 * d_ctrl + 1e-5 * float(tk[k].abs().max()) + 1e-6
+        diffs[k] = {"mesh_vs_one": d_mesh, "one_vs_one": d_ctrl,
+                    "bound": bound}
+        if d_mesh > bound:
+            raise AssertionError(f"[mesh] linear {k}: 2x2 vs one device "
+                                 f"{d_mesh:.4g} > bound {bound:.4g}")
+    log(f"[mesh] linear 2x2 vs one device over {steps} steps, an eval and "
+        f"a predict: progress within 1e-3, w max abs err {err:.3g} "
+        f"({share:.3f} of rtol 1e-4 / atol 1e-6), z and n against the "
+        f"control of two one-device runs (4x it + 1e-5 of the table's "
+        f"largest value) {json.dumps(diffs)}; each model shard equal bit "
+        f"for bit on its two data ranks; launches a rank "
+        f"{[nonzero(j['linear']['launches']) for j in js]}")
+    xw = torch.from_numpy(np.concatenate([ar[0]["xw"], ar[2]["xw"]]))
+    g = torch.from_numpy(np.concatenate([ar[0]["g"], ar[1]["g"]]))
+    e1 = compare("mesh_coo_spmv (2x2) vs coo_spmv on one device", xw.to(device),
+                 xw1, 1e-5, 1e-4, xmag)
+    e2 = compare("mesh_coo_spmv_t (2x2) vs coo_spmv_t on one device",
+                 g.to(device), g1, 1e-5, 1e-4, gmag)
+
+    # gbdt: every rank holds the same trees; they are the one-device
+    # kernel run's, up to a near tie; the leaves are the f64 sums of
+    # their rows
+    tree_keys = ("split_feat", "split_bin", "is_split", "leaf_value")
+    for r in range(1, MESH_RANKS):
+        if any(not np.array_equal(ar[r][f"tree_{k}"], ar[0][f"tree_{k}"])
+               for k in tree_keys):
+            raise AssertionError(f"[mesh] rank {r}'s trees differ")
+    mesh_lrn = gbdt_learner(device, "mxu", edges, binned_np.shape[1], depth,
+                            rounds, max_bin)
+    mesh_lrn.trees = {k: ar[0][f"tree_{k}"] for k in tree_keys}
+    with uncounted():
+        differing, tie = compare_trees("mesh gbdt", mesh_lrn, one, train,
+                                       rounds)
+        off = 0.0
+        for r in range(rounds):
+            want, reached = leaf_reference(mesh_lrn, train, r)
+            off = max(off, float(np.abs(mesh_lrn.trees["leaf_value"][r]
+                                        - want)[reached].max()))
+    if off > LEAF_ATOL:
+        raise AssertionError(f"[mesh] gbdt leaves {off} from the f64 sums")
+    same = rounds if tie is None else tie
+    leaf_diff = float(np.abs(mesh_lrn.trees["leaf_value"][:same]
+                             - one.trees["leaf_value"][:same]).max()
+                      ) if same else 0.0
+    last = js[0]["gbdt"]["last"]["train"]
+    bar = 1e-4 if tie is None else 1e-3
+    for k, v in last.items():
+        if abs(v - one_last["train"][k]) > bar:
+            raise AssertionError(f"[mesh] gbdt train-{k} {v} vs one device "
+                                 f"{one_last['train'][k]}")
+    log(f"[mesh] gbdt {MESH_RANKS}x1 ({[j['gbdt']['rows'] for j in js]} rows "
+        f"a rank) vs one device, {rounds} rounds: {differing} splits differ"
+        + ("" if tie is None else f" (a near tie in round {tie})")
+        + f", leaves {leaf_diff:.3g} apart over {same} rounds and {off:.3g} "
+        f"from the f64 sums of their rows (atol {LEAF_ATOL}); train metrics "
+        f"{json.dumps(last)} vs {json.dumps(one_last['train'])}; launches a "
+        f"rank {[nonzero(j['gbdt']['launches']) for j in js]}")
+
+    nccl = None
+    if device.type == "cuda":
+        nccl = mesh_nccl_check(device, spec, workdir)
+        log(f"[mesh] one-rank NCCL mesh on {device}: {json.dumps(nccl)}")
+    rows = {name: mesh_row([j[name] for j in js])
+            for name in ("mesh_coo_spmv", "mesh_coo_spmv_t",
+                         "mesh_level_hist")}
+    rows["mesh_coo_spmv"]["vs_one_device_max_abs_err"] = e1
+    rows["mesh_coo_spmv_t"]["vs_one_device_max_abs_err"] = e2
+    if nccl is not None:
+        rows["mesh_coo_spmv"]["nccl_one_rank"] = {
+            "max_abs_err": nccl["max_abs_err"][0],
+            "collective_ms": nccl["allreduce_xw_ms"]}
+        rows["mesh_coo_spmv_t"]["nccl_one_rank"] = {
+            "max_abs_err": nccl["max_abs_err"][1],
+            "collective_ms": nccl["allreduce_g_ms"]}
+    for name, row in rows.items():
+        log(f"[mesh] {name}: {json.dumps(row)}")
+    return {"rows": rows, "linear_z_n": diffs, "gbdt_differing": differing}
+
+
 def data_phases(device, smi: str, data_dir: str, knums: dict,
                 launches: dict) -> None:
     """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
@@ -3071,6 +3733,9 @@ def main(argv=None) -> int:
     import torch
 
     argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--mesh-rank"]:  # a rank of [mesh], on the spec's device
+        sys.path.insert(0, ROOT)
+        return mesh_rank(int(argv[1]), int(argv[2]), argv[3])
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
@@ -3152,6 +3817,18 @@ def main(argv=None) -> int:
     data_dir = tempfile.mkdtemp(prefix="wh-smoke-")
     try:
         data_phases(device, smi, data_dir, knums, launches)
+        # the mesh's main paths run in its ranks, each with its counts set
+        # to 0 just before and read just after; a W row's launches are
+        # theirs
+        t = time.perf_counter()
+        mesh = run_mesh(device, higgs, data_dir)
+        for name, row in mesh["rows"].items():
+            knums[name] = dict(row, wrapper=MESH_WRAPPERS[name])
+            launches[name] = row["launches"]
+            if not all(row["launches_per_rank"]):
+                raise AssertionError(f"a [mesh] rank launched no {name}")
+        log(f"[mesh] {smi}")
+        log(f"[phase] mesh {time.perf_counter() - t:.1f}s")
     finally:
         shutil.rmtree(data_dir)
 
@@ -3166,7 +3843,9 @@ def main(argv=None) -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
         for extra in ("floor_ms", "per_level", "probe", "compact",
-                      "kmeans", "call_ms", "mb"):
+                      "kmeans", "call_ms", "mb", "wrapper", "backend",
+                      "launches_per_rank", "ms_per_rank", "collective_ms",
+                      "vs_one_device_max_abs_err", "nccl_one_rank"):
             if extra in k:
                 rows[-1][extra] = k[extra]
     print(json.dumps({"kernels": rows}), flush=True)

@@ -121,3 +121,12 @@ def test_scan_covers_the_loader_plane():
     for rel in ("obs/metrics.py", "data/pack_cache.py", "data/minibatch.py",
                 "solver/minibatch_solver.py"):
         assert PORT / rel in SOURCES
+
+
+def test_scan_covers_the_mesh():
+    """The device mesh, its collectives and the sharded store are among
+    the sources scanned and the modules the probe imports with JAX
+    blocked."""
+    for rel in ("parallel/mesh.py", "parallel/collectives.py",
+                "parallel/kvstore.py", "apps/_runner.py"):
+        assert PORT / rel in SOURCES

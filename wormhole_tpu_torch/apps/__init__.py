@@ -11,5 +11,7 @@ points:
 
 Each reads a `key = value` conf file plus CLI overrides (arg_parser.h
 semantics) and runs single-process on one device (`device=cuda` by
-default).
+default). linear and gbdt also run under `python -m torch.distributed.run
+--nproc-per-node N -m ...`, one rank a device, on a mesh of the ranks
+(apps/_runner.py).
 """

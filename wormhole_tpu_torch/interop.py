@@ -8,14 +8,15 @@ AdaGrad, ``{"w"}`` for SGD); the JAX DifactoLearner's as its
 dict against the port's tables for the config and put it on a device, so
 both packages can run from the same weights. The two packages draw V's
 random init from different generators, so this is how a comparison
-starts them equal.
+starts them equal. A learner on a mesh takes the JAX package's whole
+tables too: each rank keeps its model shard's rows of them.
 
 The GBDT model is host state: the arrays of the JAX learner's model file
 (``edges``, ``dim``, ``max_depth``, ``num_round``, ``objective``,
 ``base_score`` and the four stacked tree arrays). ``gbdt_state_from_numpy``
 checks them and ``load_gbdt_state`` puts them into a port GbdtLearner,
 whose own ``save`` writes the same keys: each package loads the other's
-file.
+file. A GBDT learner on a mesh holds the same host state on every rank.
 
 The batch learners' state is small and host-made: k-means' centroids
 (``kmeans_state_from_numpy``, from a JAX ``state.npz`` or text model) and
@@ -32,12 +33,13 @@ import torch
 
 from wormhole_tpu_torch.device import resolve_device
 from wormhole_tpu_torch.models import difacto, linear
+from wormhole_tpu_torch.parallel.mesh import table_range
 
 
 def _state_from_numpy(arrays: dict, specs: dict, rows: dict, what: str,
-                      device) -> dict[str, torch.Tensor]:
+                      device, keep=slice(None)) -> dict[str, torch.Tensor]:
     """Tables named by specs, made from numpy arrays; table k must have
-    shape (rows[k], *specs[k].tail)."""
+    shape (rows[k], *specs[k].tail). Only rows `keep` go to the device."""
     dev = resolve_device(device)
     if set(arrays) != set(specs):
         raise ValueError(f"tables {sorted(arrays)} do not match "
@@ -49,25 +51,31 @@ def _state_from_numpy(arrays: dict, specs: dict, rows: dict, what: str,
         if a.shape != shape:
             raise ValueError(f"table {name}: shape {a.shape} != {shape}")
         state[name] = torch.from_numpy(
-            np.array(a, dtype=np.float32)).to(dev, spec.dtype)
+            np.array(a[keep], dtype=np.float32)).to(dev, spec.dtype)
     return state
 
 
 def linear_state_from_numpy(arrays: dict, cfg: linear.LinearConfig,
-                            device=None) -> dict[str, torch.Tensor]:
-    """The port's state tables for cfg.algo, made from numpy arrays.
-    Raises unless the names are exactly the algo's tables and each shape
-    is (num_buckets, *tail)."""
+                            device=None, mesh=None) -> dict[str, torch.Tensor]:
+    """The port's state tables for cfg.algo, made from numpy arrays (on a
+    mesh, this rank's model shard of them). Raises unless the names are
+    exactly the algo's tables and each shape is (num_buckets, *tail)."""
     specs = linear._tables_for(cfg.algo)
+    keep = slice(None)
+    if mesh is not None:
+        keep = slice(*table_range(mesh, cfg.num_buckets))
+        device = mesh.device
     return _state_from_numpy(arrays, specs,
                              dict.fromkeys(specs, cfg.num_buckets),
-                             f"algo {cfg.algo!r}", device)
+                             f"algo {cfg.algo!r}", device, keep)
 
 
 def load_linear_state(learner, arrays: dict) -> None:
     """Copy the JAX learner's parameters into a port LinearLearner's
-    tables, in place, after the same checks."""
-    state = linear_state_from_numpy(arrays, learner.cfg, learner.device)
+    tables (its model shard's rows on a mesh), in place, after the same
+    checks."""
+    state = linear_state_from_numpy(arrays, learner.cfg, learner.device,
+                                    learner.mesh)
     for name, t in state.items():
         learner.store.state[name].copy_(t)
 

@@ -1,4 +1,5 @@
-"""Histogram gradient-boosted decision trees on one device.
+"""Histogram gradient-boosted decision trees, on one device or with rows
+sharded over the data axis of a mesh.
 
 Parity target: the reference's distributed xgboost build (`bin/xgboost.dmlc`
 run over rabit with row-split data, learn/xgboost/mushroom.hadoop.conf)
@@ -21,14 +22,20 @@ Design:
 What the JAX package fuses into one program per round runs here as plain
 torch ops around the kernel, level by level. Its one-hot matmul lookups
 (`_tree_lookup`, `_binned_at`) are plain gathers here: `table[node]` and
-`binned.gather(1, ...)`. There is no mesh: the learner takes a `device`,
-rows need no padding to a data axis, and a level's statistics are already
-those of all the data unless `reducer` is set.
+`binned.gather(1, ...)`. On one device rows need no padding and a level's
+statistics are already those of all the data unless `reducer` is set. On a
+mesh (parallel/mesh.py; data axis only) every rank reads all the data and
+keeps its own rows, padded to a multiple of the data axis as the JAX
+package pads them; each level's statistics block is summed over the data
+axis by `mesh_level_hist` (the last level's totals in f64, before they
+round), so every rank grows the same trees; metrics and predictions gather
+the margins of all rows.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 from typing import Optional
 
@@ -36,9 +43,13 @@ import numpy as np
 import torch
 
 from wormhole_tpu_torch.data.rowblock import RowBlock
-from wormhole_tpu_torch.device import resolve_device
 from wormhole_tpu_torch.ops import metrics as M
-from wormhole_tpu_torch.ops.hist import level_hist, level_hist_plain
+from wormhole_tpu_torch.ops.hist import (level_hist, level_hist_plain,
+                                         mesh_level_hist,
+                                         mesh_level_hist_plain)
+from wormhole_tpu_torch.parallel import collectives
+from wormhole_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh, batch_range,
+                                              single_device_mesh)
 from wormhole_tpu_torch.solver.workload import iter_rowblocks
 from wormhole_tpu_torch.utils.checkpoint import atomic_savez
 
@@ -71,8 +82,8 @@ class GbdtConfig:
     dsplit: str = "row"                  # only row split is supported
     base_score: float = 0.5
 
-    # multi-process modes of the JAX package; the app refuses them until
-    # the port's multi-GPU and BSP slices
+    # multi-host and BSP modes of the JAX package; the app refuses them
+    # until the port's slices of those planes
     global_mesh: bool = False
     bsp: bool = False
     max_bin: int = 256
@@ -197,10 +208,11 @@ def bin_matrix(X: np.ndarray, edges: np.ndarray) -> np.ndarray:
 class BinnedDataset:
     """Binned dataset on the learner's device."""
 
-    binned: torch.Tensor   # uint8 [N, dim]
+    binned: torch.Tensor   # uint8 [N, dim]  (this rank's rows on a mesh)
     label: torch.Tensor    # float32 [N]
     mask: torch.Tensor     # float32 [N]  (0 for rows that do not count)
-    num_real: int
+    num_real: int          # real rows of the whole dataset
+    sharded: bool = False  # rows split over the data axis of a mesh
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +221,11 @@ class BinnedDataset:
 
 
 class GbdtLearner:
-    """Depth-wise histogram GBDT over a row matrix on one device."""
+    """Depth-wise histogram GBDT over a row matrix on one device, or over
+    row shards on the data axis of a mesh."""
 
-    def __init__(self, cfg: GbdtConfig, device=None):
+    def __init__(self, cfg: GbdtConfig, device=None,
+                 mesh: Optional[Mesh] = None):
         if cfg.booster != "gbtree":
             raise NotImplementedError(
                 f"booster={cfg.booster!r}: only gbtree; for gblinear use "
@@ -227,7 +241,17 @@ class GbdtLearner:
             raise ValueError(f"max_bin={cfg.max_bin}: bins are uint8, so "
                              "2 <= max_bin <= 256")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is not None and mesh.num_model != 1:
+            raise ValueError("GBDT shards rows only: the mesh needs a model "
+                             "axis of 1")
+        if mesh is not None and device is not None and \
+                torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh if mesh is not None else single_device_mesh(device)
+        self.device = self.mesh.device
+        # collectives run wherever the mesh has a process group
+        self._on_mesh = self.mesh.device_mesh is not None
         # the user-requested boosting rounds; cfg.num_round later becomes
         # the running total when continuing from model_in, so repeated
         # fit() calls must not compound it
@@ -243,15 +267,31 @@ class GbdtLearner:
         self.reducer = None
 
     # -- data ---------------------------------------------------------------
-    def _dataset(self, binned: np.ndarray, label: np.ndarray) -> BinnedDataset:
+    def _dataset(self, binned: np.ndarray, label: np.ndarray,
+                 shard: bool = True) -> BinnedDataset:
+        """The dataset of all rows `binned`, `label` on the device; on a
+        mesh (with `shard`) only this rank's rows, after padding the rows
+        to a multiple of the data axis with zero rows of mask 0."""
         n = binned.shape[0]
-        return BinnedDataset(
-            binned=torch.from_numpy(np.ascontiguousarray(binned)).to(
-                self.device),
-            label=torch.from_numpy(np.ascontiguousarray(
-                label, dtype=np.float32)).to(self.device),
-            mask=torch.ones(n, dtype=torch.float32, device=self.device),
-            num_real=n)
+        mask = np.ones(n, np.float32)
+        label = np.asarray(label, np.float32)
+        shard = shard and self._on_mesh
+        if shard:
+            pad = (-n) % self.mesh.num_data
+            if pad:
+                binned = np.concatenate(
+                    [binned, np.zeros((pad, binned.shape[1]), np.uint8)])
+                label = np.concatenate([label, np.zeros(pad, np.float32)])
+                mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+            lo, hi = batch_range(self.mesh, n + pad)
+            binned, label, mask = (np.array(a[lo:hi])
+                                   for a in (binned, label, mask))
+
+        def dev(a):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+        return BinnedDataset(binned=dev(binned), label=dev(label),
+                             mask=dev(mask), num_real=n, sharded=shard)
 
     def load_dataset(self, pattern: str, fit_bins: bool = False) -> BinnedDataset:
         """Stream the dataset into uint8 bins on the device in bounded
@@ -260,7 +300,8 @@ class GbdtLearner:
         densifies one chunk at a time. The full dataset never exists on
         the host as either CSR or float, only as the uint8 bin matrix
         that goes to the device. Both passes parse on the learner's
-        device."""
+        device. On a mesh every rank reads all rows (so every rank draws
+        the same sketch and the same bin edges) and keeps its own."""
         cfg = self.cfg
         if fit_bins or self.edges is None:
             sample, _, max_feat = _reservoir_sample(
@@ -316,7 +357,12 @@ class GbdtLearner:
         F, B = cfg.dim, cfg.max_bin
         lam, gam, mcw, eta = (cfg.reg_lambda, cfg.gamma,
                               cfg.min_child_weight, cfg.eta)
-        hist = level_hist if self._use_kernel() else level_hist_plain
+        if self._on_mesh:
+            hist = (mesh_level_hist if self._use_kernel()
+                    else mesh_level_hist_plain)
+            hist = functools.partial(hist, self.mesh)
+        else:
+            hist = level_hist if self._use_kernel() else level_hist_plain
         # sibling subtraction (xgboost's classic halving): levels past
         # the root accumulate only the LEFT child of every split pair and
         # derive the right child as parent - left. Rows of a NON-splitting
@@ -335,7 +381,8 @@ class GbdtLearner:
             rows would leave that difference a few 1e-5 off. Each node's
             rows spread over _TOTALS_WAYS accumulators, summed at the
             end: on the card all rows of a node adding to one address
-            serialise."""
+            serialise. On a mesh the f64 sums are summed over the data
+            axis before they round."""
             n = hist_nodes + 1
             way = torch.arange(g.shape[0], dtype=torch.int32,
                                device=g.device) % _TOTALS_WAYS
@@ -344,6 +391,8 @@ class GbdtLearner:
             acc.index_add_(0, way * n + relh,
                            torch.stack([g, h], dim=1).double())
             acc = acc.view(_TOTALS_WAYS, n, 2).sum(0)
+            if self._on_mesh:
+                collectives.allreduce_sum(acc, self.mesh, DATA_AXIS)
             return acc[:hist_nodes].t().float().contiguous()  # [2, hist_nodes]
 
         def hist_part(binned, g, h, node, active):
@@ -547,7 +596,7 @@ class GbdtLearner:
                                   if self.reducer is not None
                                   else self._metrics(em, ds))
                 msgs += [f"{name}-{k}:{v:.6f}" for k, v in m.items()]
-            if verbose:
+            if verbose and self.mesh.rank == 0:
                 print(f"[{r}]\t" + "\t".join(msgs), flush=True)
             if on_round is not None:
                 on_round(r)
@@ -576,8 +625,16 @@ class GbdtLearner:
             node = torch.where(isp.index_select(0, node), child, node)
         return node
 
+    def _gathered(self, ds: BinnedDataset, *rows):
+        """Per-row tensors of ds over all its rows: on a sharded ds,
+        gathered from every rank of the data axis."""
+        if not ds.sharded:
+            return rows
+        return collectives.gather_rows(torch.stack(rows, 1), self.mesh,
+                                       DATA_AXIS).unbind(1)
+
     def _metrics(self, margin, ds: BinnedDataset) -> dict:
-        label, mask = ds.label, ds.mask
+        margin, label, mask = self._gathered(ds, margin, ds.label, ds.mask)
         if self.cfg.objective == "binary:logistic":
             # in the order the JAX learner prints them (its jitted dict
             # comes back sorted by key)
@@ -599,6 +656,7 @@ class GbdtLearner:
         for r in range(R):
             tree = self._tree_tensors(r)
             m = m + tree["leaf_value"].index_select(0, self._route(ds, tree))
+        (m,) = self._gathered(ds, m)
         return m.cpu().numpy()[: ds.num_real]
 
     def predict_blk(self, blk: RowBlock) -> np.ndarray:
@@ -607,7 +665,8 @@ class GbdtLearner:
             raise RuntimeError("predict_blk: the model is not fit or loaded")
         binned = bin_matrix(_densify(blk, self.cfg.dim), self.edges)
         m = self.predict_margin(
-            self._dataset(binned, np.zeros(blk.size, np.float32)))
+            self._dataset(binned, np.zeros(blk.size, np.float32),
+                          shard=False))
         if self.cfg.objective == "binary:logistic":
             return 1.0 / (1.0 + np.exp(-m))
         return m
@@ -615,7 +674,10 @@ class GbdtLearner:
     # -- persistence --------------------------------------------------------
     def save(self, path: str, rounds: Optional[int] = None) -> None:
         """Write the model as one .npz with the JAX package's keys, so
-        either package loads the other's file."""
+        either package loads the other's file. On a mesh only rank 0
+        writes: every rank holds the same trees."""
+        if self.mesh.rank != 0:
+            return
         R = rounds if rounds is not None else self.cfg.num_round
         R = min(R, len(self.trees["leaf_value"]))
         os.makedirs(os.path.dirname(path) or ".", exist_ok=True)

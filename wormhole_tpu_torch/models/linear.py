@@ -1,4 +1,5 @@
-"""Sparse linear learner: async-SGD logistic regression on one device.
+"""Sparse linear learner: async-SGD logistic regression, on one device or
+a (data x model) mesh of ranks.
 
 Parity target: the reference's flagship `linear.dmlc` app
 (learn/linear/async_sgd.h, loss.h, penalty.h, config.proto) — logistic /
@@ -15,7 +16,12 @@ prepared batch picks the ops:
   batch, then the dense handle update (``kernel=pallas``, dense table);
 - ``tcoo``: the compacted path for Criteo-1TB-sized tables: tile_gather
   of w at the batch's unique keys, a row-major pull over the compact w,
-  coo_spmv_t over the compact domain, and scatter_update at those keys.
+  coo_spmv_t over the compact domain, and scatter_update at those keys;
+- ``mcoo``: on a mesh larger than 1x1, each rank packs its (data shard x
+  model shard) cell of the global batch, runs mesh_coo_spmv (all_reduce
+  over the model axis) and mesh_coo_spmv_t (all_reduce over the data
+  axis), and updates its model shard. Every rank steps through the same
+  global batches; the progress of each is that of the whole batch.
 
 The state tables are torch tensors updated IN PLACE by every train step
 (the JAX learner donates them to jitted steps instead).
@@ -33,13 +39,15 @@ import torch
 
 from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.rowblock import DeviceBatch, RowBlock, to_device_batch
-from wormhole_tpu_torch.device import resolve_device
 from wormhole_tpu_torch.ops import coo_kernels as ck
 from wormhole_tpu_torch.ops import metrics as M
 from wormhole_tpu_torch.ops.fused_update import scatter_update
 from wormhole_tpu_torch.ops.penalty import l1l2_solve
 from wormhole_tpu_torch.ops.spmv import spmv, spmv_t
+from wormhole_tpu_torch.parallel import collectives
 from wormhole_tpu_torch.parallel.kvstore import KVStore, TableSpec, quantize_push
+from wormhole_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
+                                              batch_range, single_device_mesh)
 
 _log = logging.getLogger(__name__)
 
@@ -48,8 +56,8 @@ _log = logging.getLogger(__name__)
 class LinearConfig:
     """Config surface of reference learn/linear/config.proto, with the same
     keys and defaults as the JAX package's LinearConfig, so one conf file
-    drives both. Keys of the distributed planes are accepted and unused
-    here (single process, one device)."""
+    drives both. Keys of the PS and multi-host planes are accepted and
+    unused here; model_shards sizes the app's mesh (apps/linear.py)."""
 
     train_data: str = ""
     val_data: Optional[str] = None
@@ -92,8 +100,9 @@ class LinearConfig:
     nnz_per_row: int = 64
     model_shards: int = 1
 
-    # pallas = the hand CUDA kernels (coo / tcoo) | xla = plain torch ops |
-    # auto = the kernels on a CUDA device when the shapes allow, else xla
+    # pallas = the hand CUDA kernels (coo / tcoo / mcoo) | xla = plain
+    # torch ops | auto = the kernels on a CUDA device or on a mesh larger
+    # than 1x1 when the shapes allow, else xla
     kernel: str = "auto"
     # compacted path: -1 = auto (sized from the first batch), 0 = off,
     # > 0 = explicit slot capacity (rounded up to a whole tile)
@@ -203,28 +212,47 @@ def _to_floats(p: dict) -> dict:
 
 
 class LinearLearner:
-    """Train/eval/predict steps over one device's weight table."""
+    """Train/eval/predict steps over one device's weight table, or over
+    this rank's shard of it on a mesh."""
 
     #: bump when prepare_batch's output layout changes for identical input
     _PACK_VERSION = 1
 
-    def __init__(self, cfg: LinearConfig, device=None):
+    def __init__(self, cfg: LinearConfig, device=None,
+                 mesh: Optional[Mesh] = None):
         self.cfg = cfg
-        self.device = resolve_device(device)
-        self.store = KVStore(cfg.num_buckets, _tables_for(cfg.algo),
-                             self.device)
+        if mesh is not None and device is not None and \
+                torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh if mesh is not None else single_device_mesh(device)
+        self.device = self.mesh.device
         self._dropped_rows = 0
         if cfg.kernel not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown kernel {cfg.kernel!r}")
-        shapes_ok = (cfg.num_buckets % ck.TILE == 0
-                     and cfg.minibatch % ck.LANES == 0)
+        D, M = self.mesh.num_data, self.mesh.num_model
+        on_mesh = D > 1 or M > 1
+        # per-cell kernel constraints: each model shard owns whole tiles,
+        # each data shard whole lane groups
+        shapes_ok = (cfg.num_buckets % (M * ck.TILE) == 0
+                     and cfg.minibatch % (D * ck.LANES) == 0)
         self.use_pallas = cfg.kernel == "pallas" or (
-            cfg.kernel == "auto" and self.device.type == "cuda"
-            and shapes_ok)
+            cfg.kernel == "auto" and shapes_ok
+            and (self.device.type == "cuda" or on_mesh))
         if self.use_pallas and not shapes_ok:
             raise ValueError(
-                f"the COO kernels need num_buckets % {ck.TILE} == 0 and "
-                f"minibatch % {ck.LANES} == 0")
+                f"the COO kernels need num_buckets % {M * ck.TILE} == 0 and "
+                f"minibatch % {D * ck.LANES} == 0")
+        if on_mesh and not self.use_pallas:
+            raise NotImplementedError(
+                "kernel=xla on a mesh larger than 1x1 is not ported yet "
+                "(ROADMAP.md Queue A, multi-GPU); use kernel=pallas")
+        # the mesh layout (per-cell kernels + all_reduce) whenever an axis
+        # is larger than 1
+        self._mesh_coo = self.use_pallas and on_mesh
+        self._shard_cap = ck.mesh_capacity(cfg.row_capacity, D, M)
+        self.store = KVStore(cfg.num_buckets, _tables_for(cfg.algo),
+                             self.device, mesh=self.mesh)
         # kernel compute dtype; None defers to the kernel default (bf16
         # on CUDA, f32 on the CPU); "auto" keeps f32 whenever
         # fixed_bytes == 0 so disabling gradient quantization also
@@ -238,7 +266,7 @@ class LinearLearner:
         # (ensure_compact); the lock serializes that against loader threads
         self._compact_cap: Optional[int] = None
         self._compact_lock = threading.Lock()
-        if not self.use_pallas or cfg.compact_cap == 0:
+        if self._mesh_coo or not self.use_pallas or cfg.compact_cap == 0:
             self._compact_cap = 0
         # sparse PS wire hints: unique buckets touched by trained batches
         # since the last collect_touched() drain
@@ -307,6 +335,43 @@ class LinearLearner:
     def _predict_step_coo(self, sidx, sseg, sval, tmap, first):
         return ck.coo_spmv(self.store.state["w"], sidx, sseg, sval, tmap,
                            first, self.cfg.minibatch, dtype=self._coo_dtype)
+
+    def _xw_mcoo(self, sidx, sseg, sval, tmap, first):
+        """This rank's rows of xw (mesh_coo_spmv over its cell)."""
+        return ck.mesh_coo_spmv(self.mesh, self.store.state["w"], sidx, sseg,
+                                sval, tmap, first, self.cfg.minibatch,
+                                dtype=self._coo_dtype)
+
+    def _global_progress(self, xw, label, mask, new_w=None):
+        """The progress of the whole global batch, the same on every rank:
+        xw's data shards gathered over the data axis (label and mask are
+        the global batch's already), the |w|_0 delta summed over the model
+        axis."""
+        xw = collectives.gather_rows(xw, self.mesh, DATA_AXIS)
+        obj, _ = _loss_dual(self.cfg.loss, label, xw)
+        if new_w is not None:
+            new_w = collectives.allreduce_sum(new_w.reshape(1), self.mesh,
+                                              MODEL_AXIS)[0]
+        return _progress(obj, xw, label, mask, new_w)
+
+    def _train_step_mcoo(self, sidx, sseg, sval, tmap, first, label, mask):
+        cfg = self.cfg
+        lo, hi = batch_range(self.mesh, cfg.minibatch)
+        xw = self._xw_mcoo(sidx, sseg, sval, tmap, first)
+        _, d = _loss_dual(cfg.loss, label[lo:hi], xw)
+        g = ck.mesh_coo_spmv_t(self.mesh, d * mask[lo:hi], sidx, sseg, sval,
+                               tmap, first, cfg.num_buckets,
+                               dtype=self._coo_dtype)
+        return self._global_progress(xw, label, mask, self._dense_update(g))
+
+    def _eval_step_mcoo(self, sidx, sseg, sval, tmap, first, label, mask):
+        return self._global_progress(
+            self._xw_mcoo(sidx, sseg, sval, tmap, first), label, mask)
+
+    def _predict_step_mcoo(self, sidx, sseg, sval, tmap, first):
+        return collectives.gather_rows(
+            self._xw_mcoo(sidx, sseg, sval, tmap, first), self.mesh,
+            DATA_AXIS)
 
     def _xw_tcoo(self, uniq, tmap_u, rm_slot, rm_val):
         """Pull over the compact domain: tile_gather of w at the batch's
@@ -384,6 +449,17 @@ class LinearLearner:
         db = self.make_device_batch(blk)
         if not self.use_pallas:
             return ("xla", db, blk.size)
+        if self._mesh_coo:
+            d, m = self.mesh.coords
+            cell, dropped = ck.pack_mesh_cell(
+                db.idx, db.seg, db.val, self.cfg.num_buckets,
+                self.cfg.minibatch, self.mesh.num_data, self.mesh.num_model,
+                d, m, self._shard_cap, device=self.device)
+            if dropped:
+                _log.warning("mesh cell (%d, %d) overflow: dropped %d "
+                             "nonzeros — raise nnz_per_row or mesh_capacity "
+                             "slack", d, m, dropped)
+            return ("mcoo", cell, db.label, db.row_mask, blk.size)
         if self.ensure_compact(db.idx):
             tc = ck.pack_tile_coo(db.idx, db.seg, db.val,
                                   self.cfg.num_buckets, self._compact_cap,
@@ -416,6 +492,13 @@ class LinearLearner:
         if self._compact_cap is None:
             return None
         cfg = self.cfg
+        if self._mesh_coo:
+            # the JAX package's token, and the cell this rank packs
+            return ("linear", self._PACK_VERSION, self.use_pallas,
+                    self._mesh_coo, self._compact_cap, self._shard_cap,
+                    cfg.minibatch, cfg.nnz_per_row, cfg.num_buckets,
+                    self.mesh.num_data, self.mesh.num_model, ck.TILE,
+                    ck.BLK, ck.BLK_U, ck.LANES, *self.mesh.coords)
         return ("linear", self._PACK_VERSION, self.use_pallas,
                 self._compact_cap, cfg.minibatch, cfg.nnz_per_row,
                 cfg.num_buckets, ck.TILE, ck.BLK, ck.BLK_U, ck.LANES)
@@ -443,7 +526,7 @@ class LinearLearner:
                 arrays += [tc.first_u, tc.last_u, p.idx, p.seg, p.val,
                            p.tmap, p.first]
             arrays += [tc.rm_slot, tc.rm_val, label, mask]
-        elif kind == "coo":
+        elif kind in ("coo", "mcoo"):
             _, p, label, mask, _ = b
             arrays = [p.idx, p.seg, p.val, p.tmap, p.first, label, mask]
         else:
@@ -463,9 +546,11 @@ class LinearLearner:
         elif kind == "coo":
             p = b[1]
             ids = np.unique(p.idx[p.val != 0])
-        else:  # tcoo
+        elif kind == "tcoo":
             u = b[1].uniq
             ids = u[u < self.cfg.num_buckets]
+        else:  # mcoo holds a cell's local ids; the PS falls back to a scan
+            return None
         return ids.astype(np.int64)
 
     def _note_touched(self, b) -> None:
@@ -495,7 +580,8 @@ class LinearLearner:
         if not st_train:
             raise ValueError("batch was staged for eval, not train")
         step = {"xla": self._train_step_xla, "coo": self._train_step_coo,
-                "tcoo": self._train_step_tcoo}[kind]
+                "tcoo": self._train_step_tcoo,
+                "mcoo": self._train_step_mcoo}[kind]
         return _to_floats(step(*args))
 
     def eval_batch(self, blk) -> dict:
@@ -504,12 +590,13 @@ class LinearLearner:
         if st_train:
             raise ValueError("batch was staged for train, not eval")
         step = {"xla": self._eval_step_xla, "coo": self._eval_step_coo,
-                "tcoo": self._eval_step_tcoo}[kind]
+                "tcoo": self._eval_step_tcoo,
+                "mcoo": self._eval_step_mcoo}[kind]
         return _to_floats(step(*args))
 
     def predict_batch(self, blk) -> np.ndarray:
         """Margins (or probabilities with prob_predict) of the batch's
-        real rows."""
+        real rows (all of them, on every rank of a mesh)."""
         _, kind, args, size, _, st_train = self.stage_batch(
             self._prepared(blk), train=False)
         if st_train:
@@ -517,6 +604,8 @@ class LinearLearner:
         args = args[:-2]  # no label / mask
         if kind == "tcoo":
             xw = self._xw_tcoo(*args)
+        elif kind == "mcoo":
+            xw = self._predict_step_mcoo(*args)
         elif kind == "coo":
             xw = self._predict_step_coo(*args)
         else:

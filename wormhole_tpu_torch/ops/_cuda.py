@@ -38,7 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"coo_spmv": 0, "coo_spmv_t": 0, "tile_gather": 0,
             "scatter_update": 0, "row_tile_gather": 0,
             "fm_push_contrib": 0, "v_scatter_update": 0,
-            "level_partition": 0, "level_hist": 0, "parse_libsvm": 0}
+            "level_partition": 0, "level_hist": 0, "parse_libsvm": 0,
+            "mesh_coo_spmv": 0, "mesh_coo_spmv_t": 0, "mesh_level_hist": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)

@@ -639,3 +639,163 @@ def fm_push_contrib(V, a, b, sidx, tmap, first, dtype=None):
     _cuda.check("coo_kernels", rc, "fm_push_contrib")
     _cuda.LAUNCHES["fm_push_contrib"] += 1
     return out
+
+
+# ---------------------------------------------------------- mesh sharding
+# The kernels above generalize to a (data x model) mesh the way ps-lite
+# shards keys across servers and examples across workers (reference
+# async_sgd.h:277-287): each model shard owns a contiguous bucket range (a
+# whole number of tiles), each data shard a contiguous row range, and rank
+# (d, m) runs the kernel on exactly the nonzeros of its (row range x
+# bucket range) cell. The pull's partial sums all_reduce over the model
+# axis, the push's gradients over the data axis: the two collectives that
+# play ZPull and ZPush.
+
+
+@dataclasses.dataclass
+class MeshCOO:
+    """Per-(data, model)-cell packed COO, every cell of the batch: the
+    leading [D, M] axes index the cells, the trailing axis is each cell's
+    SortedCOO (the JAX package's MeshCOO, array for array)."""
+
+    sidx: np.ndarray   # [D, M, P]
+    sseg: np.ndarray   # [D, M, P] row ids local to the data shard
+    sval: np.ndarray   # [D, M, P]
+    tmap: np.ndarray   # [D, M, P/BLK]
+    first: np.ndarray  # [D, M, P/BLK]
+    dropped_nnz: int   # nonzeros beyond a cell's capacity (overflow)
+
+
+def mesh_capacity(capacity: int, D: int, M: int, slack: float = 2.0) -> int:
+    """Per-cell nnz capacity: an even split of the batch capacity across
+    the D*M cells, padded by `slack` for hash skew (keys hash about
+    uniformly over bucket ranges, so 2x covers realistic imbalance), and
+    never less than one block."""
+    per = int(capacity * slack / (D * M))
+    return max((per + BLK - 1) // BLK, 1) * BLK
+
+
+def _mesh_geometry(num_buckets: int, num_rows: int, D: int, M: int):
+    nb_m, rows_d = num_buckets // M, num_rows // D
+    if nb_m % TILE or num_buckets % M:
+        raise ValueError(f"num_buckets {num_buckets} must split into {M} "
+                         f"model shards of whole {TILE}-bucket tiles")
+    if rows_d % LANES or num_rows % D:
+        raise ValueError(f"num_rows {num_rows} must split into {D} data "
+                         f"shards of whole {LANES}-row groups")
+    return nb_m, rows_d
+
+
+def pack_mesh_cell(idx, seg, val, num_buckets: int, num_rows: int,
+                   D: int, M: int, d: int, m: int, capacity_per_shard: int,
+                   device=None) -> tuple[SortedCOO, int]:
+    """Pack cell (d, m) of a batch's COO triples: the live (nonzero)
+    entries with a row in data shard d and a bucket in model shard m, in
+    input order, cut to capacity_per_shard, with local row and bucket ids,
+    through pack_sorted_coo. Returns (the cell's SortedCOO, the nonzeros
+    cut). A rank packs only its own cell."""
+    nb_m, rows_d = _mesh_geometry(num_buckets, num_rows, D, M)
+    idx = np.asarray(idx, np.int64)
+    seg = np.asarray(seg, np.int64)
+    val = np.asarray(val, np.float32)
+    sel = ((val != 0) & (seg // rows_d == d) & (idx // nb_m == m))
+    ci = idx[sel] - m * nb_m
+    cs = seg[sel] - d * rows_d
+    cv = val[sel]
+    dropped = max(len(ci) - capacity_per_shard, 0)
+    if dropped:
+        ci = ci[:capacity_per_shard]
+        cs = cs[:capacity_per_shard]
+        cv = cv[:capacity_per_shard]
+    return pack_sorted_coo(ci, cs, cv, nb_m, capacity=capacity_per_shard,
+                           device=device), dropped
+
+
+def pack_mesh_coo(idx, seg, val, num_buckets: int, num_rows: int,
+                  D: int, M: int, capacity_per_shard: int) -> MeshCOO:
+    """Split COO triples into (data, model) mesh cells and pack each cell
+    (pack_mesh_cell), all of them stacked as the JAX package stacks them.
+    Zero-valued entries (padding) are dropped before splitting."""
+    cells = [[pack_mesh_cell(idx, seg, val, num_buckets, num_rows, D, M,
+                             d, m, capacity_per_shard)
+              for m in range(M)] for d in range(D)]
+
+    def stack(field):
+        return np.stack([np.stack([getattr(c, field) for c, _ in row])
+                         for row in cells])
+
+    return MeshCOO(stack("idx"), stack("seg"), stack("val"), stack("tmap"),
+                   stack("first"),
+                   sum(n for row in cells for _, n in row))
+
+
+def _mesh_pull(spmv, mesh, w, sidx, sseg, sval, tmap, first,
+               num_rows: int, dtype):
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel.mesh import MODEL_AXIS
+
+    xw = spmv(w, sidx, sseg, sval, tmap, first, num_rows // mesh.num_data,
+              dtype)
+    return collectives.allreduce_sum(xw, mesh, MODEL_AXIS)
+
+
+def _mesh_push(spmv_t, mesh, d, sidx, sseg, sval, tmap, first,
+               num_buckets: int, dtype):
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel.mesh import DATA_AXIS
+
+    g = spmv_t(d, sidx, sseg, sval, tmap, first,
+               num_buckets // mesh.num_model, dtype)
+    return collectives.allreduce_sum(g, mesh, DATA_AXIS)
+
+
+def mesh_coo_spmv(mesh, w, sidx, sseg, sval, tmap, first,
+                  num_rows: int, dtype=None):
+    """xw = X w on a (data x model) mesh, on this rank: w is its model
+    shard (num_buckets // M,), the COO arrays its cell's (pack_mesh_cell);
+    returns xw of its data shard's num_rows // D rows, summed over the
+    model axis (the ZPull all_reduce). On CUDA the cell's product is the
+    coo_spmv kernel.
+
+    Replaces wormhole_tpu/ops/coo_kernels.py mesh_coo_spmv (coo_spmv under
+    shard_map, psum over the model axis)."""
+    out = _mesh_pull(coo_spmv, mesh, w, sidx, sseg, sval, tmap, first,
+                     num_rows, dtype)
+    if w.is_cuda:
+        _cuda.count("mesh_coo_spmv")
+    return out
+
+
+def mesh_coo_spmv_plain(mesh, w, sidx, sseg, sval, tmap, first,
+                        num_rows: int, dtype=None):
+    """Plain version of mesh_coo_spmv: coo_spmv_plain on the cell."""
+    return _mesh_pull(
+        lambda w, si, ss, sv, tm, fi, n, dt: coo_spmv_plain(
+            w, si, ss, sv, n, kernel_dtype(dt, w)),
+        mesh, w, sidx, sseg, sval, tmap, first, num_rows, dtype)
+
+
+def mesh_coo_spmv_t(mesh, d, sidx, sseg, sval, tmap, first,
+                    num_buckets: int, dtype=None):
+    """g = Xᵀ d on a (data x model) mesh, on this rank: d is its data
+    shard's duals (num_rows // D,), the COO arrays its cell's; returns g
+    over its model shard's num_buckets // M buckets, summed over the data
+    axis (the ZPush all_reduce). On CUDA the cell's product is the
+    coo_spmv_t kernel.
+
+    Replaces wormhole_tpu/ops/coo_kernels.py mesh_coo_spmv_t (coo_spmv_t
+    under shard_map, psum over the data axis)."""
+    out = _mesh_push(coo_spmv_t, mesh, d, sidx, sseg, sval, tmap, first,
+                     num_buckets, dtype)
+    if d.is_cuda:
+        _cuda.count("mesh_coo_spmv_t")
+    return out
+
+
+def mesh_coo_spmv_t_plain(mesh, d, sidx, sseg, sval, tmap, first,
+                          num_buckets: int, dtype=None):
+    """Plain version of mesh_coo_spmv_t: coo_spmv_t_plain on the cell."""
+    return _mesh_push(
+        lambda d, si, ss, sv, tm, fi, nb, dt: coo_spmv_t_plain(
+            d, si, ss, sv, nb, kernel_dtype(dt, d)),
+        mesh, d, sidx, sseg, sval, tmap, first, num_buckets, dtype)

@@ -175,3 +175,36 @@ def level_hist(binned, g, h, rel, num_nodes: int, B: int):
     _cuda.LAUNCHES["level_partition"] += 1
     _cuda.LAUNCHES["level_hist"] += 1
     return out[0], out[1]
+
+
+def _mesh_hist(hist, mesh, binned, g, h, rel, num_nodes: int, B: int):
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel.mesh import DATA_AXIS
+
+    stat = torch.stack(hist(binned, g, h, rel, num_nodes, B))
+    collectives.allreduce_sum(stat, mesh, DATA_AXIS)
+    return stat[0], stat[1]
+
+
+def mesh_level_hist(mesh, binned, g, h, rel, num_nodes: int, B: int):
+    """level_hist over rows sharded on the data axis of a mesh: this
+    rank's (G, H) of its own rows (the level_hist kernel on the card),
+    summed over the data axis by one all_reduce of the stacked block (the
+    rabit::Allreduce of gradient histograms). Every rank gets the same
+    (num_nodes, F, B) sums.
+
+    Replaces wormhole_tpu/models/gbdt.py hist (local_hist under shard_map,
+    psum over the data axis)."""
+    out = _mesh_hist(level_hist, mesh, binned, g, h, rel, num_nodes, B)
+    if binned.is_cuda:
+        _cuda.count("mesh_level_hist")
+    return out
+
+
+def mesh_level_hist_plain(mesh, binned, g, h, rel, num_nodes: int, B: int,
+                          acc_dtype=torch.float32):
+    """Plain version of mesh_level_hist: level_hist_plain on the rank's
+    rows, then the same all_reduce."""
+    return _mesh_hist(
+        lambda *a: level_hist_plain(*a, acc_dtype=acc_dtype),
+        mesh, binned, g, h, rel, num_nodes, B)

@@ -31,10 +31,21 @@ the JAX package's single-process MinibatchSolver:
   obs.metrics.REGISTRY, as the JAX solver's do;
 - a progress row prints every print_sec;
 - predict writes one output file per part (iter_solver.h:140-156).
+
+On a mesh (a learner whose ``mesh`` has a process group; parallel/mesh.py)
+every rank reads every part and steps through the same global batches in
+the same order, the order of a run with one loader: part k goes to loader
+k mod n, each loader has a queue of its own, and the main thread takes
+the parts' batches queue by queue, in part order. The pool may still grow
+or shrink between passes; the order does not change with it. The steps,
+saves and predictions are collective, so every rank runs them; only rank
+0 prints progress rows and writes prediction files, and each rank prints
+its own pass line (its loader stall) and keeps its own stage timers.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import re
@@ -163,6 +174,10 @@ class MinibatchSolver:
             self.num_loaders = max(1, int(cfg.max_concurrency))
             src = "cfg.max_concurrency"
         self.verbose = verbose
+        mesh = getattr(learner, "mesh", None)
+        # lockstep over the ranks of a mesh (see the module docstring)
+        self._lockstep = mesh is not None and mesh.device_mesh is not None
+        self._rank = mesh.rank if self._lockstep else 0
         self.t0 = time.time()
         # adaptive sizing is on unless the count was pinned
         self.controller: Optional[LoaderController] = (
@@ -235,6 +250,15 @@ class MinibatchSolver:
             return None
         return tok_fn(train=train)
 
+    def part_key(self, train: bool, token, fname: str, part: int,
+                 nparts: int) -> tuple:
+        """The pack cache's key of one file part's prepared batches: the
+        same (token, part, file bytes, batch geometry) packs the same
+        batches; anything else misses."""
+        cfg = self.cfg
+        return ("train" if train else "eval", token, fname, part, nparts,
+                cfg.data_format, cfg.minibatch, _pc.file_stamp(fname))
+
     def iterate(self, data: str, train: bool, data_pass: int = 0) -> Progress:
         """One TRAIN (train=True) or VAL pass over `data`."""
         cfg = self.cfg
@@ -243,18 +267,27 @@ class MinibatchSolver:
         if hook:
             hook()
         parts = list(enumerate(list_parts(data, cfg.num_parts_per_file)))
+        num_parts = len(parts)
         prog = Progress()
         # seed the pass with the model's standing |w|_0 so the sparsity
         # column is cumulative across passes
         prog.merge({"new_w": float(lrn.nnz())})
         prog.take_increment()
-        q: queue.Queue = queue.Queue(maxsize=self.MAX_QUEUED)
-        end = object()
+        n_loaders = self.controller.n if self.controller else self.num_loaders
+        _POOL.set(n_loaders)
+        end, part_end = object(), object()
         errors: list[BaseException] = []
         stop = threading.Event()
         part_lock = threading.Lock()
+        if self._lockstep:
+            # loader i takes parts i, i + n, ... into a queue of its own
+            queues = [queue.Queue(maxsize=max(1, self.MAX_QUEUED // n_loaders))
+                      for _ in range(n_loaders)]
+            own = [parts[i::n_loaders] for i in range(n_loaders)]
+        else:
+            queues = [queue.Queue(maxsize=self.MAX_QUEUED)]
 
-        def put(item) -> bool:
+        def put(q, item) -> bool:
             """Bounded put that gives up once the consumer is gone."""
             while not stop.is_set():
                 try:
@@ -263,6 +296,11 @@ class MinibatchSolver:
                 except queue.Full:
                     continue
             return False
+
+        def next_part(i):
+            with part_lock:
+                mine = own[i] if self._lockstep else parts
+                return mine.pop(0) if mine else None
 
         dev = self._device
         on_card = dev is not None and dev.type == "cuda"
@@ -276,16 +314,17 @@ class MinibatchSolver:
                 _ST_PACK.observe(time.perf_counter() - t0)
             return out
 
-        def loader():
+        def loader(i):
+            q = queues[i % len(queues)]
             try:
                 # parse and pack on a stream of this loader's own (no-op
                 # off CUDA); stage on the steps' stream
                 pack_stream = torch.cuda.Stream(dev) if on_card else None
                 while not stop.is_set():
-                    with part_lock:
-                        if not parts:
-                            return
-                        part_id, (fname, part, nparts) = parts.pop(0)
+                    nxt = next_part(i)
+                    if nxt is None:
+                        return
+                    part_id, (fname, part, nparts) = nxt
 
                     def raw_iter(fname=fname, part=part, nparts=nparts,
                                  part_id=part_id):
@@ -297,13 +336,8 @@ class MinibatchSolver:
                             neg_sampling=cfg.neg_sampling if train else 1.0,
                             seed=data_pass * 7919 + part_id, device=dev)
 
-                    # the same (token, part, file bytes, batch geometry)
-                    # packs the same batches; anything else misses
-                    part_key = None
-                    if token is not None:
-                        part_key = ("train" if train else "eval", token,
-                                    fname, part, nparts, cfg.data_format,
-                                    cfg.minibatch, _pc.file_stamp(fname))
+                    part_key = (None if token is None else self.part_key(
+                        train, token, fname, part, nparts))
                     batches = _pc.iter_part_cached(self.pack_cache, part_key,
                                                    raw_iter, prep)
                     while True:
@@ -317,42 +351,66 @@ class MinibatchSolver:
                         b = lrn.stage_batch(b, train=train)
                         if train:
                             _ST_H2D.observe(time.perf_counter() - t0)
-                        if not put(b):
+                        if not put(q, b):
                             return
+                    if self._lockstep and not put(q, part_end):
+                        return
             except Exception as e:  # relayed to the main thread
                 errors.append(e)
             finally:
-                put(end)
+                put(q, end)
 
-        n_loaders = self.controller.n if self.controller else self.num_loaders
-        _POOL.set(n_loaders)
-        threads = [threading.Thread(target=loader, daemon=True)
-                   for _ in range(n_loaders)]
+        threads = [threading.Thread(target=loader, args=(i,), daemon=True)
+                   for i in range(n_loaders)]
         for t in threads:
             t.start()
         mode = "train" if train else "eval"
         step = lrn.train_batch if train else lrn.eval_batch
         self._log(f"{mode} pass {data_pass}: {data}")
         self._log(Progress.header())
-        done = n_steps = gets = high = 0
-        t_step = stall = 0.0
+        n_steps = 0
+        t_step = 0.0
+        # queue gets, gets that found a queue at least half full, and the
+        # main thread's total wait
+        waits = {"gets": 0, "high": 0, "stall": 0.0}
+
+        def get(q):
+            depth = q.qsize()
+            _QDEPTH.set(depth)
+            waits["gets"] += 1
+            if depth >= max(1, q.maxsize // 2):
+                waits["high"] += 1
+            t_w = time.perf_counter()
+            item = q.get()
+            dw = time.perf_counter() - t_w
+            waits["stall"] += dw
+            _STALL.set(waits["stall"])
+            return item, dw
+
+        def staged():
+            """(queue wait, staged batch) in the order the steps take."""
+            if not self._lockstep:
+                done = 0
+                while done < len(threads):
+                    item, dw = get(queues[0])
+                    if item is end:
+                        done += 1
+                    else:
+                        yield dw, item
+                return
+            for k in range(num_parts):
+                while True:
+                    item, dw = get(queues[k % n_loaders])
+                    if item is part_end:
+                        break
+                    if item is end:  # its loader stopped; errors follow
+                        return
+                    yield dw, item
+
         t_pass0 = time.perf_counter()
         last_print = time.time()
         try:
-            while done < len(threads):
-                depth = q.qsize()
-                _QDEPTH.set(depth)
-                gets += 1
-                if depth >= max(1, self.MAX_QUEUED // 2):
-                    high += 1
-                t_w = time.perf_counter()
-                item = q.get()
-                dw = time.perf_counter() - t_w
-                stall += dw
-                _STALL.set(stall)
-                if item is end:
-                    done += 1
-                    continue
+            for dw, item in staged():
                 t_s = time.perf_counter()
                 out = step(item)
                 dt = time.perf_counter() - t_s
@@ -377,9 +435,10 @@ class MinibatchSolver:
             raise errors[0]
         self._log(prog.row(self.t0))
         wall = time.perf_counter() - t_pass0
+        stall = waits["stall"]
         self.last_pass_wall_s, self.last_pass_stall_s = wall, stall
         if n_steps:
-            self._log(f"{mode} pass {data_pass}: {n_steps} minibatches, "
+            self._log_rank(f"{mode} pass {data_pass}: {n_steps} minibatches, "
                       f"avg {1e3 * t_step / n_steps:.1f}ms/step, "
                       f"wall {wall:.3f}s, loader stall {stall:.3f}s "
                       f"({100.0 * stall / max(wall, 1e-9):.1f}% of the "
@@ -392,7 +451,7 @@ class MinibatchSolver:
                 f"mem {st['mem_bytes'] >> 20}MB/{st['mem_entries']} entries")
         if self.controller is not None:
             self.controller.record_pass(stall, wall, n_steps,
-                                        high / max(gets, 1))
+                                        waits["high"] / max(waits["gets"], 1))
             d = self.controller.decisions[-1]
             if d["from"] != d["to"]:
                 self._log(
@@ -404,23 +463,35 @@ class MinibatchSolver:
         return prog
 
     def predict(self, data: str, out_base: str) -> list[str]:
-        """One PRED pass; margins written one file per part."""
+        """One PRED pass; margins written one file per part (by rank 0 of
+        a mesh; every rank runs the pass's collective steps)."""
         cfg = self.cfg
-        os.makedirs(os.path.dirname(out_base) or ".", exist_ok=True)
+        write = self._rank == 0
+        if write:
+            os.makedirs(os.path.dirname(out_base) or ".", exist_ok=True)
         out_files = []
         for part_id, (fname, part, nparts) in enumerate(
                 list_parts(data, cfg.num_parts_per_file)):
             path = f"{out_base}_part-{part_id}"
-            with open(path, "w") as fh:
+            with (open(path, "w") if write
+                  else contextlib.nullcontext()) as fh:
                 for blk in MinibatchIter(fname, part, nparts,
                                          cfg.data_format,
                                          minibatch_size=cfg.minibatch,
                                          device=self._device):
-                    for m in self.learner.predict_batch(blk):
-                        fh.write(f"{m:.6g}\n")
+                    ms = self.learner.predict_batch(blk)
+                    if write:
+                        fh.writelines(f"{m:.6g}\n" for m in ms)
             out_files.append(path)
         return out_files
 
     def _log(self, msg: str) -> None:
-        if self.verbose:
+        """Print (rank 0 of a mesh only)."""
+        if self.verbose and self._rank == 0:
             print(msg, flush=True)
+
+    def _log_rank(self, msg: str) -> None:
+        """Print on every rank, tagged with the rank on a mesh."""
+        if self.verbose:
+            print(f"[rank {self._rank}] {msg}" if self._lockstep else msg,
+                  flush=True)

@@ -3,8 +3,11 @@
 Parity with reference iter_solver.h:99-119 and the JAX package's
 utils/checkpoint.py: a model is `<base>[_iter-K].npz` when written as one
 part, or `<base>[_iter-K]_part-<rank>.npz` files concatenated on the
-bucket axis. The port writes one part (one device); it reads either
-form, so a `model_out` of the JAX app loads here. Local paths only.
+bucket axis, one a model shard. The port writes one part from one device
+or a mesh of one model shard, and the `_part-R` fan-out from a mesh of
+several, where data rank 0 of model shard R writes part R; it reads
+either form under any shard count, as the JAX package does, so each
+package loads the other's files. Local paths only.
 
 `store` is anything with to_numpy / from_numpy: a KVStore, or DiFacto's
 _CombinedStore, which saves both of its table groups and, after a load,
@@ -44,14 +47,41 @@ def save_prefix(base: str, it: Optional[int]) -> str:
 
 
 def save_model(store, base: str, it: Optional[int] = None) -> list[str]:
-    """Write the store's tables as `<base>[_iter-K].npz`, removing stale
-    part files of an earlier save so a later load never mixes them."""
-    os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+    """Write the store's tables: `<base>[_iter-K].npz` for one model
+    shard, else one `_part-R` file a model shard. Stale files of an
+    earlier save (of another shard count) are removed first, so a later
+    load never mixes them. On a mesh every rank calls this together;
+    rank 0 removes, the writers write, and all return once every file
+    is in place. Returns the paths this rank wrote."""
+    mesh = getattr(store, "mesh", None)
+    grouped = mesh is not None and mesh.device_mesh is not None
     prefix = save_prefix(base, it)
-    for old in glob.glob(prefix + "_part-*.npz") + glob.glob(prefix + ".npz"):
-        os.remove(old)
-    atomic_savez(prefix + ".npz", compressed=True, **store.to_numpy())
-    return [prefix + ".npz"]
+    if grouped:
+        mesh.barrier()  # no rank still reads an earlier save
+    if not grouped or mesh.rank == 0:
+        os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
+        for old in (glob.glob(prefix + "_part-*.npz")
+                    + glob.glob(prefix + ".npz")):
+            os.remove(old)
+    if grouped:
+        mesh.barrier()
+    out = []
+    if not grouped or mesh.num_model == 1:
+        arrays = store.to_numpy()
+        if not grouped or mesh.rank == 0:
+            atomic_savez(prefix + ".npz", compressed=True, **arrays)
+            out.append(prefix + ".npz")
+    else:
+        d, m = mesh.coords
+        if d == 0:  # the shard's rows are the same on every data rank
+            path = part_name(base, it, m) + ".npz"
+            atomic_savez(path, compressed=True,
+                         **{k: v.cpu().numpy()
+                            for k, v in store.state.items()})
+            out.append(path)
+    if grouped:
+        mesh.barrier()
+    return out
 
 
 def load_parts(base: str, it: Optional[int] = None) -> dict[str, np.ndarray]:
