@@ -5,7 +5,8 @@
   python3 chip_smoke.py --turns OTHER
       the kernel phases, step times and passes from a file of another
       checkout (e.g. the parent commit from git archive) against this
-      one, in turns: other, this, this, other
+      one, in turns: other, this, this, other (a checkout that reads no
+      Criteo TSV or crb skips those passes and says so)
 
 Drives the port (wormhole_tpu_torch) through its main paths at the
 bench's full width: three minibatch learners and the two BSP batch
@@ -59,16 +60,28 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
 6. the host data path ([parse], [pack]): the card's libsvm parser
    (csrc/parse.cu) against the plain parser on four 65,536-row chunks
    (Criteo keys, the same keys with k:v values, HIGGS rows, and HIGGS
-   rows written %.17g, which take the kernel's exact path), equal
-   RowBlocks byte for byte, every token converted on the card, timed as the
-   kernels are plus the whole call's wall and the plain parser's; and the
+   rows written %.17g, which take the kernel's exact path), and the
+   card's criteo and adfea parsers (csrc/formats.cu, CityHash64 on the
+   card) on a 65,536-row synthetic Criteo TSV chunk (~16 MB), the same
+   rows as criteo_test, a chunk of one token of every length 0 to 300
+   (every CityHash64 branch) and a 65,536-row adfea chunk (negative and
+   22-digit fids, gids over 0-1023): equal RowBlocks byte for byte,
+   every token converted on the card, timed as the kernels are plus the
+   whole call's wall and the plain parser's (one call a format); and the
    pack with its sorts on the card against the numpy pack, byte for byte,
    at full width (pack_sorted_coo at 2^22, pack_tile_coo at 2^26,
    DiFacto's _pack_fm), in seconds a batch;
 7. passes from a file ([e2e]): one train pass of the linear app at 2^26
    and 2^22 buckets and of the difacto app, each over a libsvm file of 8
    full minibatches read as 4 parts by 4 loaders, giving examples/s, the
-   pass's wall, ms a step and the loader stall's share of the wall;
+   pass's wall, ms a step and the loader stall's share of the wall; then
+   the same passes of linear at 2^26 and difacto from a Criteo TSV file
+   of 8 full minibatches (~127 MB, data_format=criteo, parsed on the
+   card), the convert app writing that file as crb on the card (its
+   wall), the two passes again from the crb file (data_format=crb), every
+   batch of the crb file, read by one reader, equal to the batch parsed
+   from the text byte for byte, and a linear pass at 2^26 from a
+   131,072-row adfea file;
 8. k-means at the bench's MNIST-784 shape ([kmeans]; bench.py
    bench_kmeans: 16,384 rows of 160 uniform column ids of 784, values
    U[0, 1), k 10): the packed assignment (coo_spmv_t over 14,680,064
@@ -133,7 +146,9 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    starts; several cards are not checked.
 
 The launches of parse_libsvm over the apps, the passes, the k-means run,
-the L-BFGS apps and [cache] make its launch count; coo_spmv_t's count
+the L-BFGS apps and [cache] make its launch count; parse_criteo's are
+the Criteo passes', the convert's and the one-reader check's text side,
+parse_adfea's the adfea pass's; coo_spmv_t's count
 includes the k-means run's and app's and [cache]'s, and its row carries
 the k-means shape's numbers ("kmeans"); every kernel's count includes
 [cache]'s. The rows mesh_coo_spmv, mesh_coo_spmv_t and mesh_level_hist
@@ -220,6 +235,12 @@ KERNELS = {
     "parse_libsvm": ("wormhole_tpu_torch/csrc/parse.cu",
                      "wormhole_tpu/native/src/parsers.cc:41 parse_libsvm "
                      "(host C++)"),
+    "parse_criteo": ("wormhole_tpu_torch/csrc/formats.cu",
+                     "wormhole_tpu/native/src/parsers.cc:101 parse_criteo "
+                     "(host C++)"),
+    "parse_adfea": ("wormhole_tpu_torch/csrc/formats.cu",
+                    "wormhole_tpu/native/src/parsers.cc:171 parse_adfea "
+                    "(host C++)"),
     # the mesh wrappers: kernel 1, 2 or 8 on each rank's shard, then an
     # all_reduce ([mesh])
     "mesh_coo_spmv": ("wormhole_tpu_torch/csrc/coo_kernels.cu",
@@ -236,6 +257,7 @@ LINEAR_KERNELS = ("coo_spmv", "coo_spmv_t", "tile_gather", "scatter_update")
 FM_KERNELS = ("tile_gather", "row_tile_gather", "coo_spmv_t",
               "fm_push_contrib", "scatter_update", "v_scatter_update")
 GBDT_KERNELS = ("level_partition", "level_hist")
+PARSE_KERNELS = ("parse_libsvm", "parse_criteo", "parse_adfea")
 
 
 def log(msg: str) -> None:
@@ -1878,59 +1900,129 @@ def rowblock_arrays(blk) -> dict:
     return {f: getattr(blk, f) for f in ("label", "offset", "index", "value")}
 
 
+def parse_chunk_row(name: str, kernel, raw: bytes, got, want, plain_s,
+                    walls, device, extra: str = "") -> dict:
+    """Hold a card parse's RowBlock against the plain parser's byte for
+    byte, time `kernel` (the chain on the chunk's bytes on the card: ms,
+    device ms, host us), log one [parse] line and return its numbers."""
+    same_arrays(f"[parse] {name}", rowblock_arrays(got),
+                rowblock_arrays(want))
+    tm = timings(kernel, device)
+    nnz = got.nnz
+    nbytes = (len(raw) + 4 * got.size + 8 * (got.size + 1) + 8 * nnz
+              + (4 * nnz if got.value is not None else 0))
+    b, by = bound_ms(nbytes, 0.0)
+    log(f"[parse] {name}: {len(raw) / 1e6:.3f} MB, {got.size} rows, "
+        f"{nnz} features, values {'kept' if got.value is not None else 'binary'}: "
+        f"kernel ms {tm['ms']}, dev ms {tm['device_ms']}, host us "
+        f"{tm['host_us']}, bound {b:.5f} ms ({by}); the whole call "
+        f"{1e3 * min(walls):.3f} ms (walls {', '.join(f'{1e3 * w:.3f}' for w in walls)}); "
+        f"plain parser "
+        + ("not timed" if plain_s is None else f"{plain_s:.4f} s")
+        + f"{extra}; RowBlocks equal byte for byte")
+    return dict(tm, max_abs_err=0.0, plain_ms=(None if plain_s is None
+                                               else 1e3 * plain_s),
+                bound_ms=b, bound_by=by, library_ms=None,
+                call_ms=1e3 * min(walls), mb=len(raw) / 1e6)
+
+
+def _card_walls(parse, device):
+    """(the last result, three walls) of a whole card parse call."""
+    walls, got = [], None
+    for _ in range(3):
+        sync(device)
+        t = time.perf_counter()
+        got = parse()
+        walls.append(time.perf_counter() - t)
+    return got, walls
+
+
+def format_chunks(rows=PARSE_ROWS) -> tuple:
+    """[parse]'s chunks of the other formats: (name, format, bytes), a
+    synthetic Criteo TSV chunk (13 integer and 26 categorical fields,
+    Zipf(1.2) a field, ~20% and ~10% of them empty), the same rows as
+    criteo_test, one line a token length 0 to 300 (every CityHash64
+    branch), and an adfea chunk (gids over 0-1023, negative and 22-digit
+    fids)."""
+    from wormhole_tpu_torch.data.synth import (synth_adfea_text,
+                                               synth_criteo_tsv)
+    tsv = synth_criteo_tsv(np.random.default_rng(33), rows)
+    rng = np.random.default_rng(35)
+    sweep = []
+    for n in range(301):
+        tok = bytes(rng.integers(0x20, 0x7F, size=n).astype(np.uint8))
+        sweep.append(tok + b"\t" + tok[::-1] + b"x")
+    return (("criteo", "criteo", tsv), ("criteo_test", "criteo_test", tsv),
+            ("criteo-sweep", "criteo_test", b"\n".join(sweep) + b"\n"),
+            ("adfea", "adfea", synth_adfea_text(np.random.default_rng(34),
+                                                rows)))
+
+
 def check_parse(device, rows=PARSE_ROWS) -> dict:
-    """[parse]: the card's libsvm parser against the plain parser on four
-    full-width chunks (Criteo keys at 2^26 as write_libsvm writes them, the
-    same keys with k:v values, HIGGS rows as write_higgs_libsvm writes
-    them, and the same rows with %.17g values, most of which take the
-    kernel's exact path): equal RowBlocks byte for byte. Every token is
-    converted on the card; the line counts those of the exact path. Times
-    the kernel chain on the chunk's bytes on the card (ms, device ms, host
-    us), the whole call (bytes over, parse, arrays back; best of three)
-    and the plain parser. Returns the parse_libsvm row, from the Criteo
-    keys chunk (the passes' files hold such rows)."""
+    """[parse]: the card's parsers against the plain parsers. libsvm on
+    four full-width chunks (Criteo keys at 2^26 as write_libsvm writes
+    them, the same keys with k:v values, HIGGS rows as write_higgs_libsvm
+    writes them, and the same rows with %.17g values, most of which take
+    the kernel's exact path); then format_chunks' criteo, criteo_test,
+    length-sweep and adfea chunks: equal RowBlocks byte for byte. Every
+    token is converted and every field hashed on the card; the libsvm
+    lines count the exact path's decimals. Times the kernel chain on the
+    chunk's bytes on the card (ms, device ms, host us), the whole call
+    (bytes over, parse, arrays back; best of three) and the plain parser
+    (one call a format). Returns the parse_libsvm row, from the Criteo
+    keys chunk (the passes' files hold such rows), and the parse_criteo
+    and parse_adfea rows, from the criteo and adfea chunks (the others'
+    numbers under "chunks")."""
     from wormhole_tpu_torch import native
-    from wormhole_tpu_torch.data.parsers import parse_libsvm
+    from wormhole_tpu_torch.data.parsers import parse_libsvm, parse_text
 
     chunks = (("criteo-keys", criteo_text(COMPACT_BUCKETS, rows, 31)),
               ("criteo-values", criteo_text(COMPACT_BUCKETS, rows, 31,
                                             values=True)),
               ("higgs", higgs_text(rows, HIGGS_DIM, 32)),
               ("higgs-17g", higgs_text(rows, HIGGS_DIM, 32, "%.17g")))
-    row = None
+    out = {}
     for name, text in chunks:
         t = time.perf_counter()
         want = parse_libsvm(text)
         plain_s = time.perf_counter() - t
-        walls = []
-        for _ in range(3):
-            sync(device)
-            t = time.perf_counter()
-            got = native.parse_libsvm_cuda(text, device)
-            walls.append(time.perf_counter() - t)
-        same_arrays(f"[parse] {name}", rowblock_arrays(got),
-                    rowblock_arrays(want))
+        got, walls = _card_walls(lambda: native.parse_libsvm_cuda(text,
+                                                                  device),
+                                 device)
         raw = text.encode()
         buf = native.upload(raw, device)
         n_exact = int(native.parse_libsvm_kernel(buf).stats[native.EXACT])
-        tm = timings(lambda: native.parse_libsvm_kernel(buf), device)
-        nnz = got.nnz
-        nbytes = (len(raw) + 4 * got.size + 8 * (got.size + 1) + 8 * nnz
-                  + (4 * nnz if got.value is not None else 0))
-        b, by = bound_ms(nbytes, 0.0)
-        log(f"[parse] {name}: {len(raw) / 1e6:.3f} MB, {got.size} rows, "
-            f"{nnz} features, values {'kept' if got.value is not None else 'binary'}: "
-            f"kernel ms {tm['ms']}, dev ms {tm['device_ms']}, host us "
-            f"{tm['host_us']}, bound {b:.5f} ms ({by}); the whole call "
-            f"{1e3 * min(walls):.3f} ms (walls {', '.join(f'{1e3 * w:.3f}' for w in walls)}); "
-            f"plain parser {plain_s:.4f} s; exact-path decimals {n_exact} "
-            f"(every token converted on the card); RowBlocks equal byte "
-            f"for byte")
-        if row is None:
-            row = dict(tm, max_abs_err=0.0, plain_ms=1e3 * plain_s,
-                       bound_ms=b, bound_by=by, library_ms=None,
-                       call_ms=1e3 * min(walls), mb=len(raw) / 1e6)
-    return {"parse_libsvm": row}
+        row = parse_chunk_row(
+            name, lambda: native.parse_libsvm_kernel(buf), raw, got, want,
+            plain_s, walls, device, f"; exact-path decimals {n_exact} "
+            f"(every token converted on the card)")
+        out.setdefault("parse_libsvm", row)
+    plain = {}
+    for name, fmt, raw in format_chunks(rows):
+        if fmt == "adfea":
+            kernel = native.parse_adfea_kernel
+        else:
+            def kernel(buf, has_label=fmt == "criteo"):
+                return native.parse_criteo_kernel(buf, has_label)
+        t = time.perf_counter()
+        want = parse_text(raw, fmt)  # the plain parser
+        plain_s = time.perf_counter() - t
+        timed = fmt not in plain and name != "criteo-sweep"
+        plain.setdefault(fmt, plain_s)
+        got, walls = _card_walls(lambda: parse_text(raw, fmt, device),
+                                 device)
+        buf = native.upload(raw, device)
+        row = parse_chunk_row(name, lambda: kernel(buf), raw, got, want,
+                              plain_s if timed else None, walls, device,
+                              f" ({fmt})")
+        key = "parse_adfea" if fmt == "adfea" else "parse_criteo"
+        if key in out:
+            out[key]["chunks"][name] = {
+                k: row[k] for k in ("ms", "device_ms", "host_us", "bound_ms",
+                                    "call_ms", "mb")}
+        else:
+            out[key] = dict(row, chunks={})
+    return out
 
 
 def _median_s(fn, n: int = 3):
@@ -2035,15 +2127,17 @@ def write_e2e_files(directory: str) -> dict:
     return files
 
 
-def run_e2e(device, files: dict) -> dict:
-    """[e2e]: one train pass of each of E2E_APPS from its file, through the
+def run_e2e(device, files: dict, apps=E2E_APPS, fmt: str = "libsvm",
+            rows: int = E2E_BATCHES * MINIBATCH) -> dict:
+    """[e2e]: one train pass of each of `apps` from its file (`files` maps
+    a bucket count to a path of `rows` rows in format `fmt`), through the
     app's main() as a user runs it (num_parts_per_file and
     max_concurrency E2E_PARTS): examples/s of the pass (the file's rows
     over the pass's wall), its wall, ms a step and, where the solver keeps
     it, the loader stall's share of the wall, from the solver's pass line;
     and the whole app call's seconds. Works with an older checkout's apps
-    too (their pass line has no stall). Each record carries the pass's
-    kernel launches."""
+    too (their pass line has no stall; a libsvm pass names no format).
+    Each record carries the pass's kernel launches."""
     import contextlib
     import io
     import re
@@ -2051,22 +2145,23 @@ def run_e2e(device, files: dict) -> dict:
     from wormhole_tpu_torch.apps import difacto, linear
     from wormhole_tpu_torch.ops import _cuda
 
-    apps = {"linear": linear, "difacto": difacto}
-    rows = E2E_BATCHES * MINIBATCH
+    mains = {"linear": linear, "difacto": difacto}
     line = re.compile(r"train pass 0: (\d+) minibatches, avg ([\d.]+)ms/step,"
                       r" wall ([\d.]+)s(?:, loader stall ([\d.]+)s)?")
+    fmt_arg = [] if fmt == "libsvm" else [f"data_format={fmt}"]
     out = {}
-    for name, app, nb, extra in E2E_APPS:
+    for name, app, nb, extra in apps:
         _cuda.reset_launches()
         text = io.StringIO()
         t = time.perf_counter()
         with contextlib.redirect_stdout(text):
-            rc = apps[app].main([
+            rc = mains[app].main([
                 f"train_data={files[nb]}", f"num_buckets={nb}",
                 f"minibatch={MINIBATCH}", f"nnz_per_row={NNZ_PER_ROW}",
                 "lr_eta=0.1", "lambda_l1=1", "max_data_pass=1",
                 f"num_parts_per_file={E2E_PARTS}",
-                f"max_concurrency={E2E_PARTS}", f"device={device}", *extra])
+                f"max_concurrency={E2E_PARTS}", f"device={device}",
+                *fmt_arg, *extra])
         app_s = time.perf_counter() - t
         m = line.search(text.getvalue())
         if rc != 0 or m is None:
@@ -2079,13 +2174,96 @@ def run_e2e(device, files: dict) -> dict:
                "stall_share": None if stall is None else stall / wall,
                "app_s": app_s, "launches": dict(_cuda.LAUNCHES)}
         log(f"[e2e] {name}: {rows} rows in {steps} minibatches from "
-            f"{os.path.basename(files[nb])}: {rec['examples_per_s']:.0f} "
-            f"examples/s, pass wall {wall:.3f} s, {ms:.1f} ms a step, "
-            f"loader stall "
+            f"{os.path.basename(files[nb])} ({fmt}): "
+            f"{rec['examples_per_s']:.0f} examples/s, pass wall "
+            f"{wall:.3f} s, {ms:.1f} ms a step, loader stall "
             + ("not kept" if stall is None else
                f"{stall:.3f} s ({100 * rec['stall_share']:.1f}% of the wall)")
             + f"; app call {app_s:.2f} s")
         out[name] = rec
+    return out
+
+
+# the formats' passes: the apps of E2E_APPS that hash (linear at 2^26,
+# DiFacto), from a Criteo TSV file and from its crb
+FORMAT_APPS = tuple(a for a in E2E_APPS if a[0] != "linear-2^22")
+ADFEA_ROWS = 2 * MINIBATCH  # the adfea pass's file
+
+
+def write_criteo_file(directory: str) -> str:
+    """The formats' passes' Criteo TSV file (data/synth.py
+    synth_criteo_tsv): E2E_BATCHES minibatches of rows, about 243 bytes a
+    row."""
+    from wormhole_tpu_torch.data.synth import synth_criteo_tsv
+
+    path = os.path.join(directory, "e2e-criteo.tsv")
+    with open(path, "wb") as f:
+        f.write(synth_criteo_tsv(np.random.default_rng(63),
+                                 E2E_BATCHES * MINIBATCH))
+    return path
+
+
+def same_batches(device, tsv: str, crb: str) -> int:
+    """Every batch read from the crb file against the batch parsed from
+    the text on the card, one reader each (one part, as one loader reads
+    the file), byte for byte. Returns the batch count."""
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+
+    text = MinibatchIter(tsv, 0, 1, "criteo", minibatch_size=MINIBATCH,
+                         device=device)
+    binary = MinibatchIter(crb, 0, 1, "crb", minibatch_size=MINIBATCH)
+    n = 0
+    for a, b in zip(text, binary, strict=True):
+        same_arrays(f"[e2e] crb batch {n}", rowblock_arrays(b),
+                    rowblock_arrays(a))
+        n += 1
+    return n
+
+
+def run_format_passes(device, tsv: str, data_dir: str) -> dict:
+    """[e2e]'s formats: FORMAT_APPS' passes from the Criteo TSV file
+    (parse_criteo on the card), the convert app writing it as crb on the
+    card (its wall), the same passes from the crb file, every one-reader
+    batch of the crb equal to the text's, and a linear pass at 2^26 from
+    an adfea file (parse_adfea). Records as run_e2e's, under "criteo",
+    "crb" and "adfea", and the convert's under "convert"."""
+    import contextlib
+    import io
+
+    from wormhole_tpu_torch.apps import convert
+    from wormhole_tpu_torch.data.synth import synth_adfea_text
+    from wormhole_tpu_torch.ops import _cuda
+
+    files = {nb: tsv for _, _, nb, _ in FORMAT_APPS}
+    out = {"criteo": run_e2e(device, files, FORMAT_APPS, "criteo")}
+    crb = os.path.join(data_dir, "e2e-criteo.crb")
+    _cuda.reset_launches()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = convert.main([f"data_in={tsv}", "format_in=criteo",
+                           f"data_out={crb}", "format_out=crb",
+                           f"minibatch={MINIBATCH}", f"device={device}"])
+    wall = time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"[e2e] convert returned {rc}")
+    out["convert"] = {"wall_s": wall, "mb_in": os.path.getsize(tsv) / 1e6,
+                      "mb_out": os.path.getsize(crb) / 1e6,
+                      "launches": dict(_cuda.LAUNCHES)}
+    log(f"[e2e] convert: {out['convert']['mb_in']:.1f} MB of Criteo TSV "
+        f"to {out['convert']['mb_out']:.1f} MB of crb on the card in "
+        f"{wall:.3f} s")
+    files = {nb: crb for _, _, nb, _ in FORMAT_APPS}
+    out["crb"] = run_e2e(device, files, FORMAT_APPS, "crb")
+    _cuda.reset_launches()
+    n = same_batches(device, tsv, crb)
+    out["same_batches"] = {"batches": n, "launches": dict(_cuda.LAUNCHES)}
+    log(f"[e2e] crb: {n} batches read from the crb file equal the batches "
+        f"parsed from the text byte for byte (one reader each)")
+    path = os.path.join(data_dir, "e2e-adfea.txt")
+    with open(path, "wb") as f:
+        f.write(synth_adfea_text(np.random.default_rng(64), ADFEA_ROWS))
+    out["adfea"] = run_e2e(device, {FORMAT_APPS[0][2]: path},
+                           FORMAT_APPS[:1], "adfea", rows=ADFEA_ROWS)
     return out
 
 
@@ -2980,8 +3158,10 @@ def learner_steps(device) -> dict:
 
 def kernel_turn(checkout: str, e2e_dir: str) -> int:
     """One turn of a comparison of two checkouts: the kernel phases
-    (phase 1 above, minus level_hist), the learners' step times and the
-    passes from the files in `e2e_dir` (phase 7), with the package of
+    (phase 1 above, minus level_hist, plus the parse chains on [parse]'s
+    chunks), the learners' step times and the passes from the files in
+    `e2e_dir` (phase 7; a checkout that lacks a format skips what needs
+    it, and its JSON line's "skipped" says what), with the package of
     `checkout` on the path, its kernels built from its own csrc/, and,
     where the checkout has the batch learners, [kmeans] (two iterations)
     and [lbfgs]'s criteo-l2 run. Prints one JSON line of every kernel
@@ -3002,12 +3182,40 @@ def kernel_turn(checkout: str, e2e_dir: str) -> int:
     knums.update(fm)
     keep = ("ms", "device_ms", "host_us", "max_abs_err", "bound_ms",
             "floor_ms", "probe")
+    # the parse chains on [parse]'s chunks: libsvm's Criteo keys, and the
+    # Criteo TSV and adfea chunks where the checkout parses them
+    from wormhole_tpu_torch import native
+
+    skipped = []
+    bufs = {"parse_libsvm": (native.parse_libsvm_kernel, criteo_text(
+        COMPACT_BUCKETS, PARSE_ROWS, 31).encode())}
+    if hasattr(native, "parse_criteo_kernel"):
+        chunks = {name: raw for name, _, raw in format_chunks()}
+        bufs["parse_criteo"] = (native.parse_criteo_kernel, chunks["criteo"])
+        bufs["parse_adfea"] = (native.parse_adfea_kernel, chunks["adfea"])
+    else:
+        skipped.append("parse_criteo and parse_adfea: no such kernels")
+    for name, (kernel, raw) in bufs.items():
+        buf = native.upload(raw, device)
+        knums[name] = timings(lambda: kernel(buf), device)
     steps = learner_steps(device)
     files = {nb: os.path.join(e2e_dir, f"e2e-{nb}.libsvm")
              for nb in (COMPACT_BUCKETS, DENSE_BUCKETS)}
-    e2e = {k: {a: v[a] for a in ("examples_per_s", "wall_s", "ms_per_step",
-                                 "stall_share", "app_s")}
+    keep_e2e = ("examples_per_s", "wall_s", "ms_per_step", "stall_share",
+                "app_s")
+    e2e = {k: {a: v[a] for a in keep_e2e}
            for k, v in run_e2e(device, files).items()}
+    # the formats' passes, where the checkout reads Criteo TSV and crb
+    tsv = os.path.join(e2e_dir, "e2e-criteo.tsv")
+    if importlib.util.find_spec("wormhole_tpu_torch.data.crb"):
+        fp = run_format_passes(device, tsv, tempfile.mkdtemp(dir=e2e_dir))
+        for src in ("criteo", "crb", "adfea"):
+            e2e.update({f"{k} {src}": {a: v[a] for a in keep_e2e}
+                        for k, v in fp[src].items()})
+        e2e["convert"] = {"wall_s": fp["convert"]["wall_s"]}
+    else:
+        skipped.append("the formats' passes: the checkout reads no Criteo "
+                       "TSV or crb")
     batch = {}  # a checkout without the batch learners has none
     if importlib.util.find_spec("wormhole_tpu_torch.models.kmeans"):
         km = run_kmeans(device, iters=2)
@@ -3020,7 +3228,8 @@ def kernel_turn(checkout: str, e2e_dir: str) -> int:
             "iter_ms", "eval_ms", "grad_ms", "idle_share")}
     print(json.dumps({"turn": checkout, "kernels": {
         k: {a: v[a] for a in keep if a in v} for k, v in knums.items()},
-        "steps": steps, "e2e": e2e, "batch": batch}), flush=True)
+        "steps": steps, "e2e": e2e, "batch": batch, "skipped": skipped}),
+        flush=True)
     return 0
 
 
@@ -3042,6 +3251,7 @@ def run_turns(other: str) -> int:
     e2e_dir = tempfile.mkdtemp(prefix="wh-e2e-")
     t = time.perf_counter()
     write_e2e_files(e2e_dir)
+    write_criteo_file(e2e_dir)
     log(f"[turns] passes' files written in {time.perf_counter() - t:.1f}s")
     turns = []
     for checkout in (other, ROOT, ROOT, other):
@@ -3068,6 +3278,9 @@ def run_turns(other: str) -> int:
                         for i, (who, g) in enumerate(turns)}
     summary["e2e"] = {f"{who}{i}": g["e2e"]
                       for i, (who, g) in enumerate(turns)}
+    for i, (who, g) in enumerate(turns):
+        for what in g.get("skipped", []):
+            log(f"[turns] {who}{i} skipped {what}")
     shutil.rmtree(e2e_dir)
     log(f"[turns] {smi}: " + json.dumps(summary))
     return 0
@@ -3711,6 +3924,40 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
         {k: {a: v for a, v in r.items() if a != "launches"}
          for k, r in passes.items()}))
 
+    # the formats: Criteo TSV parsed on the card into the hashing apps,
+    # its crb from the convert app, and an adfea pass; their parses make
+    # parse_criteo's and parse_adfea's launch counts
+    t = time.perf_counter()
+    tsv = write_criteo_file(data_dir)
+    log(f"[e2e] Criteo TSV file of {E2E_BATCHES} minibatches, "
+        f"{os.path.getsize(tsv) / 1e6:.1f} MB, written in "
+        f"{time.perf_counter() - t:.1f}s")
+    fp = run_format_passes(device, tsv, data_dir)
+    want = {"linear-2^26": ("tile_gather", "coo_spmv_t", "scatter_update"),
+            "difacto": FM_KERNELS}
+    for src, parse in (("criteo", "parse_criteo"), ("crb", None),
+                       ("adfea", "parse_adfea")):
+        for name, rec in fp[src].items():
+            for k in want[name] + ((parse,) if parse else ()):
+                if rec["launches"][k] == 0:
+                    raise AssertionError(f"[e2e] {name} from {src} launched "
+                                         f"no {k}")
+            if parse:
+                launches[parse] += rec["launches"][parse]
+            elif any(rec["launches"][k] for k in PARSE_KERNELS):
+                raise AssertionError(f"[e2e] {name} from crb parsed text")
+    for src in ("convert", "same_batches"):
+        n = fp[src]["launches"]["parse_criteo"]
+        if n == 0:
+            raise AssertionError(f"[e2e] {src} launched no parse_criteo")
+        launches["parse_criteo"] += n
+    log(f"[e2e] formats {smi}: " + json.dumps(
+        {k: ({a: {b: x for b, x in v.items() if b != "launches"}
+              for a, v in r.items()} if k in ("criteo", "crb", "adfea")
+             else {a: v for a, v in r.items() if a != "launches"})
+         for k, r in fp.items()}))
+    log(f"[phase] formats {time.perf_counter() - t:.1f}s")
+
     # the loader plane: cached passes and Lloyd iterations are the main
     # path's too; a warm one launches no parse_libsvm
     t = time.perf_counter()
@@ -3843,7 +4090,8 @@ def main(argv=None) -> int:
                      "bound_by": k["bound_by"],
                      "library_ms": k["library_ms"]})
         for extra in ("floor_ms", "per_level", "probe", "compact",
-                      "kmeans", "call_ms", "mb", "wrapper", "backend",
+                      "kmeans", "call_ms", "mb", "chunks", "wrapper",
+                      "backend",
                       "launches_per_rank", "ms_per_rank", "collective_ms",
                       "vs_one_device_max_abs_err", "nccl_one_rank"):
             if extra in k:

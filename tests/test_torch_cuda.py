@@ -13,8 +13,8 @@ scalar as a multiply by its reciprocal on CUDA), and the V update is
 also bit-equal to numpy's IEEE f32 steps; level_hist sums with
 float atomics too and holds to the same bar as the pull and push, with
 every cell that no row reaches exactly 0. The host data path on the
-card (the libsvm parse kernel, the pack's sorts and uniques) gives the
-plain routes' bytes exactly.
+card (the libsvm, criteo and adfea parse kernels, the pack's sorts and
+uniques) gives the plain routes' bytes exactly.
 """
 
 import threading
@@ -838,6 +838,173 @@ def test_parse_libsvm_kernel_synthetic_chunk(cuda, values):
     got = native.parse_libsvm_cuda(text, cuda)
     same_block(got, parse_libsvm(text))
     assert got.size == 4096
+
+
+# The criteo and adfea edge corpora. tests/test_torch_formats.py holds the
+# plain parsers against the JAX package's on them, and the card parsers'
+# mirror against the plain parsers; here the card meets the plain parsers.
+# "lone-cr" and "underscore-label" of criteo, "negative-fid",
+# "fid-past-2^64" and "underscores" of adfea are where the JAX package's
+# Python and native C++ parsers disagree: the port follows the Python one.
+CRITEO_EDGE = {
+    "basic": ("1\t5\t\t3\tab12cd34\t\t9f0e1d2c\n"
+              "0\t\t\t\t\t\t\t\t\t\t\t\t\t\t68fd1e64\n"),
+    "spaces-in-fields": " 1 \t a b \t  \tc\n0\t\t x\n",
+    "crlf-and-blank-lines": "\n\n1\t2\r\n   \n\t\t\t\n \t \n0\t3\r\n\r\n",
+    "no-final-newline": "1\t2\t3",
+    "label-only-and-trailing-tab": "1\n0\t\n1\t7\t\n",
+    "past-39-fields": "1\t" + "\t".join(f"f{i}" for i in range(50)) + "\n",
+    "labels": ("0.5\t1\n-1e-3\t2\n+inf\t3\nnan\t4\n1e400\t5\n"
+               "0.1000000000000000055511151231257827021181583404541015625"
+               "\t6\n"),
+    "long-fields": "1\t" + "\t".join("abcdefghijklmnopqrstuvwxyz0123456789"
+                                       [:1 + k % 36] * (1 + k // 9)
+                                       for k in range(39)) + "\n",
+    "lone-cr": "1\t5\r1\t6\n",
+    "underscore-label": "1_0\t5\n",
+}
+# labels of criteo chunks that the plain parser refuses (criteo_test reads
+# no label, so the same chunks parse there)
+CRITEO_ERRORS = {
+    "word-label": "x\t5\n",
+    "empty-label": "1\t2\n\t5\n",
+    "spaces-label": " \t5\n",
+    "inner-space-label": "1 2\t5\n",
+    "lone-cr-splits-a-line": "1\t5\rx\t6\n",
+    "misplaced-underscore": "1__0\t5\n",
+}
+ADFEA_EDGE = {
+    "basic": "0 3 1 5:3 7:1 9\n1 2 -1 11:2 13:5\n",
+    "short-lines": "1 2\n\n1\n0 0 1\n 0 \t 0 \n",
+    "tabs-spaces-crlf": "\t0  2\t1\t 3:4 \t5:6 \r\n1 1 0 5:6\r0 0 1 7:8\n",
+    "labels": ("a b nan 1:1\na b -0.0 1:1\na b 1e-400 1:1\na b inf 1:1\n"
+               "a b 0.5 1:1\na b -2 1:1\na b 1_0 1:1\n"),
+    "gid-wraps": "a b 1 12345:1024 12345:-1 12345:2047 12345:512 0:1023\n",
+    "bare-keys": "a b 1 18446744073709551615 0 +7 -0 0_1\n",
+    "unread-tokens": "x_y ?? 1 3:4\n1:2:3 :: 0 5:6\n",
+    "negative-fid": "a b 1 -5:3 -1024:0 -1025:1\n",
+    "fid-past-2^64": ("a b 1 %d:12345 %d:7 -%d:-5\n"
+                      % (2 ** 70 + 12345, 2 ** 74 + 2048, 10 ** 22 + 7)),
+    "underscores": "a b 1 1_000:3 +1_0:-0_0\n",
+}
+# adfea chunks the plain parser refuses (ValueError, or numpy's
+# OverflowError for a bare key outside [0, 2^64))
+ADFEA_ERRORS = {
+    "word-label": "a b x 1:1\n",
+    "bare-key-2^64": "a b 1 18446744073709551616\n",
+    "negative-bare-key": "a b 1 -5\n",
+    "word-fid": "a b 1 x:1\n",
+    "empty-fid": "a b 1 :1\n",
+    "empty-gid": "a b 1 1:\n",
+    "two-colons": "a b 1 1:2:3\n",
+    "misplaced-underscore": "a b 1 1__0:3\n",
+}
+
+
+def criteo_sweep_text(max_len: int = 300, seed: int = 0) -> str:
+    """criteo_test lines, one a token length 0 to max_len, each holding
+    the token at field 0 and its reverse, with a byte of shift, at field
+    1: every CityHash64 branch, at even and odd offsets."""
+    rng = np.random.default_rng(seed)
+    lines = []
+    for n in range(max_len + 1):
+        tok = bytes(rng.integers(0x20, 0x7F, size=n).astype(np.uint8))
+        tok = tok.decode()
+        lines.append(f"{tok}\t{tok[::-1]}x")
+    return "\n".join(lines) + "\n"
+
+
+# (format, corpus entry) pairs that parse: criteo_test also takes the
+# chunks whose labels criteo refuses
+FORMAT_EDGE = ([(f, n) for f in ("criteo", "criteo_test")
+                for n in sorted(CRITEO_EDGE)]
+               + [("criteo_test", n) for n in sorted(CRITEO_ERRORS)]
+               + [("adfea", n) for n in sorted(ADFEA_EDGE)])
+
+
+def format_text(fmt: str, name: str) -> str:
+    return (ADFEA_EDGE if fmt == "adfea"
+            else {**CRITEO_EDGE, **CRITEO_ERRORS})[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,name", FORMAT_EDGE)
+def test_parse_format_kernels_edge_corpus(cuda, fmt, name):
+    text = format_text(fmt, name)
+    want = parse_text(text, fmt)
+    key = "parse_adfea" if fmt == "adfea" else "parse_criteo"
+    n0 = _cuda.LAUNCHES[key]
+    got = parse_text(text, fmt, cuda)
+    assert _cuda.LAUNCHES[key] == n0 + 1
+    same_block(got, want)
+    same_block(parse_text(text.encode(), fmt, cuda), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,name", [("criteo", n) for n in sorted(CRITEO_ERRORS)]
+                         + [("adfea", n) for n in sorted(ADFEA_ERRORS)])
+def test_parse_format_kernels_raise_where_plain_raises(cuda, fmt, name):
+    text = (CRITEO_ERRORS if fmt == "criteo" else ADFEA_ERRORS)[name]
+    with pytest.raises((ValueError, OverflowError)):
+        parse_text(text, fmt)
+    with pytest.raises(ValueError, match=r"token .* at byte \d+"):
+        parse_text(text, fmt, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["criteo", "criteo_test", "adfea"])
+@pytest.mark.parametrize("byte", [0x0B, 0x0C, 0x1C, 0x7F, 0xC3])
+def test_parse_format_kernels_refuse_bytes_outside_the_alphabet(cuda, fmt,
+                                                                byte):
+    raw = b"1 2 1 3:4\t5\n0 1 0 4" + bytes([byte]) + b"5\t6\n"
+    with pytest.raises(ValueError, match=r"byte 19 "):
+        parse_text(raw, fmt, cuda)
+
+
+@pytest.mark.cuda
+def test_cityhash_on_the_card_every_length(cuda):
+    """Tokens of every length 0 to 300 (all four CityHash64 branches):
+    the card's keys are the plain parser's."""
+    text = criteo_sweep_text()
+    got = parse_text(text, "criteo_test", cuda)
+    same_block(got, parse_text(text, "criteo_test"))
+    assert got.size == 301 and got.nnz == 301 + 301 - 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", ["criteo", "criteo_test", "adfea"])
+def test_parse_format_kernels_synthetic_chunk(cuda, fmt):
+    """4,096 rows of synthetic Criteo TSV or adfea text: the plain
+    parser's bytes; adfea keys at and above 2^63 come back as uint64."""
+    from wormhole_tpu_torch.data.synth import (synth_adfea_text,
+                                               synth_criteo_tsv)
+    rng = np.random.default_rng(4)
+    raw = (synth_adfea_text(rng, 4096) if fmt == "adfea"
+           else synth_criteo_tsv(rng, 4096))
+    got = parse_text(raw, fmt, cuda)
+    same_block(got, parse_text(raw, fmt))
+    assert got.size == 4096
+    if fmt == "adfea":
+        assert int(got.index.max()) >= 1 << 63
+
+
+@pytest.mark.cuda
+def test_convert_on_the_card_matches_the_cpu(cuda, tmp_path):
+    """The convert app parses on the card by default and writes the same
+    crb bytes as with device=cpu; the crb file trains no differently."""
+    from wormhole_tpu_torch.apps import convert
+    from wormhole_tpu_torch.data.synth import synth_criteo_tsv
+
+    src = tmp_path / "day.tsv"
+    src.write_bytes(synth_criteo_tsv(np.random.default_rng(5), 3000))
+    n0 = _cuda.LAUNCHES["parse_criteo"]
+    for dev in ("cuda", "cpu"):
+        assert convert.main([f"data_in={src}", "format_in=criteo",
+                             f"data_out={tmp_path}/{dev}.crb",
+                             "minibatch=1000", f"device={dev}"]) == 0
+    assert _cuda.LAUNCHES["parse_criteo"] > n0
+    assert ((tmp_path / "cuda.crb").read_bytes()
+            == (tmp_path / "cpu.crb").read_bytes())
 
 
 def _pack_inputs(nb, rows=256, nnz=13, seed=1):

@@ -130,3 +130,12 @@ def test_scan_covers_the_mesh():
     for rel in ("parallel/mesh.py", "parallel/collectives.py",
                 "parallel/kvstore.py", "apps/_runner.py"):
         assert PORT / rel in SOURCES
+
+
+def test_scan_covers_the_data_formats():
+    """The hashing, the crb reader and writer and the convert app are
+    among the sources scanned and the modules the probe imports with JAX
+    blocked."""
+    for rel in ("ops/hashing.py", "data/crb.py", "data/synth.py",
+                "apps/convert.py"):
+        assert PORT / rel in SOURCES

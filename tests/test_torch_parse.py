@@ -422,9 +422,11 @@ def test_bytes_outside_the_alphabet_raise_with_their_offset(byte):
 
 
 def test_parse_text_refuses_other_formats():
-    for fmt in ("criteo", "adfea"):
-        for dev in (None, "cpu"):
-            with pytest.raises(ValueError):
+    """An unknown format raises on each device, before any parse (crb is
+    a file format: data/minibatch.py reads it, parse_text does not)."""
+    for fmt in ("svmlight", "crb", ""):
+        for dev in (None, "cpu", "cuda"):
+            with pytest.raises(ValueError, match="unknown data format"):
                 t_parsers.parse_text("1 2\n", fmt, dev)
 
 

@@ -8,6 +8,11 @@ points:
   python -m wormhole_tpu_torch.apps.lbfgs_linear data=... [key=val ...]
                                                           lbfgs linear.dmlc
   python -m wormhole_tpu_torch.apps.lbfgs_fm data=... [key=val ...]   fm.dmlc
+  python -m wormhole_tpu_torch.apps.convert data_in=... data_out=... [key=val ...]
+                                                          convert.dmlc
+
+Every app reads its data through `data_format=` (convert:
+`format_in=`): libsvm, criteo, criteo_test, adfea or crb.
 
 Each reads a `key = value` conf file plus CLI overrides (arg_parser.h
 semantics) and runs single-process on one device (`device=cuda` by

@@ -5,6 +5,7 @@ Parity with reference learn/base/minibatch_iter.h:
 - fixed minibatch size with carry-over across parsed chunks (:75-131)
 - shuffle buffer: accumulate `shuf_buf` rows, random-permute, emit (:83-91)
 - negative downsampling with label-dependent keep probability (:103-107)
+- format dispatch libsvm/criteo/criteo_test/adfea/crb (:42-59)
 
 Given the same seed, it draws the same random numbers in the same order
 as the JAX package's MinibatchIter, so both emit the same batches.
@@ -25,6 +26,13 @@ from wormhole_tpu_torch.data.rowblock import RowBlock
 
 def _iter_rowblocks(filename: str, part: int, num_parts: int,
                     fmt: str, device=None) -> Iterator[RowBlock]:
+    """A part's RowBlocks: crb records read on the host (data/crb.py), or
+    text chunks parsed on `device` (parsers.parse_text)."""
+    if fmt == "crb":
+        from wormhole_tpu_torch.data import crb
+
+        yield from crb.read_crb(filename, part, num_parts)
+        return
     for chunk in parsers.iter_file_chunks(filename, part, num_parts):
         blk = parsers.parse_text(chunk, fmt, device)
         if blk.size:
@@ -57,7 +65,8 @@ class ThreadedParser:
     On CUDA the producer parses on a stream of its own: a thread does not
     inherit its creator's `torch.cuda.stream(...)` context, and the
     default stream is the steps'. The parse syncs that stream before it
-    hands its arrays back (native.parse_libsvm_cuda), so the consumer
+    hands its arrays back (native.parse_libsvm_cuda and the other
+    formats' parse_*_cuda), so the consumer
     reads finished host arrays."""
 
     #: parsed blocks the producer may hold ahead of the consumer

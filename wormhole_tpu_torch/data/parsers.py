@@ -1,8 +1,16 @@
-"""Text parsing: libsvm -> RowBlock, and chunked reading of local files.
+"""Text parsing: libsvm, Criteo CTR, adfea -> RowBlock, and chunked
+reading of local files.
 
-libsvm "label idx:val ..." (dmlc-core LibSVMParser). parse_libsvm is
-the plain parser, the contract of the card's (native.py, csrc/parse.cu).
-The criteo, adfea and crb formats of the JAX package are not ported yet.
+- libsvm "label idx:val ..." (dmlc-core LibSVMParser);
+- criteo: tab-separated, a label then 13 int + 26 categorical fields,
+  each hashed with CityHash64 and field-packed (reference
+  learn/base/criteo_parser.h:38-88); criteo_test has no label;
+- adfea "lineid #feat label fid:gid ..." (learn/base/adfea_parser.h:35-90).
+
+parse_libsvm, parse_criteo and parse_adfea are the plain parsers, copies
+of the JAX package's Python parsers, and the contracts of the card's
+(native.py; csrc/parse.cu for libsvm, csrc/formats.cu for criteo and
+adfea). The crb binary format is data/crb.py.
 """
 
 from __future__ import annotations
@@ -14,6 +22,9 @@ import numpy as np
 
 from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.rowblock import RowBlock
+from wormhole_tpu_torch.ops.hashing import pack_field_key
+
+_M = (1 << 64) - 1
 
 
 def parse_libsvm(text: str) -> RowBlock:
@@ -50,20 +61,95 @@ def parse_libsvm(text: str) -> RowBlock:
     )
 
 
+def parse_criteo(text: str, has_label: bool = True) -> RowBlock:
+    """Criteo CTR lines: label \\t I1..I13 \\t C1..C26 (train) or no label
+    (test). The raw token text is hashed and the field id packed into the
+    top 10 bits (criteo_parser.h:69-82). Missing fields are skipped but
+    keep their field number; fields past the 39th are ignored. All
+    features are binary (value 1)."""
+    labels: list[float] = []
+    offsets: list[int] = [0]
+    idx: list[int] = []
+    for line in text.splitlines():
+        if not line.strip():
+            continue
+        toks = line.rstrip("\n").split("\t")
+        pos = 0
+        if has_label:
+            labels.append(float(toks[0]))
+            pos = 1
+        else:
+            labels.append(0.0)
+        for field, tok in enumerate(toks[pos:]):
+            if field >= 39:
+                break
+            if tok == "":
+                continue
+            idx.append(pack_field_key(tok, field))
+        offsets.append(len(idx))
+    return RowBlock(
+        label=np.asarray(labels, dtype=np.float32),
+        offset=np.asarray(offsets, dtype=np.int64),
+        index=np.asarray(idx, dtype=np.uint64),
+        value=None,
+    )
+
+
+def parse_adfea(text: str) -> RowBlock:
+    """adfea: "lineid num_features label fid:gid fid:gid ...". The group id
+    is packed into the top 10 bits like criteo (adfea_parser.h:56-64);
+    labels are 0/1 like the other parsers (adfea_parser.h emits 0/1)."""
+    labels: list[float] = []
+    offsets: list[int] = [0]
+    idx: list[int] = []
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) < 3:
+            continue
+        labels.append(1.0 if float(parts[2]) > 0 else 0.0)
+        for tok in parts[3:]:
+            if ":" in tok:
+                fid, gid = tok.split(":", 1)
+                key = ((int(fid) >> 10) | ((int(gid) & 0x3FF) << 54)) & _M
+            else:
+                key = int(tok)
+            idx.append(key)
+        offsets.append(len(idx))
+    return RowBlock(
+        label=np.asarray(labels, dtype=np.float32),
+        offset=np.asarray(offsets, dtype=np.int64),
+        index=np.asarray(idx, dtype=np.uint64),
+        value=None,
+    )
+
+
+_PARSERS = {
+    "libsvm": parse_libsvm,
+    "criteo": lambda t: parse_criteo(t, has_label=True),
+    "criteo_test": lambda t: parse_criteo(t, has_label=False),
+    "adfea": parse_adfea,
+}
+
+
 def parse_text(text, fmt: str, device=None) -> RowBlock:
-    """Parse a chunk (str or bytes) in the given format (libsvm only so
-    far) on `device`: parse_libsvm on the CPU (None or "cpu"), the card's
-    parser (csrc/parse.cu, native.parse_libsvm_cuda) on CUDA. The
-    learners pass their own device."""
-    if fmt != "libsvm":
-        raise ValueError(f"unsupported data format: {fmt!r} (the port "
-                         f"reads libsvm)")
+    """Parse a chunk (str or bytes) in format `fmt` (libsvm, criteo,
+    criteo_test or adfea) on `device`: the plain parser on the CPU (None
+    or "cpu"), the card's parser on CUDA (native.parse_libsvm_cuda,
+    parse_criteo_cuda, parse_adfea_cuda). The learners pass their own
+    device. ValueError for any other format."""
+    if fmt not in _PARSERS:
+        raise ValueError(f"unknown data format: {fmt!r} (the port reads "
+                         f"{', '.join(_PARSERS)} and crb)")
     dev = native.as_device(device)
     if dev.type == "cpu":
         if not isinstance(text, str):
             text = bytes(text).decode("utf-8", errors="replace")
-        return parse_libsvm(text)
-    return native.parse_libsvm_cuda(text, dev)
+        return _PARSERS[fmt](text)
+    if fmt == "libsvm":
+        return native.parse_libsvm_cuda(text, dev)
+    if fmt == "adfea":
+        return native.parse_adfea_cuda(text, dev)
+    return native.parse_criteo_cuda(text, dev, has_label=fmt == "criteo")
 
 
 def iter_file_chunks(

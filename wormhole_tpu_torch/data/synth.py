@@ -1,5 +1,7 @@
 """Synthetic workloads of the repo bench: Criteo-shaped minibatches, and
-HIGGS-shaped dense rows for the GBDT learner (synth_higgs, below).
+HIGGS-shaped dense rows for the GBDT learner (synth_higgs, below); and
+text in the Criteo TSV and adfea formats (synth_criteo_tsv,
+synth_adfea_text) for the parsers.
 
 Rows carry 39 features (13 integer + 26 categorical, criteo_parser.h:
 55-82) drawn Zipf(1.2) within each field over per-field cardinalities
@@ -53,3 +55,82 @@ def synth_higgs(rng, rows: int, dim: int = 28):
     X = rng.standard_normal((rows, dim)).astype(np.float32)
     y = X[:, :4].sum(axis=1) + 0.5 * rng.standard_normal(rows) > 0
     return X, y.astype(np.float32)
+
+
+def _mix(x):
+    """A 64-bit mix of uint64 values (wraps by design)."""
+    with np.errstate(over="ignore"):
+        x = x ^ (x >> np.uint64(30))
+        x = x * np.uint64(0xBF58476D1CE4E5B9)
+        return x ^ (x >> np.uint64(27))
+
+
+_HEX = np.frombuffer(b"0123456789abcdef", np.uint8)
+EMPTY_INT = 0.2  # share of empty integer fields in synth_criteo_tsv
+EMPTY_CAT = 0.1  # share of empty categorical fields
+ADFEA_FEATS = 10  # fid:gid tokens a synth_adfea_text line
+
+
+def synth_criteo_tsv(rng, rows: int) -> bytes:
+    """`rows` lines of Criteo TSV (criteo_parser.h's input): a 0/1 label
+    (30% positive), 13 integer fields and 26 categorical fields of 8 hex
+    digits, tab-separated. Each field draws Zipf(1.2) over its
+    FIELD_CARDS cardinality (integers below 10^6; categories field-salted
+    and mixed to 32 bits); a field is empty with probability EMPTY_INT
+    or EMPTY_CAT. About 243 bytes a line. Built as a byte matrix with 0
+    as padding, which no line holds."""
+    n_int, n_cat = 13, 26
+    width = 2 + n_int * 7 + n_cat * 9 + 1
+    mat = np.zeros((rows, width), np.uint8)
+    mat[:, 0] = np.where(rng.random(rows) < 0.3, ord("1"), ord("0"))
+    col = 1
+    for f, card in enumerate(FIELD_CARDS):
+        mat[:, col] = ord("\t")
+        col += 1
+        draw = rng.zipf(1.2, size=rows).astype(np.uint64) % np.uint64(card)
+        if f < n_int:
+            v = np.minimum(draw, 999_999).astype(np.int64)
+            digits = np.zeros((rows, 6), np.uint8)
+            for k in range(6):  # right-aligned, leading zeros left out
+                d = (v // 10 ** (5 - k)) % 10
+                keep = (v >= 10 ** (5 - k)) | (k == 5)
+                digits[:, k] = np.where(keep, ord("0") + d, 0)
+            digits[rng.random(rows) < EMPTY_INT] = 0
+            mat[:, col:col + 6] = digits
+            col += 6
+        else:
+            with np.errstate(over="ignore"):
+                x = _mix(draw + np.uint64(f) * np.uint64(0x9E3779B97F4A7C15))
+            x = (x & np.uint64(0xFFFFFFFF)).astype(np.int64)
+            digits = _HEX[(x[:, None] >> (4 * np.arange(7, -1, -1))) & 15]
+            digits[rng.random(rows) < EMPTY_CAT] = 0
+            mat[:, col:col + 8] = digits
+            col += 8
+    mat[:, col] = ord("\n")
+    return mat[mat != 0].tobytes()
+
+
+def synth_adfea_text(rng, rows: int) -> bytes:
+    """`rows` adfea lines ("lineid num_features label fid:gid ..."):
+    labels -1/1, ADFEA_FEATS fid:gid tokens a line with gids over 0-1023 and
+    fids drawn Zipf(1.2) and mixed to 64 bits, one in eight of them
+    negative and one in eight widened to 22 digits (the key takes fid mod
+    2^74), and a bare key every fifth line."""
+    lines, feats = [], ADFEA_FEATS
+    fid = _mix(rng.zipf(1.2, size=(rows, feats)).astype(np.uint64))
+    gid = rng.integers(0, 1024, size=(rows, feats))
+    kind = rng.integers(0, 8, size=(rows, feats))
+    label = np.where(rng.random(rows) < 0.3, 1, -1)
+    for r in range(rows):
+        toks = [str(r), str(feats), str(label[r])]
+        for j in range(feats):
+            v = int(fid[r, j])
+            if kind[r, j] == 0:
+                v = -v
+            elif kind[r, j] == 1:
+                v = v * 10 ** 3 + 123  # 22 or 23 digits
+            toks.append(f"{v}:{gid[r, j]}")
+        if r % 5 == 0:
+            toks.append(str(int(fid[r, 0])))
+        lines.append(" ".join(toks))
+    return ("\n".join(lines) + "\n").encode()

@@ -1,17 +1,20 @@
-"""The host data path's core: libsvm parsing, and the pack's stable sorts,
-gathers and uniques, on the device the caller names.
+"""The host data path's core: text parsing (libsvm, criteo, criteo_test,
+adfea), and the pack's stable sorts, gathers and uniques, on the device
+the caller names.
 
 The port's counterpart of the JAX package's native core
 (wormhole_tpu/native/__init__.py: parse_text, radix_argsort, gather, and
 the uniques its pack takes from numpy). It is not a copy of that C++:
 - on the CPU (``device`` None or ``"cpu"``) each function is the plain
-  route the port had: the Python parser (data/parsers.py parse_libsvm,
-  which data/parsers.py parse_text calls there), numpy's stable argsort,
-  fancy indexing and np.unique;
-- on CUDA the parse is the hand-written kernel chain of csrc/parse.cu
-  (``parse_libsvm_kernel``), which converts every token itself, and the
-  sorts and uniques are ``torch.sort(stable=True)`` and ``torch.unique``
-  on the card (the native core's sort.cc is host C++, not a TPU kernel).
+  route the port had: the Python parsers (data/parsers.py parse_libsvm,
+  parse_criteo, parse_adfea, which data/parsers.py parse_text calls
+  there), numpy's stable argsort, fancy indexing and np.unique;
+- on CUDA the parse is a hand-written kernel chain: csrc/parse.cu for
+  libsvm (``parse_libsvm_kernel``), csrc/formats.cu for criteo and adfea
+  (``parse_criteo_kernel``, ``parse_adfea_kernel``, CityHash64 on the
+  card); each converts every token itself. The sorts and uniques are
+  ``torch.sort(stable=True)`` and ``torch.unique`` on the card (the
+  native core's sort.cc is host C++, not a TPU kernel).
 Both routes give the same bytes. Nothing changes route on its own: a CUDA
 error propagates, and no call retries on the host.
 
@@ -19,16 +22,20 @@ The torch route of the sorts (``torch_unique``, ``torch_sort_by_key``)
 runs on any device, so the CPU tests hold it against numpy. It takes keys
 that are non-negative and below 2^63 and computes on them as int64 (torch
 sorts uint64 on CUDA only in part); it raises ValueError on any other
-key. The port's pack keys are bucket ids.
+key. The port's pack keys are bucket ids; raw adfea keys reach 2^63 and
+above and never come here (data/rowblock.py bucketize takes them in
+numpy's uint64).
 
-The card's parser takes bytes in printable ASCII, space, tab, CR and LF
-only, and raises ValueError naming the offset of any other byte. The
-plain parser follows Python's str.splitlines() and str.split(), which
+The card's parsers take bytes in printable ASCII, space, tab, CR and LF
+only, and raise ValueError naming the offset of any other byte. The
+plain parsers follow Python's str.splitlines() and str.split(), which
 treat some of those bytes ('\\v', '\\f', '\\x1c'-'\\x1e', non-ASCII
 whitespace) as separators; the native C++ parser follows C isspace(). The
 card follows neither on such input. Where the plain parser refuses a
 token (float() or int() rejects it, or a key lies outside uint64), the
-card's raises ValueError naming the token.
+card's raises ValueError naming the token. Where the JAX package's two
+parsers (Python and native C++) disagree on edge input, the card follows
+the Python parser.
 """
 
 from __future__ import annotations
@@ -43,7 +50,7 @@ from wormhole_tpu_torch.ops import _cuda
 
 _KEY_LIMIT = 1 << 63
 _MAX_CHUNK = 1 << 30          # bytes a parse call takes (csrc/parse.cu)
-# csrc/parse.cu stats[] slots
+# the parse kernels' stats[] slots
 _ERR, _NE1, _BAD, _TOKENS, _LINES, _ROWS, _FEATS, EXACT = range(8)
 
 
@@ -55,74 +62,137 @@ def as_device(device) -> torch.device:
 # ------------------------------------------------------------------ parse
 @dataclasses.dataclass
 class ParsedChunk:
-    """parse_libsvm_kernel's device arrays, sized by bounds from the byte
-    count; ``stats`` holds the counts that cut them, and ``stats[EXACT]``
-    the decimals converted by the exact path (csrc/parse.cu)."""
+    """A parse kernel chain's device arrays (csrc/parse.cu for libsvm,
+    csrc/formats.cu for criteo, criteo_test and adfea), sized by bounds
+    from the byte count; ``stats`` holds the counts that cut them and
+    ``stats[EXACT]`` the decimals converted by the exact path;
+    ``scratch`` holds the arrays that place a refused token."""
 
+    fmt: str
     stats: torch.Tensor    # (8,) int32
     label: torch.Tensor    # (tmax,) f32
     offset: torch.Tensor   # (tmax + 1,) int64
     index: torch.Tensor    # (tmax,) int64, uint64 bits
-    value: torch.Tensor    # (tmax,) f32
-    start: torch.Tensor    # (tmax,) int32 token starts
-    length: torch.Tensor   # (tmax,) int32 token lengths
-    bad: torch.Tensor      # (tmax,) uint8: the plain parser refuses it
+    value: torch.Tensor | None  # (tmax,) f32; libsvm only
+    scratch: dict
 
 
-# csrc/parse.cu's scratch, in wh_parse_libsvm's order: (name, dtype, size
-# in bytes (n) or in tokens (t))
-_SCRATCH = (("tpos", torch.int32, "n"), ("start", torch.int32, "t"),
-            ("len", torch.int32, "t"), ("lno", torch.int32, "t"),
-            ("rowc", torch.int32, "t"), ("fcum", torch.int32, "t"),
-            ("tflag", torch.uint8, "n"), ("head", torch.uint8, "t"),
-            ("keep", torch.uint8, "t"), ("isfeat", torch.uint8, "t"),
-            ("bad", torch.uint8, "t"))
+# Each chain's scratch, in its C entry point's order: (name, dtype, size
+# in bytes (n) or in tokens or cells (t)).
+_LIBSVM_SCRATCH = (("tpos", torch.int32, "n"), ("start", torch.int32, "t"),
+                   ("len", torch.int32, "t"), ("lno", torch.int32, "t"),
+                   ("rowc", torch.int32, "t"), ("fcum", torch.int32, "t"),
+                   ("tflag", torch.uint8, "n"), ("head", torch.uint8, "t"),
+                   ("keep", torch.uint8, "t"), ("isfeat", torch.uint8, "t"),
+                   ("bad", torch.uint8, "t"))
+_CRITEO_SCRATCH = (("spos", torch.int32, "n"), ("sflag", torch.uint8, "n"),
+                   ("cend", torch.int32, "t"), ("head", torch.uint8, "t"),
+                   ("lno", torch.int32, "t"),
+                   ("lfirst", torch.int32, "t"), ("keep", torch.uint8, "t"),
+                   ("rowc", torch.int32, "t"), ("isfeat", torch.uint8, "t"),
+                   ("fcum", torch.int32, "t"), ("bad", torch.uint8, "t"))
+_ADFEA_SCRATCH = (("tpos", torch.int32, "n"), ("tflag", torch.uint8, "n"),
+                  ("start", torch.int32, "t"), ("len", torch.int32, "t"),
+                  ("head", torch.uint8, "t"), ("lno", torch.int32, "t"),
+                  ("keep", torch.uint8, "t"), ("rowc", torch.int32, "t"),
+                  ("isfeat", torch.uint8, "t"), ("fcum", torch.int32, "t"),
+                  ("bad", torch.uint8, "t"))
+# what a refused token is not, by format
+_REFUSED = {
+    "libsvm": "a label or value float() reads, nor a key int() reads in "
+              "[0, 2^64)",
+    "criteo": "a label float() reads",
+    "criteo_test": "a label float() reads",
+    "adfea": "a label float() reads, nor a key: fid:gid of int()s, or an "
+             "int() in [0, 2^64)",
+}
+
+
+def check_chunk(buf: torch.Tensor, what: str) -> int:
+    """A parse kernel's chunk: a contiguous 1-D uint8 CUDA tensor of 1 to
+    2^30 - 1 bytes. Returns its length; ValueError otherwise."""
+    if not buf.is_cuda:
+        raise ValueError(f"{what}: buf must be a CUDA tensor (parse_text "
+                         f"runs the plain parser on the CPU)")
+    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
+        raise ValueError(f"{what}: buf must be a contiguous 1-D uint8 "
+                         f"tensor")
+    n = buf.numel()
+    if not 0 < n < _MAX_CHUNK:
+        raise ValueError(f"{what}: {n} bytes; a chunk holds 1 to "
+                         f"{_MAX_CHUNK - 1}")
+    return n
+
+
+def _run_chain(buf, fmt: str, lib: str, entry: str, lead: tuple, spec,
+               tokens, stages, with_value: bool = False) -> ParsedChunk:
+    """Allocate a chain's arrays for buf (`tokens(n)` entries where the
+    spec says t), then run `stages` on the current stream with no host
+    sync: a stage number launches entry(stage, *lead, buf, n, scratch...,
+    label, offset, index, [value,] stats, stream), a (src, dst) pair
+    scans src into dst (torch.cumsum)."""
+    n = check_chunk(buf, f"parse_{fmt}_kernel")
+    tmax = tokens(n)
+    dev = buf.device
+    s = {name: torch.empty(n if size == "n" else tmax, dtype=dt, device=dev)
+         for name, dt, size in spec}
+    label = torch.empty(tmax, dtype=torch.float32, device=dev)
+    offset = torch.empty(tmax + 1, dtype=torch.int64, device=dev)
+    index = torch.empty(tmax, dtype=torch.int64, device=dev)
+    value = (torch.empty(tmax, dtype=torch.float32, device=dev)
+             if with_value else None)
+    stats = torch.empty(8, dtype=torch.int32, device=dev)
+    fn, st = getattr(_cuda.lib(lib), entry), _cuda.stream(buf)
+    outs = [t for t in (label, offset, index, value, stats) if t is not None]
+    ptrs = [buf.data_ptr(), n] + [s[name].data_ptr() for name, _, _ in
+                                  spec] + [t.data_ptr() for t in outs]
+    for k in stages:
+        if isinstance(k, tuple):
+            torch.cumsum(s[k[0]], 0, dtype=torch.int32, out=s[k[1]])
+        else:
+            _cuda.check(lib, fn(k, *lead, *ptrs, st), f"{entry} stage {k}")
+    return ParsedChunk(fmt, stats, label, offset, index, value, s)
 
 
 def parse_libsvm_kernel(buf: torch.Tensor) -> ParsedChunk:
     """Run csrc/parse.cu over a chunk's bytes on the card: five kernels
     with torch.cumsum scans between them, on the current stream, with no
     host sync. buf: (n,) uint8 CUDA tensor, 0 < n < 2^30."""
-    if not buf.is_cuda:
-        raise ValueError("parse_libsvm_kernel: buf must be a CUDA tensor "
-                         "(parse_text runs the plain parser on the CPU)")
-    if buf.dtype != torch.uint8 or buf.dim() != 1 or not buf.is_contiguous():
-        raise ValueError("parse_libsvm_kernel: buf must be a contiguous 1-D "
-                         "uint8 tensor")
-    n = buf.numel()
-    if not 0 < n < _MAX_CHUNK:
-        raise ValueError(f"parse_libsvm_kernel: {n} bytes; a chunk holds 1 "
-                         f"to {_MAX_CHUNK - 1}")
-    tmax = (n + 1) // 2
-    dev = buf.device
-    s = {name: torch.empty(n if size == "n" else tmax, dtype=dt, device=dev)
-         for name, dt, size in _SCRATCH}
-    label = torch.empty(tmax, dtype=torch.float32, device=dev)
-    offset = torch.empty(tmax + 1, dtype=torch.int64, device=dev)
-    index = torch.empty(tmax, dtype=torch.int64, device=dev)
-    value = torch.empty(tmax, dtype=torch.float32, device=dev)
-    stats = torch.empty(8, dtype=torch.int32, device=dev)
-    lib, st = _cuda.lib("parse"), _cuda.stream(buf)
-    ptrs = [buf.data_ptr(), n] + [s[name].data_ptr() for name, _, _ in
-                                  _SCRATCH] + [
-        t.data_ptr() for t in (label, offset, index, value, stats)]
-
-    def stage(k: int) -> None:
-        _cuda.check("parse", lib.wh_parse_libsvm(k, *ptrs, st),
-                    f"parse_libsvm stage {k}")
-
-    stage(0)
-    torch.cumsum(s["tflag"], 0, dtype=torch.int32, out=s["tpos"])
-    stage(1)
-    torch.cumsum(s["head"], 0, dtype=torch.int32, out=s["lno"])
-    stage(2)
-    torch.cumsum(s["keep"], 0, dtype=torch.int32, out=s["rowc"])
-    stage(3)
-    torch.cumsum(s["isfeat"], 0, dtype=torch.int32, out=s["fcum"])
-    stage(4)
+    p = _run_chain(buf, "libsvm", "parse", "wh_parse_libsvm", (),
+                   _LIBSVM_SCRATCH, lambda n: (n + 1) // 2,
+                   (0, ("tflag", "tpos"), 1, ("head", "lno"), 2,
+                    ("keep", "rowc"), 3, ("isfeat", "fcum"), 4),
+                   with_value=True)
     _cuda.count("parse_libsvm")
-    return ParsedChunk(stats, label, offset, index, value, s["start"],
-                       s["len"], s["bad"])
+    return p
+
+
+def parse_criteo_kernel(buf: torch.Tensor,
+                        has_label: bool = True) -> ParsedChunk:
+    """Run csrc/formats.cu's criteo chain over a chunk's bytes on the
+    card: five kernels with torch.cumsum scans between them, on the
+    current stream, with no host sync. buf: (n,) uint8 CUDA tensor,
+    0 < n < 2^30. has_label False is criteo_test."""
+    p = _run_chain(buf, "criteo" if has_label else "criteo_test", "formats",
+                   "wh_parse_criteo", (int(has_label),), _CRITEO_SCRATCH,
+                   lambda n: n + 1,
+                   (0, ("sflag", "spos"), 1, ("head", "lno"), 2,
+                    ("keep", "rowc"), 3, ("isfeat", "fcum"), 4))
+    _cuda.count("parse_criteo")
+    return p
+
+
+def parse_adfea_kernel(buf: torch.Tensor) -> ParsedChunk:
+    """Run csrc/formats.cu's adfea chain over a chunk's bytes on the card:
+    four kernels with torch.cumsum scans between them, on the current
+    stream, with no host sync. buf: (n,) uint8 CUDA tensor, 0 < n <
+    2^30."""
+    p = _run_chain(buf, "adfea", "formats", "wh_parse_adfea", (),
+                   _ADFEA_SCRATCH, lambda n: (n + 1) // 2,
+                   (0, ("tflag", "tpos"), 1, ("head", "lno"), 2,
+                    ("keep", "rowc"), ("isfeat", "fcum"), 3))
+    _cuda.count("parse_adfea")
+    return p
 
 
 def upload(raw: bytes, device) -> torch.Tensor:
@@ -132,15 +202,13 @@ def upload(raw: bytes, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
-def parse_libsvm_cuda(data, device) -> RowBlock:
-    """Parse a libsvm chunk (str or bytes) on the card: the bytes go over
-    once, csrc/parse.cu parses them, the arrays come back to the host."""
-    raw = data.encode() if isinstance(data, str) else bytes(data)
-    if not raw:
-        return RowBlock(label=np.zeros(0, np.float32),
-                        offset=np.zeros(1, np.int64),
-                        index=np.zeros(0, np.uint64), value=None)
-    return finish_parse(parse_libsvm_kernel(upload(raw, device)), raw)
+def _token_span(p: ParsedChunk, k: int) -> tuple[int, int]:
+    """Byte range of token (libsvm, adfea) or cell (criteo) k."""
+    s = p.scratch
+    if p.fmt in ("criteo", "criteo_test"):
+        return (int(s["cend"][k - 1]) + 1 if k else 0), int(s["cend"][k])
+    beg = int(s["start"][k])
+    return beg, beg + int(s["len"][k])
 
 
 def finish_parse(p: ParsedChunk, raw: bytes) -> RowBlock:
@@ -151,22 +219,50 @@ def finish_parse(p: ParsedChunk, raw: bytes) -> RowBlock:
     err = int(st.view(np.uint32)[_ERR])
     if err != 0xFFFFFFFF:
         raise ValueError(
-            f"libsvm chunk: byte {err} ({raw[err]:#04x}) is outside "
+            f"{p.fmt} chunk: byte {err} ({raw[err]:#04x}) is outside "
             f"printable ASCII, space, tab, CR and LF, which the card's "
             f"parser does not take")
     if st[_BAD]:
-        t = int(torch.nonzero(p.bad[:int(st[_TOKENS])])[0])
-        s, n = int(p.start[t]), int(p.length[t])
+        k = int(torch.nonzero(p.scratch["bad"][:int(st[_TOKENS])])[0])
+        beg, end = _token_span(p, k)
         raise ValueError(
-            f"libsvm chunk: token {raw[s:s + n].decode()!r} at byte {s} is "
-            f"not a label or value float() reads, nor a key int() reads "
-            f"in [0, 2^64) ({int(st[_BAD])} such tokens)")
+            f"{p.fmt} chunk: token {raw[beg:end].decode()!r} at byte {beg} "
+            f"is not {_REFUSED[p.fmt]} ({int(st[_BAD])} such tokens)")
     rows, feats = int(st[_ROWS]), int(st[_FEATS])
     return RowBlock(
         label=p.label[:rows].cpu().numpy(),
         offset=p.offset[:rows + 1].cpu().numpy(),
         index=p.index[:feats].cpu().numpy().view(np.uint64),
-        value=p.value[:feats].cpu().numpy() if st[_NE1] else None)
+        value=(p.value[:feats].cpu().numpy()
+               if p.value is not None and st[_NE1] else None))
+
+
+def _parse_cuda(data, device, kernel) -> RowBlock:
+    """The bytes of a chunk (str or bytes) over to the card once, parsed
+    there by `kernel`, the arrays back to the host."""
+    raw = data.encode() if isinstance(data, str) else bytes(data)
+    if not raw:
+        return RowBlock(label=np.zeros(0, np.float32),
+                        offset=np.zeros(1, np.int64),
+                        index=np.zeros(0, np.uint64), value=None)
+    return finish_parse(kernel(upload(raw, device)), raw)
+
+
+def parse_libsvm_cuda(data, device) -> RowBlock:
+    """Parse a libsvm chunk on the card (csrc/parse.cu)."""
+    return _parse_cuda(data, device, parse_libsvm_kernel)
+
+
+def parse_criteo_cuda(data, device, has_label: bool = True) -> RowBlock:
+    """Parse a criteo (has_label) or criteo_test chunk on the card
+    (csrc/formats.cu, CityHash64 on the card)."""
+    return _parse_cuda(data, device,
+                       lambda buf: parse_criteo_kernel(buf, has_label))
+
+
+def parse_adfea_cuda(data, device) -> RowBlock:
+    """Parse an adfea chunk on the card (csrc/formats.cu)."""
+    return _parse_cuda(data, device, parse_adfea_kernel)
 
 
 # ------------------------------------------------- sorts, gathers, uniques

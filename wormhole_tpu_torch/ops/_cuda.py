@@ -31,7 +31,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "wormhole_tpu_torch"
-SOURCES = ("coo_kernels", "fused_update", "hist", "parse")
+SOURCES = ("coo_kernels", "fused_update", "hist", "parse", "formats")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -39,6 +39,7 @@ LAUNCHES = {"coo_spmv": 0, "coo_spmv_t": 0, "tile_gather": 0,
             "scatter_update": 0, "row_tile_gather": 0,
             "fm_push_contrib": 0, "v_scatter_update": 0,
             "level_partition": 0, "level_hist": 0, "parse_libsvm": 0,
+            "parse_criteo": 0, "parse_adfea": 0,
             "mesh_coo_spmv": 0, "mesh_coo_spmv_t": 0, "mesh_level_hist": 0}
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
@@ -67,11 +68,16 @@ _SIGNATURES = {
     "parse": {
         "wh_parse_libsvm": [_I, _P, _I64] + [_P] * 17,
     },
+    "formats": {
+        "wh_parse_criteo": [_I, _I, _P, _I64] + [_P] * 16,
+        "wh_parse_adfea": [_I, _P, _I64] + [_P] * 16,
+    },
 }
 _ERROR_STRING = {"coo_kernels": "wh_coo_error_string",
                  "fused_update": "wh_fused_error_string",
                  "hist": "wh_hist_error_string",
-                 "parse": "wh_parse_error_string"}
+                 "parse": "wh_parse_error_string",
+                 "formats": "wh_formats_error_string"}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -98,7 +104,10 @@ def _nvcc() -> str:
 
 
 def lib_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    """The library of one source, named by a hash of the source, the
+    headers of csrc/ it may include and the flags."""
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 
