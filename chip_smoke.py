@@ -143,7 +143,26 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    the 2x2 products against coo_spmv and coo_spmv_t on one device. Then a
    one-rank NCCL mesh on cuda:0 runs mesh_coo_spmv and mesh_coo_spmv_t
    through NCCL's all_reduce against kernels 1 and 2: the NCCL route
-   starts; several cards are not checked.
+   starts; several cards are not checked;
+12. the serving tier ([serve], after the apps; bench.py bench_serve's
+   operating point): the linear learner trained on the card at 2^26
+   buckets, its w (256 MB, uncompressed) written as a snapshot set of 2
+   shards, ModelServers in this process, and Routers whose scorers take
+   their default device, the card. 64 fixed predict batches (1,000 rows
+   of 32-64 nonzeros, N(0, 1) values, ids the trainer saw) through fetch
+   and score mode are held against the trainer's predict_batch (rtol
+   1e-5, atol 1e-4), and score mode against a CPU scorer's fetch mode
+   bit for bit; then each mode runs closed loop for 8 s (fetch at
+   concurrency 4, score at 32) while a new version, w * 2^k, is written
+   every 2 s: qps, p50/p99/p999 ms, swaps and their stall, and the p50
+   and mean of each serve.stage.* histogram with the share of the
+   request they explain; every response must be 2^k times its batch's
+   first scores for the k of the version it carries (score mode
+   exactly), so a response mixed from two versions fails the phase, as
+   does a failed request or a window without a swap. Then DiFacto
+   (trained at the bench's width) from 3 shards, 64 batches in each
+   mode against its predict_batch. The tier launches no kernel; its
+   trainers' launches count with the main paths'.
 
 The launches of parse_libsvm over the apps, the passes, the k-means run,
 the L-BFGS apps and [cache] make its launch count; parse_criteo's are
@@ -3864,6 +3883,388 @@ def run_mesh(device, higgs, data_dir: str, minibatch=MINIBATCH,
     return {"rows": rows, "linear_z_n": diffs, "gbdt_differing": differing}
 
 
+# ------------------------------------------------------------- [serve]
+SERVE_MINIBATCH = 1000  # bench.py bench_serve's rows a predict batch
+SERVE_NNZ = 64          # nonzeros a row: nnz/2..nnz (tools/serve_lab.py)
+SERVE_SHARDS = 2        # linear: the bench's 2 shards of 2^26 buckets
+FM_SERVE_SHARDS = 3
+SERVE_SECONDS = 8.0     # each closed-loop window
+SERVE_SWAP_S = 2.0      # a new snapshot version this often in a window
+SERVE_CHECKS = 64       # fixed requests held outside the windows
+SERVE_POOL = 8          # of them, the ones the windows send round robin
+SERVE_MODES = (("fetch", 4), ("score", 32))  # mode, concurrency
+SERVE_TOL = dict(rtol=1e-5, atol=1e-4)  # the kernels' bar
+SERVE_STAGES = ("batch_wait", "pack", "fanout", "wire", "queue",
+                "partial", "score", "sum")
+# the stages a request's latency is the sum of (the JAX package's
+# obs/report.py); wire, queue and partial lie inside fanout
+SERVE_PIPELINE = ("batch_wait", "pack", "fanout", "sum", "score")
+
+
+def serve_blocks(rng, keys, n: int, minibatch: int, nnz: int) -> list:
+    """n predict batches of `minibatch` rows of nnz/2..nnz nonzeros with
+    N(0, 1) values (tools/serve_lab.py's shape), their ids drawn from
+    `keys`: the ids the trainer saw, so the margins read trained
+    weights."""
+    from wormhole_tpu_torch.data.rowblock import RowBlock
+
+    out = []
+    for _ in range(n):
+        counts = rng.integers(nnz // 2, nnz + 1, size=minibatch)
+        offset = np.zeros(minibatch + 1, np.int64)
+        offset[1:] = np.cumsum(counts)
+        out.append(RowBlock(
+            label=np.zeros(minibatch, np.float32), offset=offset,
+            index=rng.choice(keys, size=int(offset[-1])).astype(np.uint64),
+            value=rng.normal(size=int(offset[-1])).astype(np.float32)))
+    return out
+
+
+def trainer_margins(lrn, blocks: list) -> list:
+    """The trainer's predict_batch over the served batches, in as few
+    calls as its minibatch allows, split back a batch at a time."""
+    from wormhole_tpu_torch.data.rowblock import RowBlock
+
+    out, group = [], []
+
+    def flush():
+        m = lrn.predict_batch(RowBlock.concat(group))
+        cuts = np.cumsum([0] + [b.size for b in group])
+        out.extend(m[a:b] for a, b in zip(cuts[:-1], cuts[1:]))
+        group.clear()
+
+    for b in blocks:
+        if group and sum(g.size for g in group) + b.size > lrn.cfg.minibatch:
+            flush()
+        group.append(b)
+    flush()
+    return out
+
+
+def scorer_device(device):
+    """The scorers' device: their default, the card, on the card (a
+    rehearsal on the CPU names the CPU)."""
+    return None if device.type == "cuda" else device
+
+
+def serve_group(base: str, world: int):
+    from wormhole_tpu_torch.serving import ModelServer
+
+    servers = [ModelServer(r, world, base, poll_sec=0.05)
+               for r in range(world)]
+    for s in servers:
+        s.serve()
+    return servers
+
+
+def serve_hold(name: str, got, want, **tol) -> float:
+    """Max abs error of served scores against the trainer's; raises past
+    the bar (and on a margin that is not finite)."""
+    err = np.abs(got - want)
+    if not (np.isfinite(got).all()
+            and np.allclose(got, want, **(tol or SERVE_TOL))):
+        raise AssertionError(f"[serve] {name}: max abs err "
+                             f"{float(err.max())} beyond {tol or SERVE_TOL}")
+    return float(err.max())
+
+
+def serve_stage_row(snap: dict) -> dict:
+    """p50 and mean ms of each serve.stage.* histogram of the window, and
+    the share of the request latency the pipeline stages explain: their
+    means over the request mean (the JAX package's explained_frac, which
+    bench.py holds to 0.90), and their p50s over the request p50."""
+    def p50(h):
+        res = sorted(h["res"])
+        return res[len(res) // 2] * 1e3
+
+    hists = snap["hists"]
+    stages = {st: {"p50_ms": p50(h), "mean_ms": h["sum"] / h["count"] * 1e3}
+              for st in SERVE_STAGES
+              if (h := hists.get(f"serve.stage.{st}_s")) and h["count"]}
+    lat = hists["serve.latency_s"]
+    pipe = [s for s in SERVE_PIPELINE if s in stages]
+    return {"stages": stages,
+            "latency_p50_ms": p50(lat),
+            "explained_frac": sum(stages[s]["mean_ms"] for s in pipe)
+            / (lat["sum"] / lat["count"] * 1e3),
+            "p50_share": sum(stages[s]["p50_ms"] for s in pipe) / p50(lat)}
+
+
+def serve_window(router, blocks: list, concurrency: int, seconds: float,
+                 swap) -> tuple:
+    """`concurrency` threads send `blocks` round robin, closed loop, for
+    `seconds`, while `swap()` writes a new snapshot version every
+    SERVE_SWAP_S. Returns the window's row and every response as
+    (block index, version, scores)."""
+    import threading
+
+    from wormhole_tpu_torch.obs import metrics as obs
+
+    snap0 = obs.REGISTRY.snapshot()
+    for name in snap0["hists"]:
+        if name.startswith("serve."):
+            obs.REGISTRY.histogram(name).reset()
+    stop = threading.Event()
+    lats, responses, errors = [], [], []
+    lock = threading.Lock()
+
+    def loop(tid: int):
+        lat, got, i = [], [], tid
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                scores, ver = router.predict_block(blocks[i % len(blocks)])
+            except Exception as e:  # counted, and the phase fails
+                with lock:
+                    errors.append(repr(e))
+                break
+            lat.append((time.perf_counter() - t0) * 1e3)
+            got.append((i % len(blocks), ver, scores))
+            i += concurrency
+        with lock:
+            lats.extend(lat)
+            responses.extend(got)
+
+    def swapper():
+        while not stop.wait(SERVE_SWAP_S):
+            swap()
+
+    threads = [threading.Thread(target=loop, args=(t,), daemon=True)
+               for t in range(concurrency)]
+    sw = threading.Thread(target=swapper, daemon=True)
+    t0 = time.perf_counter()
+    for t in threads + [sw]:
+        t.start()
+    time.sleep(seconds)
+    stop.set()
+    for t in threads + [sw]:
+        t.join(timeout=60)
+        if t.is_alive():
+            raise AssertionError("[serve] a load thread did not stop")
+    elapsed = time.perf_counter() - t0
+    snap = obs.REGISTRY.snapshot()
+    lats.sort()
+
+    def pct(q):
+        return lats[min(len(lats) - 1, int(q * len(lats)))]
+
+    def delta(name):
+        return snap["counters"].get(name, 0) - snap0["counters"].get(
+            name, 0)
+
+    stall = snap["hists"].get("serve.swap_stall_s") or {}
+    row = {"concurrency": concurrency, "seconds": elapsed,
+           "requests": len(lats), "failed": len(errors),
+           "qps": len(lats) / elapsed, "p50_ms": pct(0.5),
+           "p99_ms": pct(0.99), "p999_ms": pct(0.999),
+           "swaps": delta("serve.swaps"),
+           "swap_stall_ms_sum": stall.get("sum", 0.0) * 1e3,
+           "swap_stall_ms_max": (stall.get("max") or 0.0) * 1e3,
+           "epoch_retries": delta("serve.router.epoch_retries"),
+           "router_failures": delta("serve.router.failures"),
+           "batch_rounds": delta("serve.batch.rounds"),
+           **serve_stage_row(snap)}
+    h2d = snap["hists"].get("serve.score.h2d_s")
+    if h2d and h2d["count"]:
+        row["h2d_p50_ms"] = sorted(h2d["res"])[len(h2d["res"]) // 2] * 1e3
+    if errors:
+        raise AssertionError(f"[serve] {len(errors)} failed requests, "
+                             f"first {errors[0]}")
+    return row, responses
+
+
+def serve_linear(device, smi: str, workdir: str, num_buckets: int,
+                 seconds: float, checks: int, minibatch: int,
+                 nnz: int) -> dict:
+    """The linear FTRL learner trained on `device` at `num_buckets`,
+    snapshotted into SERVE_SHARDS shards and served in both modes: the
+    fixed requests first, then each mode's window with hot swaps."""
+    import torch
+
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.serving import LinearScorer, Router
+    from wormhole_tpu_torch.utils.manifest import write_snapshot_set
+
+    data = batches(num_buckets, 2, seed=21)
+    # the row cap covers the served rows, so its predict drops none
+    cfg = LinearConfig(minibatch=MINIBATCH, nnz_per_row=max(NNZ_PER_ROW, nnz),
+                       num_buckets=num_buckets, algo="ftrl", lr_eta=0.1,
+                       lambda_l1=1.0, kernel_dtype="f32")
+    t = time.perf_counter()
+    lrn = LinearLearner(cfg, device=device)
+    for s, i, v, y, _ in data:
+        lrn.train_batch(to_rowblock(s, i, v, y))
+    w = lrn.store.state["w"].cpu().numpy()
+    train_s = time.perf_counter() - t
+    rng = np.random.default_rng(22)
+    blocks = serve_blocks(rng, np.concatenate([d[1] for d in data]),
+                          checks, minibatch, nnz)
+    want = trainer_margins(lrn, blocks)
+    live = float(np.mean([np.count_nonzero(m) / m.size for m in want]))
+    if live < 0.5:
+        raise AssertionError(f"[serve] only {live:.2f} of the margins read "
+                             "a trained weight")
+    base = os.path.join(workdir, "serve-linear", "srv")
+    t = time.perf_counter()
+    versions = {write_snapshot_set(base, {"w": w}, world=SERVE_SHARDS,
+                                   compressed=False): 0}
+    write_s = time.perf_counter() - t
+    scfg = LinearConfig(minibatch=minibatch, nnz_per_row=nnz,
+                        num_buckets=num_buckets)
+    sdev = scorer_device(device)
+    servers = serve_group(base, SERVE_SHARDS)
+    routers = {}
+    try:
+        uris = [s.uri for s in servers]
+        for m, _ in SERVE_MODES:
+            routers[m] = Router(uris, LinearScorer(scfg, device=sdev),
+                                mode=m)
+        routers["cpu"] = Router(uris, LinearScorer(scfg, device="cpu"),
+                                mode="fetch")
+        # the fixed requests, at the first version
+        t = time.perf_counter()
+        got = {m: [r.predict_block(b) for b in blocks]
+               for m, r in routers.items()}
+        fixed_s = time.perf_counter() - t
+        v0 = next(iter(versions))
+        if any(ver != v0 for g in got.values() for _, ver in g):
+            raise AssertionError("[serve] a fixed request saw another "
+                                 "version")
+        fixed = {"requests": checks, "rows": checks * minibatch,
+                 "nonzero_margin_share": live, "train_s": train_s,
+                 "snapshot_write_s": write_s, "fixed_s": fixed_s}
+        for m, _ in SERVE_MODES:
+            fixed[f"{m}_vs_trainer_max_abs_err"] = max(
+                serve_hold(f"linear {m}", s, y)
+                for (s, _), y in zip(got[m], want))
+        for (s, _), (c, _) in zip(got["score"], got["cpu"]):
+            if not np.array_equal(s, c):
+                raise AssertionError("[serve] score mode differs from the "
+                                     "CPU scorer's fetch mode")
+        fixed["score_equals_cpu_fetch"] = True
+        log(f"[serve] linear {num_buckets} buckets, {SERVE_SHARDS} shards, "
+            f"fixed requests on {smi}: {json.dumps(fixed)}")
+
+        def swap():
+            k = max(versions.values()) + 1
+            v = write_snapshot_set(base, {"w": w * np.float32(2.0 ** k)},
+                                   world=SERVE_SHARDS, compressed=False)
+            versions[v] = k
+
+        rows = {}
+        for m, conc in SERVE_MODES:
+            written = len(versions)
+            row, responses = serve_window(
+                routers[m], blocks[:SERVE_POOL], conc, seconds, swap)
+            row["versions_written"] = len(versions) - written
+            # every response is 2^k times the first version's scores for
+            # the one k of the version it carries: a mix of two versions
+            # matches neither (score mode folds on the host: exactly)
+            seen = set()
+            for bi, ver, scores in responses:
+                if ver not in versions:
+                    raise AssertionError(f"[serve] unknown version {ver}")
+                k = versions[ver]
+                seen.add(k)
+                ref = got[m][bi][0] * np.float32(2.0 ** k)
+                if m == "score":
+                    if not np.array_equal(scores, ref):
+                        raise AssertionError(
+                            f"[serve] score response at version {ver} is "
+                            f"not 2^{k} times the first version's")
+                else:
+                    serve_hold(f"fetch response at version {ver}", scores,
+                               ref, rtol=1e-5, atol=1e-4 * 2.0 ** k)
+            if row["swaps"] < SERVE_SHARDS or len(seen) < 2:
+                raise AssertionError(
+                    f"[serve] {m}: {row['swaps']} swaps, versions {seen}: "
+                    "no hot swap landed in the window")
+            row["versions_served"] = len(seen)
+            rows[m] = row
+            log(f"[serve] linear {num_buckets} buckets {m} mode on {smi}: "
+                f"{json.dumps(row)}")
+            if row["explained_frac"] < 0.9:
+                log(f"[serve] linear {m}: the stages explain "
+                    f"{row['explained_frac']:.3f} of the request mean, "
+                    "under 0.90")
+        return {"fixed": fixed, **rows}
+    finally:
+        for r in routers.values():
+            r.close()
+        for s in servers:
+            s.stop()
+        del lrn
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+
+
+def serve_difacto(device, smi: str, workdir: str, num_buckets: int,
+                  v_buckets: int, checks: int, minibatch: int,
+                  nnz: int) -> dict:
+    """The DiFacto learner trained on `device` (the bench's width),
+    snapshotted into FM_SERVE_SHARDS shards, `checks` requests in each
+    mode against its predict_batch, without load."""
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.serving import DifactoScorer, Router
+    from wormhole_tpu_torch.utils.manifest import write_snapshot_set
+
+    data = batches(num_buckets, 2, seed=23)
+    lrn = DifactoLearner(difacto_config("auto", num_buckets, v_buckets,
+                                        nnz_per_row=max(NNZ_PER_ROW, nnz)),
+                         device=device)
+    for s, i, v, y, _ in data:
+        lrn.train_batch(to_rowblock(s, i, v, y))
+    st = lrn.ckpt_store.state
+    tables = {k: st[k].cpu().numpy() for k in ("w", "cnt", "V")}
+    rng = np.random.default_rng(24)
+    blocks = serve_blocks(rng, np.concatenate([d[1] for d in data]),
+                          checks, minibatch, nnz)
+    want = trainer_margins(lrn, blocks)
+    if lrn.dropped_slot_nnz or lrn.dropped_row_nnz:
+        raise AssertionError("[serve] the DiFacto trainer dropped nonzeros")
+    base = os.path.join(workdir, "serve-difacto", "srv")
+    write_snapshot_set(base, tables, world=FM_SERVE_SHARDS)
+    scfg = difacto_config("auto", num_buckets, v_buckets,
+                          minibatch=minibatch, nnz_per_row=nnz)
+    servers = serve_group(base, FM_SERVE_SHARDS)
+    routers = {}
+    out = {"requests": checks, "admitted": lrn.num_admitted()}
+    try:
+        for m, _ in SERVE_MODES:
+            routers[m] = Router([s.uri for s in servers],
+                                DifactoScorer(scfg, scorer_device(device)),
+                                mode=m)
+            t = time.perf_counter()
+            got = [routers[m].predict_block(b)[0] for b in blocks]
+            out[f"{m}_ms_per_request"] = ((time.perf_counter() - t)
+                                          / checks * 1e3)
+            out[f"{m}_vs_trainer_max_abs_err"] = max(
+                serve_hold(f"difacto {m}", s, y) for s, y in zip(got, want))
+        log(f"[serve] difacto {num_buckets}/{v_buckets} buckets dim "
+            f"{FM_DIM}, {FM_SERVE_SHARDS} shards on {smi}: "
+            f"{json.dumps(out)}")
+        return out
+    finally:
+        for r in routers.values():
+            r.close()
+        for s in servers:
+            s.stop()
+
+
+def run_serve(device, smi: str, workdir: str,
+              compact_buckets=COMPACT_BUCKETS, fm_buckets=DENSE_BUCKETS,
+              v_buckets=V_BUCKETS, seconds=SERVE_SECONDS,
+              checks=SERVE_CHECKS, minibatch=SERVE_MINIBATCH,
+              nnz=SERVE_NNZ) -> dict:
+    """The serving tier ([serve]): models trained on `device`, served by
+    in-process ModelServer groups through Routers whose scorers take the
+    default device (the card), in fetch and score mode."""
+    return {"linear": serve_linear(device, smi, workdir, compact_buckets,
+                                   seconds, checks, minibatch, nnz),
+            "difacto": serve_difacto(device, smi, workdir, fm_buckets,
+                                     v_buckets, checks, minibatch, nnz)}
+
+
 def data_phases(device, smi: str, data_dir: str, knums: dict,
                 launches: dict) -> None:
     """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
@@ -3904,6 +4305,20 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
                 raise AssertionError(f"{name} run launched no {k}")
         launches["parse_libsvm"] += app_launches["parse_libsvm"]
         log(f"[phase] {name} {time.perf_counter() - t:.1f}s")
+    # the serving tier: its trainers' launches are the main path's; the
+    # tier itself launches no kernel
+    t = time.perf_counter()
+    _cuda.reset_launches()
+    run_serve(device, smi, data_dir)
+    counts = dict(_cuda.LAUNCHES)
+    log(f"[serve] launches (its trainers): {counts}")
+    missing = [k for k in ("tile_gather", "coo_spmv_t", "scatter_update",
+                           *FM_KERNELS) if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"the [serve] trainers launched no {missing}")
+    for k in KERNELS:
+        launches[k] += counts[k]
+    log(f"[phase] serve {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     files = write_e2e_files(data_dir)
     log(f"[e2e] files of {E2E_BATCHES} minibatches written in "

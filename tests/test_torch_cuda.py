@@ -1250,3 +1250,42 @@ def test_kmeans_replays_cached_packs_on_the_card(cuda, tmp_path,
     st = on.pack_cache.stats()
     assert (st["hits"], st["misses"]) == (2 * 5, 1)
     assert float((on.centroids - off.centroids).abs().max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["linear", "difacto"])
+def test_serving_scorer_on_the_card_matches_the_cpu(cuda, model):
+    """A serving scorer built with no device runs on the card; its
+    fetch-mode margins hold to the same scorer's on the CPU within the
+    kernels' bar (a CUDA index_add_ adds with f32 atomics)."""
+    from wormhole_tpu_torch.data.rowblock import RowBlock
+    from wormhole_tpu_torch.models.difacto import DifactoConfig
+    from wormhole_tpu_torch.models.linear import LinearConfig
+    from wormhole_tpu_torch.serving import DifactoScorer, LinearScorer
+
+    rng = np.random.default_rng(17)
+    kw = dict(minibatch=1000, nnz_per_row=64, num_buckets=1 << 16)
+    if model == "linear":
+        cls, cfg = LinearScorer, LinearConfig(**kw)
+    else:
+        cls = DifactoScorer
+        cfg = DifactoConfig(v_buckets=1 << 14, dim=8, threshold=2, **kw)
+    tables = {"w": rng.normal(size=cfg.num_buckets).astype(np.float32),
+              "cnt": rng.integers(0, 4, cfg.num_buckets).astype(np.float32),
+              "V": (rng.normal(size=(1 << 14, 8)) * 0.1).astype(np.float32)}
+    card, host = cls(cfg), cls(cfg, device="cpu")
+    assert card.device.type == "cuda"
+    for n in (1, 517, 1000):
+        counts = rng.integers(32, 65, size=n)
+        offset = np.concatenate([[0], np.cumsum(counts)]).astype(np.int64)
+        blk = RowBlock(label=np.zeros(n, np.float32), offset=offset,
+                       index=rng.integers(0, 1 << 62, int(offset[-1]),
+                                          dtype=np.int64).astype(np.uint64),
+                       value=rng.normal(size=int(offset[-1])).astype(
+                           np.float32))
+        p = card.pack(blk)
+        rows = {t: tables[t][p.keys[t]] for t in cls.tables}
+        got = card.score(p, rows)
+        want = host.score(host.pack(blk), rows)
+        assert got.shape == (n,) and np.isfinite(got).all()
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)

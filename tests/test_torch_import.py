@@ -139,3 +139,15 @@ def test_scan_covers_the_data_formats():
     for rel in ("ops/hashing.py", "data/crb.py", "data/synth.py",
                 "apps/convert.py"):
         assert PORT / rel in SOURCES
+
+
+def test_scan_covers_the_serving_tier():
+    """The serving tier and the wire, retry, overload, fault, manifest
+    and obs modules beneath it are among the sources scanned and the
+    modules the probe imports with JAX blocked."""
+    for rel in ("serving/scoring.py", "serving/fastpath.py",
+                "serving/server.py", "serving/router.py", "runtime/net.py",
+                "runtime/retry.py", "runtime/overload.py",
+                "runtime/faults.py", "utils/manifest.py", "obs/flight.py",
+                "obs/trace.py", "obs/pyprof.py"):
+        assert PORT / rel in SOURCES

@@ -100,6 +100,16 @@ class Histogram:
                 if j < self.reservoir:
                     self._res[j] = v
 
+    def reset(self) -> None:
+        """Forget every observation: a new measurement window (the
+        handles cached at import keep working)."""
+        with self._lock:
+            self.count = 0
+            self.sum = 0.0
+            self.min = self.max = None
+            self._res = []
+            self._rng = random.Random(zlib.crc32(self.name.encode()))
+
     def snapshot(self) -> dict:
         with self._lock:
             return {"count": self.count, "sum": self.sum,
@@ -187,3 +197,28 @@ def merge_snapshots(snaps, reservoir: int = DEFAULT_RESERVOIR) -> dict:
         if len(m["res"]) > reservoir:
             m["res"] = rng.sample(m["res"], reservoir)
     return {"counters": counters, "gauges": gauges, "hists": hists}
+
+
+class SnapshotRing:
+    """Bounded ring of timestamped metrics snapshots (the flight
+    recorder's metric history). ``add`` evicts the oldest entry past
+    capacity; ``items`` hands back oldest-first copies."""
+
+    def __init__(self, capacity: int):
+        self.capacity = max(int(capacity), 1)
+        self._lock = threading.Lock()
+        self._entries: list[tuple[float, dict]] = []
+
+    def add(self, ts: float, snap: dict) -> None:
+        with self._lock:
+            self._entries.append((float(ts), snap))
+            if len(self._entries) > self.capacity:
+                del self._entries[: len(self._entries) - self.capacity]
+
+    def items(self) -> list[tuple[float, dict]]:
+        with self._lock:
+            return list(self._entries)
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)

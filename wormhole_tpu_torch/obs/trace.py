@@ -1,0 +1,368 @@
+"""Distributed trace spans/events as per-node append-only JSONL.
+
+The port's copy of the JAX package's obs/trace.py, renamed to this
+package and sharing nothing with it.
+
+Opt-in via WH_OBS_DIR (the same contract as runtime/faults.py: a
+module-level handle that is None when disabled, so every hook site is
+one None check and an unfaulted/untraced process pays nothing).
+
+When enabled, each process incarnation appends to its own file
+
+    WH_OBS_DIR/trace-<node>-<pid>.jsonl
+
+so respawned servers never collide with their dead predecessor's file
+and a crash mid-write loses at most one line (append-only,
+line-buffered). The first line is a clock anchor
+
+    {"ph": "M", "run": ..., "node": ..., "pid": ...,
+     "wall": time.time(), "mono": time.monotonic()}
+
+mapping this process's monotonic clock to wall time; every span/event
+carries monotonic timestamps (immune to NTP steps) and the viewer
+(tools/trace_viewer.py) uses the anchor to place nodes on a shared
+wall-clock axis. Lines:
+
+    {"ph": "X", "name": ..., "cat": ..., "ts": mono_s, "dur": s,
+     "tid": small-int, "args": {...}}          # a completed span
+    {"ph": "i", "name": ..., "cat": ..., "ts": mono_s, "tid": ...,
+     "args": {...}}                            # an instant event
+
+Identity: run id from WH_RUN_ID (the launcher exports one per launch),
+node id "<role>-<rank>" from WH_ROLE/WH_RANK, or "local-<pid>" for
+single-process runs.
+
+Request tracing (cross-node causality): a sampled request carries a
+*trace context* — ``(trace_id, span_id)`` — in a thread-local slot.
+While bound, every span emitted on that thread gains three fields:
+
+    "trace": trace-id    "sid": this span's id    "psid": parent span id
+
+Span ids are ``<node>:<pid>:<n>`` strings, unique across the whole
+job without coordination. The context crosses processes by riding the
+``runtime/net.py`` frame header (``wire_ctx()`` on the sender,
+``bind_wire()`` on the receiver — the same header-piggyback pattern as
+``key_digest``), so a router request, the shard spans it fanned out
+to, and the PS/BSP rounds it touched stitch into ONE flow in
+``tools/trace_viewer.py``.
+
+Sampling is deterministic and counter-based: ``start_request()`` hands
+out a fresh context for every ``WH_TRACE_SAMPLE``-th call (1 = every
+request, 0 = off), so a replayed run samples the same requests and the
+hot path for unsampled requests is one counter bump. With tracing off
+entirely, every hook is a single ``ACTIVE is None`` check.
+"""
+
+from __future__ import annotations
+
+import atexit
+import json
+import os
+import threading
+import time
+from typing import Optional
+
+from wormhole_tpu_torch.obs import flight as _flight
+
+#: every SAMPLE_N-th start_request() gets a trace context (0 = off);
+#: (re)read from WH_TRACE_SAMPLE by init_from_env
+SAMPLE_N: int = 0
+
+_INIT_LOCK = threading.Lock()
+_TLS = threading.local()  # .ctx = (trace_id, span_id) while bound
+
+
+class Tracer:
+    def __init__(self, out_dir: str, run_id: str, node: str):
+        self.out_dir = out_dir
+        self.run_id = run_id
+        self.node = node
+        self.pid = os.getpid()
+        self.path = os.path.join(out_dir, f"trace-{node}-{self.pid}.jsonl")
+        os.makedirs(out_dir, exist_ok=True)
+        self._lock = threading.Lock()
+        self._tids: dict[int, int] = {}
+        self._sid = 0  # span-id counter (request-traced spans only)
+        self._req = 0  # start_request() sampling counter
+        self._closed = False
+        self._fh = open(self.path, "a", buffering=1)
+        self._write({"ph": "M", "run": run_id, "node": node,
+                     "pid": self.pid, "wall": time.time(),
+                     "mono": time.monotonic()})
+
+    def _write(self, obj: dict) -> None:
+        line = json.dumps(obj, separators=(",", ":"), default=str)
+        with self._lock:
+            if self._closed:
+                return
+            self._fh.write(line + "\n")
+
+    def _tid(self) -> int:
+        ident = threading.get_ident()
+        with self._lock:
+            tid = self._tids.get(ident)
+            if tid is None:
+                tid = self._tids[ident] = len(self._tids)
+            return tid
+
+    def next_sid(self) -> str:
+        """A job-unique span id (node+pid scope the counter)."""
+        with self._lock:
+            self._sid += 1
+            n = self._sid
+        return f"{self.node}:{self.pid}:{n}"
+
+    def next_req(self) -> int:
+        with self._lock:
+            self._req += 1
+            return self._req
+
+    def emit_span(self, name: str, cat: str, t0: float, dur: float,
+                  args: Optional[dict] = None,
+                  ctx: Optional[tuple] = None) -> None:
+        # ctx is (trace, sid, psid); None means "read the ambient
+        # thread context", so direct emit_span call sites get request
+        # attribution for free when the thread is bound
+        rec = {"ph": "X", "name": name, "cat": cat,
+               "ts": round(t0, 6), "dur": round(dur, 6),
+               "tid": self._tid()}
+        if ctx is None:
+            cur = getattr(_TLS, "ctx", None)
+            if cur is not None:
+                # a direct emit (no _Span nesting) becomes a leaf child
+                # of whatever span is ambient on this thread
+                ctx = (cur[0], self.next_sid(), cur[1])
+        if ctx is not None:
+            rec["trace"] = ctx[0]
+            rec["sid"] = ctx[1]
+            if ctx[2] is not None:
+                rec["psid"] = ctx[2]
+        if args:
+            rec["args"] = args
+        self._write(rec)
+
+    def event(self, name: str, cat: str = "event", **args) -> None:
+        rec = {"ph": "i", "name": name, "cat": cat,
+               "ts": round(time.monotonic(), 6), "tid": self._tid()}
+        cur = getattr(_TLS, "ctx", None)
+        if cur is not None:
+            rec["trace"] = cur[0]
+            rec["psid"] = cur[1]
+        if args:
+            rec["args"] = args
+        self._write(rec)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+            try:
+                self._fh.close()
+            except OSError:
+                pass
+
+
+ACTIVE: Optional[Tracer] = None
+
+
+class _NullSpan:
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_SPAN = _NullSpan()
+
+
+class _Span:
+    __slots__ = ("tracer", "name", "cat", "args", "t0", "_ctx", "_saved")
+
+    def __init__(self, tracer: Optional[Tracer], name: str, cat: str,
+                 args: dict):
+        # tracer may be None: the span then only feeds the flight
+        # recorder (no file, no trace context — those need a Tracer)
+        self.tracer = tracer
+        self.name = name
+        self.cat = cat
+        self.args = args
+
+    def __enter__(self):
+        cur = getattr(_TLS, "ctx", None)
+        if cur is not None and self.tracer is not None:
+            sid = self.tracer.next_sid()
+            self._ctx = (cur[0], sid, cur[1])
+            self._saved = cur
+            _TLS.ctx = (cur[0], sid)  # children parent to this span
+        else:
+            self._ctx = None
+            self._saved = None
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, etype, exc, tb):
+        dur = time.monotonic() - self.t0
+        if etype is not None:
+            self.args = dict(self.args or {}, error=etype.__name__)
+        if self._ctx is not None:
+            _TLS.ctx = self._saved
+        if self.tracer is not None:
+            self.tracer.emit_span(self.name, self.cat, self.t0, dur,
+                                  self.args, ctx=self._ctx)
+        fr = _flight.ACTIVE
+        if fr is not None:
+            fr.record_span(self.name, self.cat, self.t0, dur, self.args)
+        return False
+
+
+class _Bind:
+    """Install a trace context on this thread for a block (None = no-op
+    but still restores, so bind(start_request()) is always safe)."""
+
+    __slots__ = ("ctx", "_saved")
+
+    def __init__(self, ctx: Optional[tuple]):
+        self.ctx = ctx
+
+    def __enter__(self):
+        self._saved = getattr(_TLS, "ctx", None)
+        if self.ctx is not None:
+            _TLS.ctx = self.ctx
+        return self
+
+    def __exit__(self, *exc):
+        _TLS.ctx = self._saved
+        return False
+
+
+def span(name: str, cat: str = "span", **args):
+    """Context manager timing a block into the trace. When both tracing
+    and the flight recorder are off this returns a shared no-op object —
+    no allocation, no clock read — so it is safe on hot paths. With only
+    the flight recorder on, the span lands in its in-memory ring."""
+    t = ACTIVE
+    if t is None and _flight.ACTIVE is None:
+        return _NULL_SPAN
+    return _Span(t, name, cat, args)
+
+
+def request_span(name: str, cat: str = "span", **args):
+    """Like span(), but emitted ONLY when a request trace context is
+    bound on this thread — the per-stage spans of a sampled request.
+    Unsampled requests (and untraced processes) get the shared no-op."""
+    t = ACTIVE
+    if t is None or getattr(_TLS, "ctx", None) is None:
+        return _NULL_SPAN
+    return _Span(t, name, cat, args)
+
+
+def event(name: str, cat: str = "event", **args) -> None:
+    """Emit an instant event (recovery, restore, eviction...)."""
+    t = ACTIVE
+    if t is not None:
+        t.event(name, cat, **args)
+    fr = _flight.ACTIVE
+    if fr is not None:
+        fr.record_event(name, cat, args or None)
+
+
+def start_request() -> Optional[tuple]:
+    """Sampling decision at a request root (router predict, PS sync
+    round, BSP collective): every WH_TRACE_SAMPLE-th call returns a
+    fresh ``(trace_id, None)`` context to ``bind()``; the rest return
+    None. Counter-based, so a given process samples the same request
+    ordinals on every run — and an unsampled call costs one counter
+    bump, nothing more."""
+    t = ACTIVE
+    if t is None or SAMPLE_N <= 0:
+        return None
+    n = t.next_req()
+    if n % SAMPLE_N:
+        return None
+    return (f"{t.node}:{t.pid}:r{n}", None)
+
+
+def bind(ctx: Optional[tuple]):
+    """Install ``ctx`` (from start_request()/bind_wire parsing) on this
+    thread for the block. ``bind(None)`` is a cheap no-op binding, so
+    callers never branch on the sampling decision."""
+    return _Bind(ctx)
+
+
+def current_ctx() -> Optional[tuple]:
+    """The ambient (trace_id, span_id) on this thread, for handing to a
+    worker thread's bind() (thread pools don't inherit thread-locals)."""
+    return getattr(_TLS, "ctx", None)
+
+
+def wire_ctx() -> Optional[dict]:
+    """The ambient context as a frame-header field (net.send_frame
+    attaches it as ``tctx``, the key_digest piggyback pattern)."""
+    if ACTIVE is None:
+        return None
+    cur = getattr(_TLS, "ctx", None)
+    if cur is None:
+        return None
+    return {"t": cur[0], "s": cur[1]}
+
+
+def bind_wire(header: dict):
+    """Adopt the trace context a received frame carried (``tctx``):
+    spans emitted inside the block parent to the sender's span, so the
+    viewer stitches the two processes into one flow. No-op when the
+    frame is unsampled or tracing is off."""
+    if ACTIVE is None:
+        return _NULL_SPAN  # nothing to adopt into; shared no-op
+    tc = header.get("tctx")
+    if not isinstance(tc, dict) or "t" not in tc:
+        return _Bind(None)
+    return _Bind((tc["t"], tc.get("s")))
+
+
+def node_id() -> str:
+    role = os.environ.get("WH_ROLE")
+    if role:
+        return f"{role}-{os.environ.get('WH_RANK', '0')}"
+    return f"local-{os.getpid()}"
+
+
+def _shutdown() -> None:
+    """atexit hook: flush+close the active tracer so respawn-heavy runs
+    (chaos labs spawning hundreds of incarnations) never leak
+    descriptors when nobody called close() explicitly."""
+    t = ACTIVE
+    if t is not None:
+        t.close()
+
+
+atexit.register(_shutdown)
+
+
+def init_from_env() -> Optional[Tracer]:
+    """(Re)read WH_OBS_DIR / WH_TRACE_SAMPLE; called once at import.
+    Tests call it again after mutating the env. Serialized by a module
+    lock so concurrent re-inits (parallel test fixtures, respawn
+    supervisors) can never leak a half-replaced tracer's handle."""
+    global ACTIVE, SAMPLE_N
+    with _INIT_LOCK:
+        prev, ACTIVE = ACTIVE, None
+        if prev is not None:
+            prev.close()
+        raw = os.environ.get("WH_TRACE_SAMPLE", "").strip()
+        try:
+            SAMPLE_N = int(raw) if raw else 0
+        except ValueError:
+            SAMPLE_N = 0
+        out_dir = os.environ.get("WH_OBS_DIR", "").strip()
+        if not out_dir:
+            return None
+        run_id = os.environ.get("WH_RUN_ID") or f"run-{int(time.time())}"
+        ACTIVE = Tracer(out_dir, run_id, node_id())
+        return ACTIVE
+
+
+init_from_env()

@@ -1,0 +1,368 @@
+"""Deterministic, env-driven fault injection for the runtime planes.
+
+The port's copy of the JAX package's runtime/faults.py, renamed to this
+package and sharing nothing with it.
+
+The recovery machinery (server respawn, fenced RPC retry, rollback
+replay) is only trustworthy if it can be exercised on demand, so every
+plane exposes a hook that consults this module:
+
+- `net.send_frame` / `net.recv_frame` call `ACTIVE.frame(op)` /
+  `ACTIVE.recv()` (worker-side network faults),
+- `ServerNode._dispatch` calls `ACTIVE.server_op(op)` (server crashes),
+- `BspWorker` collectives call `ACTIVE.worker_op(op)` (BSP worker
+  crashes mid-round),
+- `Scheduler._dispatch` calls `ACTIVE.sched_op(op)` (control-plane
+  faults).
+
+Faults are armed by the `WH_FAULT_SPEC` env var, parsed once at import.
+Every hook site guards with `if faults.ACTIVE is not None:` — a single
+module-level None check — so an unfaulted process pays nothing on the
+hot path (the zero-overhead contract `tools/ps_sync_micro.py` checks).
+
+Spec grammar (comma-separated specs; all counters are deterministic):
+
+    server:<rank>:kill@<op>:<nth>[:always]
+        the server process of rank <rank> hard-exits (os._exit — no
+        cleanup, like SIGKILL) on its <nth> dispatch of <op> ('any'
+        matches every op). By default the fault arms only in the
+        FIRST incarnation (WH_RESTORE_EPOCH unset/0) so a respawned
+        server survives; ':always' re-arms it in every incarnation
+        (respawn-cap exhaustion tests).
+    worker:<rank>:kill@<op>:<nth>[:always]
+        same, for BSP worker processes: <op> is a collective entry
+        point of runtime/allreduce.py ('allreduce', 'broadcast',
+        'checkpoint', or 'any'), so a worker can be killed
+        deterministically mid-round to exercise ring recovery.
+    net:reset:after_frames=<N>
+        after N request frames have been sent, the next send raises
+        ConnectionResetError (fires once). Arms in worker/role-less
+        processes only.
+    net:delay:ms=<K>
+        sleep K ms before every request frame send (latency injection).
+        Arms in worker/role-less processes only.
+    net:partition@<op>:<secs>
+        link-level partition: starting at the FIRST send of <op> ('any'
+        matches every op), every matching send raises OSError for
+        <secs> seconds, then the link heals and traffic flows again —
+        the shape a retry budget must ride out (bounded retries, no
+        hang, zero give-ups if the budget outlives the partition).
+        Arms in worker/role-less processes only.
+    net:slow@<op>:<ms>
+        slow link: every send of <op> ('any' = all) sleeps <ms> ms
+        first — degraded-but-alive, unlike partition's hard failures.
+        Arms in worker/role-less processes only.
+    sched:drop@<op>:<nth>
+        the scheduler answers the <nth> request of <op> with an error
+        (a dropped/garbled control message). Arms in the scheduler.
+    sched:kill@<op>:<nth>[:always]
+        the scheduler process hard-exits (os._exit) on its <nth>
+        dispatch of <op> ('any' matches every op), BEFORE the op's
+        effect is applied or journaled — so the dying request is the
+        client retry's problem, never a double-applied one. Mirrors
+        the server/worker kill grammar: arms only in the first
+        incarnation unless ':always'. Pair with the launcher's
+        --max-scheduler-restarts to exercise journal replay.
+
+Example: WH_FAULT_SPEC="server:1:kill@push:200" kills server rank 1 on
+its 200th push.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+import time
+from typing import Optional
+
+KILL_EXIT = 137  # the exit code of a SIGKILLed process (128 + 9)
+
+
+def _flight_note(kind: str, **detail) -> None:
+    """A fault is firing: record it into (and dump) the flight
+    recorder, so the black box names the injected cause. Imported
+    lazily at fire time, as in the JAX package, whose bare import must
+    not pull the obs plane in; fault ARMS are rare, so the import cost
+    is off the hot path. Kill faults dump before os._exit — an exiting
+    process gets no second chance to flush its rings."""
+    try:
+        from wormhole_tpu_torch.obs import flight
+        if flight.ACTIVE is None:
+            return
+        flight.record_decision("fault", kind, **detail)
+        flight.dump(f"fault: {kind}", force=True)
+    except Exception:
+        pass  # the fault must fire even if the black box cannot
+
+
+class FaultSpecError(ValueError):
+    pass
+
+
+def _parse_at(tok: str, what: str) -> tuple[str, int, bool]:
+    """Parse '<op>:<nth>[:always]' out of 'kill@<op>:<nth>[:always]'."""
+    if "@" not in tok:
+        raise FaultSpecError(f"{what}: expected '{what}@<op>:<nth>'")
+    _, rest = tok.split("@", 1)
+    parts = rest.split(":")
+    always = False
+    if parts and parts[-1] == "always":
+        always = True
+        parts = parts[:-1]
+    if len(parts) != 2:
+        raise FaultSpecError(
+            f"{what}: expected '<op>:<nth>', got {rest!r}")
+    op, nth = parts[0], int(parts[1])
+    if nth < 1:
+        raise FaultSpecError(f"{what}: nth must be >= 1, got {nth}")
+    return op, nth, always
+
+
+class Faults:
+    """A parsed WH_FAULT_SPEC, scoped to one process's role/rank.
+
+    Specs that do not apply to this process (wrong role or rank) parse
+    but never fire, so one spec string can be exported job-wide by the
+    launcher and each process arms only its own faults."""
+
+    def __init__(self, spec: str, role: Optional[str] = None,
+                 rank: int = 0, epoch: int = 0):
+        self.spec = spec
+        self.role = role
+        self.rank = int(rank)
+        self.epoch = int(epoch)
+        self.kill_fn = os._exit  # patchable for in-process tests
+        self._lock = threading.Lock()
+        self._frames = 0
+        self._op_counts: dict[str, int] = {}
+        self._wop_counts: dict[str, int] = {}
+        self._sched_counts: dict[str, int] = {}
+        # armed faults
+        self._kills: list[tuple[str, int]] = []   # (op, nth)
+        self._wkills: list[tuple[str, int]] = []  # (op, nth) worker kills
+        self._delay_s = 0.0
+        self._reset_after: Optional[int] = None
+        self._drops: list[tuple[str, int]] = []   # (op, nth)
+        self._skills: list[tuple[str, int]] = []  # (op, nth) sched kills
+        self._partitions: dict[str, float] = {}   # op -> secs
+        self._partition_t0: dict[str, float] = {}  # op -> first-send time
+        self._slows: dict[str, float] = {}        # op -> sleep seconds
+        self._slow_fired = False                  # first-sleep print latch
+        net_ok = role not in ("server", "scheduler")
+        for raw in spec.split(","):
+            s = raw.strip()
+            if not s:
+                continue
+            f = s.split(":")
+            if f[0] == "server":
+                if len(f) < 3:
+                    raise FaultSpecError(
+                        f"bad server fault {s!r}: expected "
+                        "'server:<rank>:kill@<op>:<nth>[:always]'")
+                want_rank = int(f[1])
+                op, nth, always = _parse_at(":".join(f[2:]), "kill")
+                if (role == "server" and self.rank == want_rank
+                        and (always or self.epoch == 0)):
+                    self._kills.append((op, nth))
+            elif f[0] == "worker":
+                if len(f) < 3:
+                    raise FaultSpecError(
+                        f"bad worker fault {s!r}: expected "
+                        "'worker:<rank>:kill@<op>:<nth>[:always]'")
+                want_rank = int(f[1])
+                op, nth, always = _parse_at(":".join(f[2:]), "kill")
+                if (role == "worker" and self.rank == want_rank
+                        and (always or self.epoch == 0)):
+                    self._wkills.append((op, nth))
+            elif f[0] == "net":
+                if len(f) != 3:
+                    raise FaultSpecError(f"bad net fault {s!r}")
+                if f[1] == "delay":
+                    if not f[2].startswith("ms="):
+                        raise FaultSpecError(
+                            f"net:delay: expected 'ms=<K>', got {f[2]!r}")
+                    if net_ok:
+                        self._delay_s = float(f[2][3:]) / 1000.0
+                elif f[1] == "reset":
+                    if not f[2].startswith("after_frames="):
+                        raise FaultSpecError(
+                            "net:reset: expected 'after_frames=<N>', "
+                            f"got {f[2]!r}")
+                    if net_ok:
+                        self._reset_after = int(f[2][len("after_frames="):])
+                elif f[1].startswith("partition@"):
+                    fop = f[1].split("@", 1)[1]
+                    secs = float(f[2])
+                    if not fop or secs <= 0:
+                        raise FaultSpecError(
+                            f"net:partition: expected "
+                            f"'partition@<op>:<secs>', got {s!r}")
+                    if net_ok:
+                        self._partitions[fop] = secs
+                elif f[1].startswith("slow@"):
+                    fop = f[1].split("@", 1)[1]
+                    ms = float(f[2])
+                    if not fop or ms <= 0:
+                        raise FaultSpecError(
+                            f"net:slow: expected 'slow@<op>:<ms>', got {s!r}")
+                    if net_ok:
+                        self._slows[fop] = ms / 1000.0
+                else:
+                    raise FaultSpecError(f"unknown net fault {f[1]!r}")
+            elif f[0] == "sched":
+                rest = ":".join(f[1:])
+                if rest.startswith("kill@"):
+                    op, nth, always = _parse_at(rest, "kill")
+                    if (role == "scheduler"
+                            and (always or self.epoch == 0)):
+                        self._skills.append((op, nth))
+                else:
+                    op, nth, _ = _parse_at(rest, "drop")
+                    if role == "scheduler":
+                        self._drops.append((op, nth))
+            else:
+                raise FaultSpecError(f"unknown fault kind {f[0]!r} in {s!r}")
+
+    # -- hooks (call sites guard on ACTIVE is not None) ---------------------
+    def frame(self, op) -> None:
+        """Before every request frame send (net faults)."""
+        if self._delay_s:
+            time.sleep(self._delay_s)
+        if self._slows:
+            d = self._slows.get(op, 0.0) or self._slows.get("any", 0.0)
+            if d:
+                if not self._slow_fired:
+                    self._slow_fired = True
+                    print(f"[faults] injecting net slow on {op!r} "
+                          f"({d * 1000:g}ms/send)", flush=True)
+                    _flight_note("net:slow", op=op, ms=d * 1000)
+                time.sleep(d)
+        if self._partitions:
+            self._partition_check(op)
+        if self._reset_after is None:
+            return
+        with self._lock:
+            self._frames += 1
+            fire = self._frames > self._reset_after
+            if fire:
+                self._reset_after = None  # fires once
+        if fire:
+            print(f"[faults] injecting connection reset after "
+                  f"{self._frames - 1} frames (op {op!r})", flush=True)
+            _flight_note("net:reset", op=op, frames=self._frames - 1)
+            raise ConnectionResetError(
+                f"fault injected: net:reset after {self._frames - 1} frames")
+
+    def _partition_check(self, op) -> None:
+        """Partition window: armed lazily by the first matching send, so
+        '<secs>' measures from when the link is actually exercised, not
+        from process start. While open every matching send fails with
+        OSError; after <secs> the spec is disarmed (healed) and traffic
+        flows again."""
+        with self._lock:
+            for want in list(self._partitions):
+                if want != "any" and want != op:
+                    continue
+                secs = self._partitions[want]
+                t0 = self._partition_t0.get(want)
+                if t0 is None:
+                    t0 = self._partition_t0[want] = time.monotonic()
+                    print(f"[faults] injecting net partition on {want!r} "
+                          f"for {secs:g}s", flush=True)
+                    _flight_note("net:partition", op=want, secs=secs)
+                elapsed = time.monotonic() - t0
+                if elapsed < secs:
+                    raise OSError(
+                        f"fault injected: net:partition@{want} "
+                        f"({elapsed:.2f}s/{secs:g}s)")
+                del self._partitions[want]
+                print(f"[faults] net partition on {want!r} healed after "
+                      f"{secs:g}s", flush=True)
+
+    def recv(self) -> None:
+        """Before every frame receive (reserved for recv-side faults)."""
+
+    def server_op(self, op) -> None:
+        """At every ServerNode dispatch; may hard-exit the process."""
+        if not self._kills:
+            return
+        with self._lock:
+            self._op_counts[op] = self._op_counts.get(op, 0) + 1
+            n_op = self._op_counts[op]
+            n_any = sum(self._op_counts.values())
+        for want, nth in self._kills:
+            n = n_any if want == "any" else (n_op if want == op else 0)
+            if n == nth:
+                print(f"[faults] server rank {self.rank} killing itself at "
+                      f"{want!r} #{nth} (epoch {self.epoch})", flush=True)
+                _flight_note("server:kill", op=want, nth=nth,
+                             rank=self.rank)
+                self.kill_fn(KILL_EXIT)
+
+    def worker_op(self, op) -> None:
+        """At every BSP collective entry; may hard-exit the process."""
+        if not self._wkills:
+            return
+        with self._lock:
+            self._wop_counts[op] = self._wop_counts.get(op, 0) + 1
+            n_op = self._wop_counts[op]
+            n_any = sum(self._wop_counts.values())
+        for want, nth in self._wkills:
+            n = n_any if want == "any" else (n_op if want == op else 0)
+            if n == nth:
+                print(f"[faults] worker rank {self.rank} killing itself at "
+                      f"{want!r} #{nth} (epoch {self.epoch})", flush=True)
+                _flight_note("worker:kill", op=want, nth=nth,
+                             rank=self.rank)
+                self.kill_fn(KILL_EXIT)
+
+    def sched_op(self, op) -> None:
+        """At every Scheduler dispatch; may raise to drop the request,
+        or hard-exit the process (sched:kill). The hook runs BEFORE the
+        op's effect/journal append, so a killed request was never
+        applied — the client's retry re-executes it in the next
+        incarnation, still exactly-once."""
+        if not self._drops and not self._skills:
+            return
+        with self._lock:
+            self._sched_counts[op] = self._sched_counts.get(op, 0) + 1
+            n_op = self._sched_counts[op]
+            n_any = sum(self._sched_counts.values())
+        for want, nth in self._skills:
+            n = n_any if want == "any" else (n_op if want == op else 0)
+            if n == nth:
+                print(f"[faults] scheduler killing itself at "
+                      f"{want!r} #{nth} (epoch {self.epoch})", flush=True)
+                _flight_note("sched:kill", op=want, nth=nth)
+                self.kill_fn(KILL_EXIT)
+        for want, nth in self._drops:
+            if want in (op, "any") and n_op == nth:
+                _flight_note("sched:drop", op=op, nth=nth)
+                raise ConnectionError(
+                    f"fault injected: sched:drop {op!r} #{nth}")
+
+
+ACTIVE: Optional[Faults] = None
+
+
+def init_from_env() -> Optional[Faults]:
+    """(Re)parse WH_FAULT_SPEC; called once at import. Tests may call it
+    again after mutating the env, or install a Faults into ACTIVE
+    directly."""
+    global ACTIVE
+    spec = os.environ.get("WH_FAULT_SPEC", "").strip()
+    if not spec:
+        ACTIVE = None
+        return None
+    ACTIVE = Faults(
+        spec,
+        role=os.environ.get("WH_ROLE") or None,
+        rank=int(os.environ.get("WH_RANK", "0") or 0),
+        epoch=int(os.environ.get("WH_RESTORE_EPOCH", "0") or 0),
+    )
+    print(f"[faults] armed: {spec!r} (role={ACTIVE.role} "
+          f"rank={ACTIVE.rank} epoch={ACTIVE.epoch})", flush=True)
+    return ACTIVE
+
+
+init_from_env()
