@@ -10,8 +10,9 @@
 
 Drives the port (wormhole_tpu_torch) through its main paths at the
 bench's full width: three minibatch learners and the two BSP batch
-learners, and the linear and GBDT learners on a device mesh of four
-ranks. Two run over 65,536-row minibatches of 39
+learners, the linear and GBDT learners on a device mesh of four ranks,
+and linear and DiFacto workers training one shared model through the
+launcher's scheduler and PS servers. Two run over 65,536-row minibatches of 39
 Criteo-shaped features: linear FTRL logistic regression, and the DiFacto
 factorization machine (dim 8, w over 2^22 buckets, V over 2^20 rows,
 threshold 2; the reference's learn/difacto/guide/criteo.conf, as bench.py
@@ -163,6 +164,37 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    (trained at the bench's width) from 3 shards, 64 batches in each
    mode against its predict_batch. The tier launches no kernel; its
    trainers' launches count with the main paths'.
+13. the parameter-server plane ([ps], last of the file phases;
+   bench.py bench_linear_ps's operating point): `python -m
+   wormhole_tpu_torch.launcher.dmlc_tpu -n N -s S -- python -m
+   wormhole_tpu_torch.apps.{linear,difacto} conf device=cuda
+   kernel=pallas`, each launch in a session of its own under a 240 s
+   timeout, its group killed after it. Linear FTRL at 2^26 buckets,
+   lambda_l1 1, 100,000 synthetic Criteo rows in 4 files (25,000 rows a
+   batch, in a 25,088-row capacity: the kernels' 128-row lanes), a
+   25,000-row val file, max_delay 2, 2 passes: -n 1 -s 1 with async
+   sync and the key cache, synchronous, and int8 + error feedback +
+   byte shuffle on the wire (WH_WIRE*), then -n 2 -s 2; DiFacto at its
+   width at -n 2 -s 2 over the [e2e] 2^22 file (4 parts, 65,536 rows a
+   batch, 1 pass) with a 65,536-row val file. Against the single-process
+   card run on the same conf (in this process: one loader for the bar,
+   the solver's own for examples/s): the -n 1 -s 1 sync model the
+   servers saved scores the val file within 1e-3 logloss, every other
+   launch within 0.05; DiFacto's shards carry w, z, n, cnt, V and nV and
+   reassemble. Per launch from the workers' [ps-wire] lines: examples/s
+   of the last train round (bench.py:400), wire bytes a sync against
+   the dense 5 x 2^26 x 4, perf_sec (push, pull, wait, step), the key
+   cache's hits, the peak RSS, the row copies between card and host,
+   and each worker's kernel launches (each must have launched its
+   path's kernels and parse_libsvm on cuda); the scheduler and the
+   servers must report no CUDA context. The workers are child
+   processes: their launches are not in the kernels line's counts.
+   DiFacto's -n 1 -s 1 sync run is held within 1e-3 of the single
+   process, its -n 2 -s 2 run's saved shards to the workers' own val
+   logloss; that run's distance from the single process is reported
+   beside the 0.05 bar, which the synthetic labels (no signal) do not let
+   the JAX package's launcher hold either (tests/torch_ps_reference.py).
+   [ps] takes ~160 s of command time, the whole script ~575 s.
 
 The launches of parse_libsvm over the apps, the passes, the k-means run,
 the L-BFGS apps and [cache] make its launch count; parse_criteo's are
@@ -2734,12 +2766,12 @@ STAGES = ("load", "pack", "h2d", "step", "metrics")
 
 
 @contextlib.contextmanager
-def cache_knobs(**env):
-    """The loader plane's knobs for a block: those in `env` set, the rest
-    unset; restored after, so the phases around it run unchanged."""
-    old = {k: os.environ.get(k) for k in CACHE_KNOBS}
+def set_knobs(names, **env):
+    """The knobs `names` for a block: those in `env` set, the rest unset;
+    restored after, so the phases around it run unchanged."""
+    old = {k: os.environ.get(k) for k in names}
     try:
-        for k in CACHE_KNOBS:
+        for k in names:
             os.environ.pop(k, None)
         os.environ.update(env)
         yield
@@ -2749,6 +2781,11 @@ def cache_knobs(**env):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def cache_knobs(**env):
+    """The loader plane's knobs for a block (see set_knobs)."""
+    return set_knobs(CACHE_KNOBS, **env)
 
 
 @contextlib.contextmanager
@@ -3067,7 +3104,7 @@ def same_linear_packs(device, lrn, sol, path: str) -> int:
     learner, byte for byte. Returns the number of batches held."""
     from wormhole_tpu_torch.data import pack_cache as pc
     from wormhole_tpu_torch.data.minibatch import MinibatchIter
-    from wormhole_tpu_torch.solver.minibatch_solver import list_parts
+    from wormhole_tpu_torch.solver.workload import list_parts
 
     token = sol._pass_cache_token(True)
     if token is None:
@@ -4265,6 +4302,311 @@ def run_serve(device, smi: str, workdir: str,
                                      v_buckets, checks, minibatch, nnz)}
 
 
+# ---------------------------------------------------------------- ps
+# bench.py bench_linear_ps's operating point, nothing cut: linear FTRL at
+# 2^26 buckets, lambda_l1 1, 100,000 synthetic Criteo rows in 4 files,
+# minibatch 25,000, max_delay 2, 2 passes; -n 1 -s 1 in three planes and
+# -n 2 -s 2 beside it; DiFacto at its width at -n 2 -s 2 on the [e2e]
+# 2^22 file
+PS_ROWS = 100_000
+PS_FILES = 4
+# bench_linear_ps's 25,000 rows a batch (a file's rows: one batch a
+# part), in a capacity rounded up to the kernels' 128-row lanes
+# (kernel=pallas needs minibatch % 128 == 0; the JAX bench's auto kernel
+# takes its plain path at 25,000)
+PS_MINIBATCH = 25_088
+PS_VAL_ROWS = 25_000     # a val file of the same shape, for the bars
+PS_PASSES = 2
+PS_MAX_DELAY = 2
+PS_LAUNCH_TIMEOUT_S = 240  # each launch's own; its group is killed after
+PS_N1_BAR = 1e-3   # -n 1 -s 1 sync against the single-process card run
+PS_N2_BAR = 0.05   # -n 2 runs (tests/test_apps.py:195, :253)
+PS_PLANES = (("async+keycache", {"WH_ASYNC_SYNC": "1", "WH_KEYCACHE": "1"}),
+             ("sync", {"WH_ASYNC_SYNC": "0", "WH_KEYCACHE": "0"}),
+             ("int8+ef+bshuf", {"WH_ASYNC_SYNC": "1", "WH_KEYCACHE": "1",
+                                "WH_WIRE": "int8", "WH_WIRE_EF": "1",
+                                "WH_WIRE_COMP": "bshuf"}))
+# the compact linear worker's kernels (and every worker parses on the card)
+LINEAR_PS_KERNELS = ("tile_gather", "coo_spmv_t", "scatter_update",
+                     "parse_libsvm")
+PS_KNOBS = ("WH_ASYNC_SYNC", "WH_KEYCACHE", "WH_WIRE", "WH_WIRE_EF",
+            "WH_WIRE_COMP", "WH_PS_PLANE", "WH_NUM_LOADERS", "WH_ROLE")
+
+
+def ps_launch(tag: str, n: int, s: int, app: str, conf: str, device,
+              env: dict, kernels=(), timeout=PS_LAUNCH_TIMEOUT_S) -> dict:
+    """One launch as a user runs it: python -m
+    wormhole_tpu_torch.launcher.dmlc_tpu -n N -s S -- python -m
+    wormhole_tpu_torch.apps.APP conf device=... kernel=pallas, in a
+    session of its own, the whole group killed on timeout. Returns the
+    workers' [ps-wire] records, the scheduler's final val line and the
+    launch's wall; fails unless it exited 0, every worker reported (on
+    the card: and launched each of `kernels`), and no scheduler or
+    server opened a CUDA context."""
+    import re
+    import signal
+
+    import torch
+
+    argv = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
+            "-n", str(n), "-s", str(s), "--", sys.executable, "-m",
+            f"wormhole_tpu_torch.apps.{app}", conf, f"device={device}",
+            "kernel=pallas"]
+    full = {k: v for k, v in os.environ.items() if k not in PS_KNOBS}
+    full.update(env, PYTHONPATH=ROOT)
+    t = time.perf_counter()
+    p = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=full,
+                         cwd=ROOT, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        raise AssertionError(f"[ps] {tag}: launch timed out after "
+                             f"{timeout}s; its group was killed\n"
+                             f"{out[-3000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+    wall = time.perf_counter() - t
+    if p.returncode != 0:
+        raise AssertionError(f"[ps] {tag}: launch exited {p.returncode}\n"
+                             f"{out[-4000:]}")
+    wires = [json.loads(m) for m in re.findall(r"\[ps-wire\] (\{.*\})", out)]
+    m = re.search(r"final val: logloss=([0-9.]+) auc=([0-9.]+)", out)
+    ctx = re.findall(r"\[(scheduler|ps server \d+)\] cuda context: (.+)",
+                     out)
+    if len(wires) != n or m is None or len(ctx) != 1 + s:
+        raise AssertionError(f"[ps] {tag}: {len(wires)} [ps-wire] lines of "
+                             f"{n}, final val {m is not None}, {len(ctx)} "
+                             f"cuda-context lines of {1 + s}\n"
+                             f"{out[-3000:]}")
+    opened = [r for r, c in ctx if not c.startswith("none")]
+    if opened:
+        raise AssertionError(f"[ps] {tag}: {opened} opened a CUDA context")
+    if torch.device(device).type == "cuda":
+        for w in wires:
+            missing = [k for k in kernels
+                       if not w.get("kernel_launches", {}).get(k)]
+            if missing or w.get("device", "").split(":")[0] != "cuda":
+                raise AssertionError(
+                    f"[ps] {tag}: worker {w['rank']} on {w.get('device')} "
+                    f"launched no {missing}")
+    return {"wires": wires, "logloss": float(m.group(1)),
+            "auc": float(m.group(2)), "wall_s": wall}
+
+
+def ps_summary(rec: dict) -> dict:
+    """bench_linear_ps's numbers of one launch: examples/s of the last
+    train round (its examples over its slowest worker's seconds), wire
+    bytes a sync, the perf split summed over the workers, the key cache's
+    hits, each worker's peak RSS, the d2h and h2d row copies."""
+    ws = rec["wires"]
+    nex = sum(w["last_round_nex"] for w in ws)
+    sec = max(w["last_round_sec"] for w in ws)
+    perf: dict = {}
+    for w in ws:
+        for k, v in w.get("perf_sec", {}).items():
+            perf[k] = round(perf.get(k, 0.0) + v, 3)
+    return {"examples_per_s": nex / max(sec, 1e-9),
+            "bytes_per_sync": [w["last_round_bytes_per_sync"] for w in ws],
+            "syncs": [w["num_syncs"] for w in ws],
+            "perf_sec": perf,
+            "keycache_hits": [w["keycache_hits"] for w in ws],
+            "keycache_hit_rate": [w["keycache_hit_rate"] for w in ws],
+            "sync_overlap": [w["sync_overlap_frac"] for w in ws],
+            "peak_rss_mb": [w["peak_rss_mb"] for w in ws],
+            "d2h_copies": [w.get("d2h_copies") for w in ws],
+            "h2d_copies": [w.get("h2d_copies") for w in ws],
+            "kernel_launches": [w.get("kernel_launches") for w in ws],
+            "val_logloss": rec["logloss"], "val_auc": rec["auc"],
+            "launch_wall_s": rec["wall_s"]}
+
+
+def ps_single(app: str, conf: str, device, loaders=None) -> dict:
+    """The single-process run on the same conf in this process (the
+    app's run_minibatch_app): examples/s of the last train pass (rows
+    over its wall, as bench_linear_ps takes it) and the val logloss."""
+    import contextlib as _cl
+    import io
+    import re
+
+    from wormhole_tpu_torch.apps import _runner, difacto, linear
+    from wormhole_tpu_torch.config import load_config
+
+    mod = {"linear": linear, "difacto": difacto}[app]
+    cls = mod.LinearConfig if app == "linear" else mod.DifactoConfig
+    cfg = load_config(cls, conf_file=conf, argv=["kernel=pallas"])
+    cfg.model_out = None  # the launches' model files stay theirs
+    text = io.StringIO()
+    env = {"WH_NUM_LOADERS": str(loaders)} if loaders else {}
+    with set_knobs(PS_KNOBS, **env), _cl.redirect_stdout(text):
+        res = _runner.run_minibatch_app(cfg, mod.make_learner, device)
+    walls = re.findall(r"train pass \d+: \d+ minibatches, .* wall ([\d.]+)s",
+                       text.getvalue())
+    if not walls:
+        raise AssertionError(f"[ps] single {app}: no pass line\n"
+                             f"{text.getvalue()[-2000:]}")
+    return {"walls": [float(w) for w in walls],
+            "val_logloss": res["val"].mean("logloss"),
+            "val_auc": res["val"].mean("auc")}
+
+
+def ps_saved_logloss(app: str, conf: str, path: str, device) -> float:
+    """The val logloss of the model a server group saved, scored on the
+    card by a fresh learner of `app`."""
+    from wormhole_tpu_torch.config import load_config
+    from wormhole_tpu_torch.models.difacto import (DifactoConfig,
+                                                   DifactoLearner)
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.solver.minibatch_solver import MinibatchSolver
+    from wormhole_tpu_torch.utils import checkpoint as ckpt
+
+    cls, lcls = ((LinearConfig, LinearLearner) if app == "linear"
+                 else (DifactoConfig, DifactoLearner))
+    cfg = load_config(cls, conf_file=conf, argv=["kernel=pallas"])
+    lrn = lcls(cfg, device=device)
+    ckpt.load_model(getattr(lrn, "ckpt_store", None) or lrn.store, path)
+    sol = MinibatchSolver(lrn, cfg, verbose=False)
+    return sol.iterate(cfg.val_data, False).mean("logloss")
+
+
+def write_ps_conf(path: str, body: dict) -> str:
+    with open(path, "w") as f:
+        f.write("".join(f"{k} = {v}\n" for k, v in body.items()))
+    return path
+
+
+def run_ps(device, smi: str, workdir: str, e2e_file: str,
+           num_buckets=COMPACT_BUCKETS, rows=PS_ROWS, files=PS_FILES,
+           minibatch=PS_MINIBATCH, val_rows=PS_VAL_ROWS, passes=PS_PASSES,
+           fm_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
+           fm_minibatch=MINIBATCH, fm_val_rows=MINIBATCH,
+           fm_rows=E2E_BATCHES * MINIBATCH) -> dict:
+    """[ps]: the parameter-server plane through the launcher (see the
+    module docstring). Every launch's workers train on `device` with
+    kernel=pallas, so a worker without its kernels fails the launch."""
+    import torch
+
+    from wormhole_tpu_torch.utils import checkpoint as ckpt
+
+    d = os.path.join(workdir, "ps")
+    os.makedirs(d)
+    t = time.perf_counter()
+    for p in range(files):
+        write_libsvm(os.path.join(d, f"train-{p}.libsvm"), num_buckets,
+                     rows // files, seed=70 + p)
+    val = os.path.join(d, "val.libsvm")
+    write_libsvm(val, num_buckets, val_rows, seed=79)
+    fm_val = os.path.join(d, "fm-val.libsvm")
+    write_libsvm(fm_val, fm_buckets, fm_val_rows, seed=63)
+    log(f"[ps] files written in {time.perf_counter() - t:.1f}s")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the workers' contexts share the card
+    base = {"train_data": f"{d}/train-.*", "val_data": val, "algo": "ftrl",
+            "lambda_l1": 1, "lr_eta": 0.1, "minibatch": minibatch,
+            "nnz_per_row": NNZ_PER_ROW, "num_buckets": num_buckets,
+            "num_parts_per_file": 1, "max_data_pass": passes,
+            "max_delay": PS_MAX_DELAY, "print_sec": 3600}
+    out = {}
+    conf = write_ps_conf(os.path.join(d, "n1.conf"),
+                         dict(base, model_out=f"{d}/model-n1"))
+    # the single-process card run: one loader (the parts in file order,
+    # as the -n 1 worker takes them) for the logloss bar, and the
+    # solver's own loaders for the examples/s beside the launches
+    one = ps_single("linear", conf, device, loaders=1)
+    single = ps_single("linear", conf, device)
+    out["single"] = {"examples_per_s": rows / single["walls"][-1],
+                     "val_logloss": one["val_logloss"],
+                     "val_auc": one["val_auc"]}
+    log(f"[ps] single process: {json.dumps(out['single'])}")
+    for tag, env in PS_PLANES:
+        rec = ps_launch(f"n1s1 {tag}", 1, 1, "linear", conf, device, env,
+                        LINEAR_PS_KERNELS)
+        out[f"n1s1 {tag}"] = ps_summary(rec)
+        saved = ps_saved_logloss("linear", conf, f"{d}/model-n1", device)
+        out[f"n1s1 {tag}"]["saved_val_logloss"] = saved
+        diff = abs(saved - one["val_logloss"])
+        bar = PS_N1_BAR if tag == "sync" else PS_N2_BAR
+        log(f"[ps] -n 1 -s 1 {tag}: {json.dumps(out[f'n1s1 {tag}'])}; the "
+            f"servers' model scores val {saved:.6f} against the single "
+            f"process's {one['val_logloss']:.6f} (|diff| {diff:.2e}, bar "
+            f"{bar})")
+        if not diff <= bar:
+            raise AssertionError(f"[ps] n1s1 {tag}: val logloss {saved} "
+                                 f"vs {one['val_logloss']}")
+    conf2 = write_ps_conf(os.path.join(d, "n2.conf"),
+                          dict(base, model_out=f"{d}/model-n2"))
+    rec = ps_launch("n2s2 linear", 2, 2, "linear", conf2, device,
+                    dict(PS_PLANES[0][1]), LINEAR_PS_KERNELS)
+    out["n2s2 linear"] = ps_summary(rec)
+    saved = ps_saved_logloss("linear", conf2, f"{d}/model-n2", device)
+    out["n2s2 linear"]["saved_val_logloss"] = saved
+    log(f"[ps] -n 2 -s 2 linear: {json.dumps(out['n2s2 linear'])}")
+    if not abs(saved - one["val_logloss"]) <= PS_N2_BAR:
+        raise AssertionError(f"[ps] n2s2 linear: val logloss {saved} vs "
+                             f"{one['val_logloss']}")
+    fm = {"train_data": e2e_file, "val_data": fm_val, "algo": "ftrl",
+          "lambda_l1": 1, "lr_eta": 0.1, "minibatch": fm_minibatch,
+          "nnz_per_row": NNZ_PER_ROW, "num_buckets": fm_buckets,
+          "v_buckets": v_buckets, "dim": FM_DIM, "threshold": 2,
+          "num_parts_per_file": E2E_PARTS, "max_data_pass": 1,
+          "max_delay": PS_MAX_DELAY, "print_sec": 3600}
+    fconf = write_ps_conf(os.path.join(d, "fm.conf"),
+                          dict(fm, model_out=f"{d}/fm-model-n1"))
+    fconf2 = write_ps_conf(os.path.join(d, "fm2.conf"),
+                           dict(fm, model_out=f"{d}/fm-model"))
+    fone = ps_single("difacto", fconf, device, loaders=1)
+    fsingle = ps_single("difacto", fconf, device)
+    out["difacto single"] = {"examples_per_s": fm_rows / fsingle["walls"][-1],
+                             "val_logloss": fone["val_logloss"],
+                             "val_auc": fone["val_auc"]}
+    log(f"[ps] difacto single process: {json.dumps(out['difacto single'])}")
+    # -n 1 -s 1 sync: the DiFacto plane's parity with the single process
+    rec = ps_launch("n1s1 difacto", 1, 1, "difacto", fconf, device,
+                    dict(PS_PLANES[1][1]), FM_KERNELS)
+    out["n1s1 difacto sync"] = ps_summary(rec)
+    diff = abs(rec["logloss"] - fone["val_logloss"])
+    log(f"[ps] -n 1 -s 1 difacto sync: {json.dumps(out['n1s1 difacto sync'])}"
+        f"; val {rec['logloss']:.6f} against the single process's "
+        f"{fone['val_logloss']:.6f} (|diff| {diff:.2e}, bar {PS_N1_BAR})")
+    if not diff <= PS_N1_BAR:
+        raise AssertionError(f"[ps] n1s1 difacto: val logloss "
+                             f"{rec['logloss']} vs {fone['val_logloss']}")
+    # -n 2 -s 2: one shared model (its saved shards score val as the
+    # scheduler's final line says); its distance from the single process
+    # is reported beside the 0.05 bar, which this configuration's labels
+    # (no signal: 30% positive at random) do not let either package hold
+    # (PERF.md §6)
+    rec = ps_launch("n2s2 difacto", 2, 2, "difacto", fconf2, device,
+                    dict(PS_PLANES[0][1]), FM_KERNELS)
+    out["n2s2 difacto"] = ps_summary(rec)
+    saved = ps_saved_logloss("difacto", fconf2, f"{d}/fm-model", device)
+    out["n2s2 difacto"]["saved_val_logloss"] = saved
+    gap = abs(rec["logloss"] - fone["val_logloss"])
+    out["n2s2 difacto"]["vs_single"] = gap
+    log(f"[ps] -n 2 -s 2 difacto: {json.dumps(out['n2s2 difacto'])}; the "
+        f"saved shards score val {saved:.6f} (the scheduler's line "
+        f"{rec['logloss']:.6f}); against the single process "
+        f"{fone['val_logloss']:.6f}: |diff| {gap:.4f} "
+        f"({'within' if gap <= PS_N2_BAR else 'over'} {PS_N2_BAR})")
+    if not (math.isfinite(saved) and abs(saved - rec["logloss"]) <= PS_N1_BAR):
+        raise AssertionError(f"[ps] n2s2 difacto: the saved model scores "
+                             f"{saved}, the workers {rec['logloss']}")
+    shapes = {k: v.shape for k, v in ckpt.load_parts(f"{d}/fm-model").items()}
+    want = {"w": (fm_buckets,), "z": (fm_buckets,), "n": (fm_buckets,),
+            "cnt": (fm_buckets,), "V": (v_buckets, FM_DIM),
+            "nV": (v_buckets, FM_DIM)}
+    if shapes != want:
+        raise AssertionError(f"[ps] difacto's saved shards: {shapes}")
+    dense = 5 * num_buckets * 4
+    log(f"[ps] dense wire at this width: {dense} bytes a sync (push z+n, "
+        f"pull w+z+n)")
+    out["dense_bytes_per_sync"] = dense
+    return out
+
+
 def data_phases(device, smi: str, data_dir: str, knums: dict,
                 launches: dict) -> None:
     """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
@@ -4388,6 +4730,14 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
         launches[k] += counts[k]
     log(f"[cache] {smi}: " + json.dumps(cache))
     log(f"[phase] cache {time.perf_counter() - t:.1f}s")
+
+    # the PS plane: its workers are child processes, so their launches
+    # are not in the kernels line's counts; each launch checks its
+    # workers' own counts
+    t = time.perf_counter()
+    ps = run_ps(device, smi, data_dir, files[DENSE_BUCKETS])
+    log(f"[ps] {smi}: " + json.dumps(ps))
+    log(f"[phase] ps {time.perf_counter() - t:.1f}s")
 
 
 

@@ -1289,3 +1289,200 @@ def test_serving_scorer_on_the_card_matches_the_cpu(cuda, model):
         want = host.score(host.pack(blk), rows)
         assert got.shape == (n,) and np.isfinite(got).all()
         np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-4)
+
+
+# -- the parameter-server plane's seams with the card ---------------------
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["rows", "empty"])
+def test_kvstore_rows_on_the_card_at_2_26(cuda, case):
+    """KVStore.gather_rows / scatter_rows on the card at 2^26 buckets:
+    a sentinel-free unique index set (the PS plane's touched rows) and
+    the empty set; the CPU store holds the same rows."""
+    from wormhole_tpu_torch.parallel.kvstore import KVStore, TableSpec
+
+    nb = 1 << 26
+    specs = {k: TableSpec() for k in ("w", "z", "n")}
+    card = KVStore(nb, specs, device=cuda)
+    rng = np.random.default_rng(3)
+    idx = (np.unique(rng.integers(0, nb, size=200_000)) if case == "rows"
+           else np.empty(0, np.int64))
+    vals = {k: rng.normal(size=len(idx)).astype(np.float32) for k in specs}
+    for k, v in vals.items():
+        card.scatter_rows(k, idx, v)
+    got = card.gather_rows_multi(["z", "n"], idx)
+    for k in ("z", "n"):
+        np.testing.assert_array_equal(got[k], vals[k])
+    np.testing.assert_array_equal(card.gather_rows("w", idx), vals["w"])
+    assert card.gather_rows("w", idx).shape == (len(idx),)
+    # untouched rows stay zero: the table sums to the scattered values
+    for k in specs:
+        assert int(torch.count_nonzero(card.state[k])) == int(
+            np.count_nonzero(vals[k]))
+    host = KVStore(1 << 20, {"w": TableSpec()}, device="cpu")
+    small = idx[idx < 1 << 20]
+    host.scatter_rows("w", small, vals["w"][idx < 1 << 20])
+    np.testing.assert_array_equal(host.gather_rows("w", small),
+                                  card.gather_rows("w", small))
+
+
+def _linear_batches(nb, n_batches, rows=1024, nnz=32, seed=0):
+    from wormhole_tpu_torch.data.rowblock import RowBlock
+
+    rng = np.random.default_rng(seed)
+    hot = rng.integers(0, nb, size=4096)
+    for _ in range(n_batches):
+        offset = np.arange(rows + 1, dtype=np.int64) * nnz
+        index = np.where(rng.random(rows * nnz) < 0.5,
+                         rng.choice(hot, rows * nnz),
+                         rng.integers(0, nb, rows * nnz))
+        yield RowBlock(label=(rng.random(rows) < 0.3).astype(np.float32),
+                       offset=offset, index=index.astype(np.uint64),
+                       value=np.ones(rows * nnz, np.float32))
+
+
+class _Recorder:
+    """Store proxy that records the thread of every call SyncedStore makes
+    into the learner's store (the only way it reaches the card)."""
+
+    def __init__(self, store):
+        self._store = store
+        self.threads = set()
+
+    def __getattr__(self, name):
+        attr = getattr(self._store, name)
+        if not callable(attr):
+            return attr
+
+        def call(*a, **kw):
+            self.threads.add(threading.current_thread().name)
+            return attr(*a, **kw)
+
+        return call
+
+
+def _run_synced(cuda, async_sync, flush_every, batches, nb):
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.runtime import ps_server as ps
+
+    node = ps.ServerNode(0, 1)
+    node.serve()
+    client = ps.PSClient([node.uri], sender="w0")
+    torch_calls = []
+
+    def prof(frame, event, arg):
+        if threading.current_thread().name != "ps-sync-comms":
+            return
+        mod = (getattr(arg, "__module__", "") or "") if event == "c_call" \
+            else frame.f_globals.get("__name__", "")
+        if mod.startswith("torch"):
+            torch_calls.append((event, mod))
+
+    threading.setprofile(prof)
+    try:
+        cfg = LinearConfig(num_buckets=nb, minibatch=1024, nnz_per_row=32,
+                           algo="ftrl", lambda_l1=1.0, kernel="pallas",
+                           kernel_dtype="f32")
+        lrn = LinearLearner(cfg, device=cuda)
+        lrn.track_touched = True
+        rec = _Recorder(lrn.store)
+        ss = ps.SyncedStore(rec, client, max_delay=1,
+                            derived=lrn.derived_tables(),
+                            touched_fn=lrn.collect_touched,
+                            async_sync=async_sync)
+        ss.init()
+        for i, blk in enumerate(batches):
+            lrn.train_batch(blk)
+            ss.maybe_sync()
+            if (i + 1) % flush_every == 0:
+                ss.flush()
+        ss.flush()
+        assert lrn.prepare_batch(blk)[0] == "tcoo"  # the compact path
+        used_thread = ss._comm_thread is not None
+        lag = ss.max_fold_lag
+        ss.close()
+        tables = lrn.store.to_numpy()
+        server = client.pull()
+    finally:
+        threading.setprofile(None)
+        client.close()
+        node.stop()
+    return tables, server, rec.threads, torch_calls, used_thread, lag
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flush_every", [1, 4])
+def test_synced_store_async_matches_sync_on_the_card(cuda, flush_every):
+    """A SyncedStore over an in-process ServerNode with the linear compact
+    learner on the card. Async sync hands every wire round-trip to its
+    comms thread, which makes no torch call (a profile hook on it); the
+    store's rows are gathered and scattered on the training thread only.
+    After flush() each run's tables equal the server's. With a flush
+    after every sync the async run's tables equal the sync run's bit for
+    bit. With four syncs between flushes the round-trips overlap the
+    steps (a fold lags one sync), and the two runs part ways by design:
+    a step reads w rows the fold has not refreshed yet (the bounded
+    staleness of 2 * max_delay minibatches)."""
+    nb = 1 << 22
+    batches = list(_linear_batches(nb, 8))
+    t_sync, s_sync, th_sync, _, used_sync, _ = _run_synced(
+        cuda, False, flush_every, batches, nb)
+    t_async, s_async, th_async, calls, used_async, lag = _run_synced(
+        cuda, True, flush_every, batches, nb)
+    assert not used_sync and used_async
+    assert calls == []
+    assert th_sync == th_async == {threading.current_thread().name}
+    for t, s in ((t_sync, s_sync), (t_async, s_async)):
+        for k in ("w", "z", "n"):
+            np.testing.assert_array_equal(t[k], s[k], err_msg=k)
+    assert np.count_nonzero(t_sync["w"]) > 0
+    assert lag == 1  # folds lag one sync: the round-trips ran async
+    if flush_every == 1:
+        for k in ("w", "z", "n"):
+            np.testing.assert_array_equal(t_async[k], t_sync[k], err_msg=k)
+
+
+@pytest.mark.cuda
+def test_difacto_count_mirror_after_a_sparse_pull(cuda):
+    """DiFacto on the card: another worker's count pushes reach this
+    worker through a sparse pull, and the host count mirror its packs
+    admit from equals the card's cnt table afterwards."""
+    from wormhole_tpu_torch.models.difacto import (DifactoConfig,
+                                                   DifactoLearner)
+    from wormhole_tpu_torch.runtime import ps_server as ps
+
+    nb = 1 << 20
+    cfg = DifactoConfig(num_buckets=nb, v_buckets=1 << 16, dim=8,
+                        threshold=2, minibatch=1024, nnz_per_row=32,
+                        kernel="pallas", kernel_dtype="f32")
+    node = ps.ServerNode(0, 1)
+    node.serve()
+    c0 = ps.PSClient([node.uri], sender="w0")
+    c1 = ps.PSClient([node.uri], sender="w1")
+    try:
+        lrn = DifactoLearner(cfg, device=cuda)
+        lrn.track_touched = True
+        ss = ps.SyncedStore(lrn.ckpt_store, c0, max_delay=1,
+                            derived=lrn.derived_tables(),
+                            touched_fn=lrn.collect_touched)
+        ss.init()
+        batches = list(_linear_batches(nb, 3, seed=5))
+        lrn.train_batch(batches[0])
+        ss.sync()
+        # the other worker counts keys this one has not seen
+        c1.pull()  # learns the tables' row spaces
+        idx = np.arange(7, nb, 9973, dtype=np.int64)
+        c1.push_sparse({nb: idx}, {"cnt": np.full(len(idx), 3.0,
+                                                  np.float32)})
+        lrn.train_batch(batches[1])
+        ss.sync()
+        cnt = lrn.store.state["cnt"].cpu().numpy()
+        np.testing.assert_array_equal(lrn._cnt_host, cnt)
+        assert (cnt[idx] >= 3.0).all()
+        lrn.train_batch(batches[2])  # packs admit from the pulled counts
+        ss.flush()
+        np.testing.assert_array_equal(lrn._cnt_host,
+                                      lrn.store.state["cnt"].cpu().numpy())
+    finally:
+        c0.close()
+        c1.close()
+        node.stop()

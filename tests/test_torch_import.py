@@ -151,3 +151,34 @@ def test_scan_covers_the_serving_tier():
                 "runtime/faults.py", "utils/manifest.py", "obs/flight.py",
                 "obs/trace.py", "obs/pyprof.py"):
         assert PORT / rel in SOURCES
+
+
+def test_scan_covers_the_ps_plane():
+    """The scheduler, the PS servers and SyncedStore, their journal, the
+    launcher, the pool and the obs modules they report through are among
+    the sources scanned and the modules the probe imports."""
+    for rel in ("runtime/tracker.py", "runtime/ps_server.py",
+                "runtime/sched_journal.py", "launcher/dmlc_tpu.py",
+                "solver/workload.py", "obs/prom.py", "obs/slo.py",
+                "obs/report.py", "utils/perf.py"):
+        assert PORT / rel in SOURCES
+
+
+def test_ps_plane_host_modules_import_no_torch():
+    """The roles that never touch the card (scheduler, servers, launcher)
+    run on modules that import neither torch nor JAX."""
+    probe = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import wormhole_tpu_torch.runtime.tracker\n"
+        "import wormhole_tpu_torch.runtime.ps_server\n"
+        "import wormhole_tpu_torch.launcher.dmlc_tpu\n"
+        "import wormhole_tpu_torch.solver.workload\n"
+        "import wormhole_tpu_torch.obs.report\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'wormhole_tpu'))\n"
+        "assert not bad, bad\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr

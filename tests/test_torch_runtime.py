@@ -202,3 +202,24 @@ def test_declared_knobs_match_the_jax_registry():
     for name, knob in tconfig.KNOBS.items():
         assert dataclasses.astuple(knob) == \
             dataclasses.astuple(jconfig.KNOBS[name]), name
+
+
+def test_every_knob_the_port_reads_is_declared():
+    """Each `knob_value("WH_...")` in the port's sources names a knob of
+    its registry (the PS plane's among them), so none fails at run time
+    with a KeyError the CPU tests never reach."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(tconfig.__file__).parent
+    read = set()
+    for path in root.rglob("*.py"):
+        read |= set(re.findall(r'knob_value\("(WH_[A-Z0-9_]+)"\)',
+                               path.read_text()))
+    assert {"WH_ELASTIC", "WH_ELASTIC_JOIN", "WH_ELASTIC_PLAN",
+            "WH_SCHED_JOURNAL", "WH_OBS_RING"} <= read
+    assert read <= set(tconfig.KNOBS), sorted(read - set(tconfig.KNOBS))
+    for name in ("WH_PS_RETRY_SEC", "WH_ASYNC_SYNC", "WH_KEYCACHE",
+                 "WH_WIRE", "WH_WIRE_EF", "WH_WIRE_COMP", "WH_PS_PLANE",
+                 "WH_SCHED_RETRY_SEC", "WH_SERVE_SNAPSHOT"):
+        assert name in tconfig.KNOBS, name

@@ -17,6 +17,8 @@ Every app reads its data through `data_format=` (convert:
 Each reads a `key = value` conf file plus CLI overrides (arg_parser.h
 semantics) and runs single-process on one device (`device=cuda` by
 default). linear and gbdt also run under `python -m torch.distributed.run
---nproc-per-node N -m ...`, one rank a device, on a mesh of the ranks
-(apps/_runner.py).
+--nproc-per-node N -m ...`, one rank a device, on a mesh of the ranks;
+linear and difacto under the PS launcher (`python -m
+wormhole_tpu_torch.launcher.dmlc_tpu -n N -s S -- python -m ...`), as
+its scheduler, server, serve and worker roles (apps/_runner.py).
 """

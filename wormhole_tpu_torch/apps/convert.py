@@ -22,7 +22,7 @@ import sys
 from wormhole_tpu_torch.apps._runner import parse_cli
 from wormhole_tpu_torch.data.crb import write_crb
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
-from wormhole_tpu_torch.solver.minibatch_solver import match_file
+from wormhole_tpu_torch.solver.workload import match_file
 
 
 @dataclasses.dataclass

@@ -1,7 +1,10 @@
 """difacto.dmlc: the asynchronous factorization machine (reference
-learn/difacto/difacto.cc + config.proto surface), on one device.
+learn/difacto/difacto.cc + config.proto surface), on one device or as a
+role of the PS launcher.
 
   python -m wormhole_tpu_torch.apps.difacto guide/demo.conf dim=8 device=cuda
+  python -m wormhole_tpu_torch.launcher.dmlc_tpu -n 2 -s 2 -- \
+      python -m wormhole_tpu_torch.apps.difacto guide/demo.conf device=cuda
 """
 
 from __future__ import annotations

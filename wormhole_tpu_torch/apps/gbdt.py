@@ -11,7 +11,8 @@ from __future__ import annotations
 
 import sys
 
-from wormhole_tpu_torch.apps._runner import parse_cli, ranks_of_launch
+from wormhole_tpu_torch.apps._runner import (parse_cli, ranks_of_launch,
+                                              refuse_roles)
 from wormhole_tpu_torch.models.gbdt import GbdtConfig, GbdtLearner
 from wormhole_tpu_torch.parallel.mesh import make_mesh
 from wormhole_tpu_torch.solver.workload import iter_rowblocks
@@ -20,6 +21,7 @@ from wormhole_tpu_torch.solver.workload import iter_rowblocks
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     cfg, device = parse_cli(GbdtConfig, argv, ranks=True)
+    refuse_roles("gbdt", "4 (the BSP allreduce plane)")
     if cfg.bsp:
         raise NotImplementedError(
             "bsp=1 (GBDT over the BSP allreduce ring) waits for the port's "

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import sys
 
-from wormhole_tpu_torch.apps._runner import parse_cli
+from wormhole_tpu_torch.apps._runner import parse_cli, refuse_roles
 from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
 
 
@@ -22,6 +22,7 @@ def main(argv=None) -> int:
     argv = [a.replace("data=", "train_data=", 1)
             if a.startswith("data=") else a for a in argv]
     cfg, device = parse_cli(KmeansConfig, argv)
+    refuse_roles("kmeans", "4 (the BSP allreduce plane)")
     if cfg.global_mesh:
         raise NotImplementedError(
             "global_mesh=1 (k-means with rows sharded over several "

@@ -20,7 +20,7 @@ from typing import Optional
 
 import numpy as np
 
-from wormhole_tpu_torch.apps._runner import parse_cli
+from wormhole_tpu_torch.apps._runner import parse_cli, refuse_roles
 from wormhole_tpu_torch.interop import lbfgs_state_from_numpy
 from wormhole_tpu_torch.models.batch_objectives import (
     LinearObjFunction, load_batches,
@@ -62,6 +62,7 @@ def solver_config(cfg) -> LBFGSConfig:
 
 
 def check_single_process(cfg) -> None:
+    refuse_roles("L-BFGS", "4 (the BSP allreduce plane)")
     if cfg.bsp:
         raise NotImplementedError(
             "bsp=1 (L-BFGS over the BSP allreduce ring) waits for the "

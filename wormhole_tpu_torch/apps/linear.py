@@ -1,10 +1,14 @@
 """linear.dmlc: async-SGD sparse logistic regression (reference
-learn/linear/linear.cc + config.proto surface), on one device or, under
-torch.distributed.run, on a (data x model) mesh of the launch's ranks.
+learn/linear/linear.cc + config.proto surface), on one device, under
+torch.distributed.run on a (data x model) mesh of the launch's ranks, or
+as a role of the PS launcher (workers training one shared model through
+the server group).
 
   python -m wormhole_tpu_torch.apps.linear guide/demo.conf lambda_l1=4 device=cuda
   python -m torch.distributed.run --nproc-per-node 4 \
       -m wormhole_tpu_torch.apps.linear guide/demo.conf model_shards=2
+  python -m wormhole_tpu_torch.launcher.dmlc_tpu -n 2 -s 1 -- \
+      python -m wormhole_tpu_torch.apps.linear guide/demo.conf device=cuda
 """
 
 from __future__ import annotations

@@ -345,3 +345,143 @@ declare_knob("WH_DEGRADE_AFTER_SEC", float, 2.0,
 declare_knob("WH_DEGRADE_CLEAR_SEC", float, 5.0,
              "Seconds the burn must stay clear before degraded mode "
              "deactivates.", group="serve")
+
+
+# -- the parameter-server plane: launcher, scheduler, servers, workers
+declare_knob("WH_ROLE", str, None,
+             "Node role (`scheduler`/`server`/`worker`); set by the launcher.",
+             group="runtime")
+declare_knob("WH_RANK", int, 0,
+             "Rank of this node within its role group.", group="runtime")
+declare_knob("WH_NUM_WORKERS", int, 1,
+             "Worker count the scheduler waits for.", group="runtime")
+declare_knob("WH_NUM_SERVERS", int, 1,
+             "Server count the scheduler waits for.", group="runtime")
+declare_knob("WH_SCHEDULER_URI", str, "",
+             "host:port of the scheduler RPC endpoint.", group="runtime")
+declare_knob("WH_COORD_URI", str, "",
+             "host:port of the coordination endpoint handed to nodes.",
+             group="runtime")
+declare_knob("WH_NODE_TIMEOUT", float, 30.0,
+             "Seconds without a heartbeat before the scheduler evicts a node.",
+             group="runtime")
+declare_knob("WH_RESTORE_EPOCH", int, 0,
+             "Epoch to restore server shards from after a respawn.",
+             group="faults")
+declare_knob("WH_SNAPSHOT_DIR", str, "",
+             "Directory for epoch-stamped PS shard snapshots; empty disables.",
+             group="faults")
+declare_knob("WH_PS_RETRY_SEC", float, 0.0,
+             "Client-side PS reconnect window in seconds (0 = fail fast).",
+             group="faults")
+declare_knob("WH_SCHED_RETRY_SEC", float, 0.0,
+             "Client-side scheduler RPC retry window in seconds (0 = fail "
+             "fast). Retried mutating ops carry a per-sender seq the "
+             "scheduler's journaled reply cache deduplicates, so retries "
+             "stay exactly-once across a scheduler restart. Exported "
+             "automatically by the launcher when --max-scheduler-restarts "
+             "is set.", group="faults")
+declare_knob("WH_SCHED_JOURNAL", bool, True,
+             "Write-ahead journal for the scheduler control plane under "
+             "WH_SNAPSHOT_DIR (sched.journal + sched.snapshot): every "
+             "state-mutating op is fsync'd before the reply is sent, and "
+             "a respawned scheduler replays it to resume the job. Only "
+             "active when WH_SNAPSHOT_DIR is set.", group="faults")
+declare_knob("WH_SCHED_JOURNAL_COMPACT", int, 512,
+             "Compact the scheduler journal into an atomic snapshot once "
+             "this many records accumulated (checked at round starts, the "
+             "quiescent point). 0 disables compaction.", group="faults")
+declare_knob("WH_OBS_SCRAPE_SEC", float, 0.0,
+             "Scheduler telemetry sampler period in seconds: each tick "
+             "appends the aggregated cluster snapshot to an in-memory ring "
+             "(the `metrics` verb's history=1 view). 0 = off.", group="obs")
+declare_knob("WH_OBS_RING", int, 120,
+             "Capacity of the scheduler's metrics-snapshot ring buffer.",
+             group="obs")
+declare_knob("WH_OBS_SCRAPE_PORT", int, 0,
+             "Prometheus text-exposition HTTP port on the scheduler "
+             "(GET /metrics). 0 = off.", group="obs")
+declare_knob("WH_SLO_SERVE_ERR_BUDGET", float, 0.001,
+             "Serving error SLO: failed fraction of router requests allowed "
+             "before the error budget is burned.", group="obs")
+declare_knob("WH_SLO_PS_RPC_P99_MS", float, 250.0,
+             "PS RPC latency SLO: p99 of ps.client.rpc_s must stay under "
+             "this many milliseconds.", group="obs")
+declare_knob("WH_ASYNC_SYNC", bool, False,
+             "Overlap PS push/pull with compute on a background comms thread.",
+             group="ps")
+declare_knob("WH_KEYCACHE", bool, False,
+             "Key-list digest caching on the PS wire (resend on miss).",
+             group="ps")
+declare_knob("WH_PS_PLANE", str, "auto",
+             "Parameter plane: 'tcp' = SyncedStore push/pull RPCs every "
+             "max_delay steps, 'hot' = device-resident sharded tables with "
+             "in-jit collective aggregation and the TCP servers demoted to "
+             "a cold tier synced at flush barriers, 'auto' = hot when the "
+             "job's workers share one process with >=2 devices.",
+             group="ps")
+declare_knob("WH_NET_COMPRESS", bool, False,
+             "zlib-compress every PS wire frame (negotiated in hello; both "
+             "ends must enable it). Meant for the hot plane's cold-tier/"
+             "snapshot path and cross-pod sync, where flush frames are "
+             "large and rare.", group="ps")
+declare_knob("WH_WIRE", str, "raw",
+             "Value encoding on the parameter wire: 'raw' f32, 'bf16' "
+             "truncation, 'int8' / 'int4' absmax quantization (per-row "
+             "scales for 2-D tables, per-64-element group scales for "
+             "1-D). Applies to SyncedStore pushes (accumulator tables "
+             "with TableSpec.wire_cap floor at bf16), PS pull replies "
+             "(capped at bf16 — absolute-state refreshes need "
+             "per-element relative precision — and derived tables skip "
+             "the wire: the client recomputes w from the pulled z/n), "
+             "and BSP allreduce chunks; negotiated in hello with "
+             "legacy-bf16 fallback for old peers.", group="ps")
+declare_knob("WH_WIRE_EF", bool, True,
+             "Error feedback for quantized wire values: re-inject each "
+             "row's quantization error the next time it ships, making "
+             "int8/int4 streams unbiased over time. PS pushes get it via "
+             "the SyncedStore base algebra, pulls via server-side "
+             "per-sender residuals; the BSP plane quantizes statelessly "
+             "regardless (cross-round residuals would break replay "
+             "bit-identity). No effect under WH_WIRE=raw.", group="ps")
+declare_knob("WH_WIRE_COMP", str, "",
+             "Frame compression mode: '' off, 'zlib' (the WH_NET_COMPRESS "
+             "codec), 'bshuf' = byte-plane shuffle + zlib-6 (groups "
+             "same-significance bytes; wins on ratio and speed for float "
+             "tables, and sorted index vectors additionally ship "
+             "delta-encoded). Hello-negotiated: an old peer that only "
+             "acks zlib gets zlib, one that acks nothing gets raw "
+             "frames.",
+             group="ps")
+declare_knob("WH_NUM_SERVE", int, 0,
+             "Serving-shard count the launcher's --serve role group exports.",
+             group="serve")
+declare_knob("WH_BSP_RETRY_SEC", float, 120.0,
+             "Total seconds a blocked BSP collective waits for a dead "
+             "peer's respawn before failing the job.",
+             group="bsp")
+declare_knob("WH_ELASTIC", bool, False,
+             "Elastic worker membership: the launcher supervises the worker "
+             "set and spawns/retires workers on scheduler decisions "
+             "(MembershipController or WH_ELASTIC_PLAN).", group="elastic")
+declare_knob("WH_ELASTIC_SEC", float, 5.0,
+             "Cadence of the scheduler's membership-controller loop (and "
+             "the launcher's elastic-decision poll).", group="elastic")
+declare_knob("WH_ELASTIC_MIN", int, 1,
+             "Floor of the elastic worker count; the controller never "
+             "shrinks below it.", group="elastic")
+declare_knob("WH_ELASTIC_MAX", int, 0,
+             "Ceiling of the elastic worker count (0 = twice the launch "
+             "size).", group="elastic")
+declare_knob("WH_ELASTIC_JOIN", bool, False,
+             "Set by the launcher's elastic supervisor on workers it spawns "
+             "mid-job: announce a `join` to the scheduler before taking "
+             "work (internal handshake, not user-facing).", group="elastic")
+declare_knob("WH_ELASTIC_PLAN", str, "",
+             "Scripted membership plan `join@<sec>,leave@<sec>,...` "
+             "(seconds from job start): deterministic churn for drills; "
+             "empty = gauge-driven controller decisions.", group="elastic")
+declare_knob("WH_SERVE_SNAPSHOT", str, "",
+             "Snapshot base path the serving shards load and watch "
+             "(default: <WH_SNAPSHOT_DIR>/srv — the trainer's PS shard "
+             "snapshots).", group="serve")

@@ -115,10 +115,13 @@ def _tables_for(cfg: DifactoConfig) -> dict[str, TableSpec]:
 
 
 class _CombinedStore:
-    """Checkpoint adapter presenting the w-tables and the V-tables as one
-    store (utils/checkpoint.py needs only to_numpy / from_numpy)."""
+    """Adapter presenting the w-tables and the V-tables as one store: to
+    utils/checkpoint.py (to_numpy / from_numpy) and to the PS plane's
+    SyncedStore (row gathers and scatters by table name, the zero-init
+    and wire-floor table sets)."""
 
     on_load = None  # callback fired after from_numpy (count-mirror sync)
+    on_sparse_pull = None  # callback fired with {table: (idx, rows)}
 
     def __init__(self, *stores):
         self.stores = stores
@@ -139,6 +142,42 @@ class _CombinedStore:
         if self.on_load is not None:
             self.on_load()
 
+    def _sub(self, name):
+        for s in self.stores:
+            if name in s.state:
+                return s
+        raise KeyError(name)
+
+    def gather_rows(self, name, idx):
+        return self._sub(name).gather_rows(name, idx)
+
+    def gather_rows_multi(self, names, idx):
+        """gather_rows_multi of each sub-store over its share of
+        `names` (one index transfer a sub-store)."""
+        by_store = {}
+        for k in names:
+            sub = self._sub(k)
+            by_store.setdefault(id(sub), (sub, []))[1].append(k)
+        out = {}
+        for sub, ks in by_store.values():
+            out.update(sub.gather_rows_multi(ks, idx))
+        return out
+
+    def scatter_rows(self, name, idx, vals):
+        self._sub(name).scatter_rows(name, idx, vals)
+
+    def zero_init_names(self):
+        out = set()
+        for s in self.stores:
+            out |= s.zero_init_names()
+        return out
+
+    def wire_cap_names(self):
+        out = set()
+        for s in self.stores:
+            out |= s.wire_cap_names()
+        return out
+
     @property
     def state(self):
         """Merged read view over both table groups (assign into the
@@ -147,6 +186,9 @@ class _CombinedStore:
         for s in self.stores:
             out.update(s.state)
         return out
+
+    def nnz(self, name="w"):
+        return self._sub(name).nnz(name)
 
 
 class DifactoLearner:
@@ -176,6 +218,13 @@ class DifactoLearner:
                               self.device, seed=seed + 1)
         self.ckpt_store = _CombinedStore(self.store, self.vstore)
         self.ckpt_store.on_load = self.refresh_count_mirror
+        self.ckpt_store.on_sparse_pull = self._on_sparse_pull
+        # sparse PS wire hints: unique w keys and V rows touched by
+        # trained batches since the last collect_touched() drain
+        self.track_touched = False
+        self._touched_lock = threading.Lock()
+        self._touched_w: list = []
+        self._touched_v: list = []
         self._dropped_rows = 0
         self._step_count = 0
         # nonzeros the compact pack dropped: to the slot caps, and to the
@@ -212,6 +261,15 @@ class DifactoLearner:
         self._cnt_host = np.zeros(cfg.num_buckets, np.float32)
         # gradient dropout draws from its own generator on the device
         self._gen = torch.Generator(device=self.device).manual_seed(seed + 17)
+
+    def derived_tables(self) -> dict:
+        """w trains by FTRL (async_sgd.h:262-286): the non-additive prox
+        of the additive (z, n), recomputed server-side in a PS plane
+        (see LinearLearner.derived_tables)."""
+        cfg = self.cfg
+        return {"w": {"kind": "ftrl_prox", "lr_eta": cfg.lr_eta,
+                      "lr_beta": cfg.lr_beta, "lambda_l1": cfg.lambda_l1,
+                      "lambda_l2": cfg.lambda_l2}}
 
     # -- xla kind ------------------------------------------------------------
     def _grad_filters(self, gV, mask):
@@ -586,33 +644,82 @@ class DifactoLearner:
         b = self._prepared(b, train)
         if b[0] == "staged":
             return b
+        cfg = self.cfg
+        ids = None
         if b[0] == "xla":
             db, size = b[1], b[2]
-            vidx = (db.idx % np.int32(self.cfg.vb)).astype(np.int32)
+            vidx = (db.idx % np.int32(cfg.vb)).astype(np.int32)
             arrays = [db.seg, db.idx, vidx, db.val, db.label, db.row_mask]
+            if train and self.track_touched:
+                ids_w = np.unique(db.idx[db.val != 0]).astype(np.int64)
+                ids = (ids_w, ids_w % cfg.vb)
         else:
             _, pk, label, mask, size, packed_for_train = b
             if packed_for_train != train:
                 raise ValueError("batch was packed for "
                                  f"{'train' if packed_for_train else 'eval'}")
             arrays = self._fm_args(pk, label, mask, train)
-        return ("staged", b[0], tuple(self._dev(*arrays)), size, train)
+            if train and self.track_touched:
+                # the pack's host uniques, sentinel slots filtered
+                ts_w, ts_v = pk[0], pk[3]
+                ids = (ts_w.uniq[ts_w.uniq < cfg.num_buckets]
+                       .astype(np.int64),
+                       ts_v.uniq[ts_v.uniq < cfg.vb].astype(np.int64))
+        return ("staged", b[0], tuple(self._dev(*arrays)), size, train, ids)
 
     # -- entry points --------------------------------------------------------
     def train_batch(self, blk) -> dict:
         """One training step on a RowBlock, a prepared or a staged batch;
         updates the tables in place and returns the progress dict."""
-        _, kind, args, _, st_train = self.stage_batch(
+        _, kind, args, _, st_train, ids = self.stage_batch(
             self._prepared(blk, True), train=True)
         if not st_train:
             raise ValueError("batch was staged for eval, not train")
         step = self._train_step_fm if kind == "fm" else self._train_step_xla
         prog = _to_floats(step(*args))
+        if self.track_touched:
+            self._note_touched(ids)
         self._step_count += 1
         return prog
 
+    # -- sparse PS wire hints ------------------------------------------------
+    def _note_touched(self, ids) -> None:
+        if ids is None:
+            ids = (None, None)
+        with self._touched_lock:
+            self._touched_w.append(ids[0])
+            self._touched_v.append(ids[1])
+
+    def collect_touched(self):
+        """Sorted-unique global rows touched since the last call, per
+        table (the sparse PS push set; reference ZPush of the
+        minibatch's keys, async_sgd.h:270-287), or None if a trained
+        batch lacked a hint (SyncedStore then scans the whole delta)."""
+        with self._touched_lock:
+            tw, tv = self._touched_w, self._touched_v
+            self._touched_w, self._touched_v = [], []
+        if any(a is None for a in tw):
+            return None
+        uw = (np.unique(np.concatenate(tw)) if tw
+              else np.empty(0, np.int64))
+        uv = (np.unique(np.concatenate(tv)) if tv
+              else np.empty(0, np.int64))
+        out = {k: uw for k in self.store.state}
+        out.update({k: uv for k in self.vstore.state})
+        return out
+
+    def _on_sparse_pull(self, updates) -> None:
+        """Keep the host count mirror coherent with sparse PS pulls (the
+        dense path refreshes it through on_load / from_numpy)."""
+        got = updates.get("cnt")
+        if got is None:
+            return
+        idx, rows = got
+        with self._fm_lock:
+            self._cnt_host[idx] = rows
+
     def _fwd_any(self, blk):
-        _, kind, args, size, st_train = self.stage_batch(
+        _, kind, args, size, st_train, _ = self.stage_batch(
             self._prepared(blk, False), train=False)
         if st_train:
             raise ValueError("batch was staged for train, not eval")

@@ -222,3 +222,35 @@ class SnapshotRing:
     def __len__(self) -> int:
         with self._lock:
             return len(self._entries)
+
+
+def _quantile_sorted(res: list[float], q: float) -> float | None:
+    if not res:
+        return None
+    q = min(1.0, max(0.0, float(q)))
+    return res[min(len(res) - 1, int(q * len(res)))]
+
+
+def hist_quantile(h: dict | None, q: float) -> float | None:
+    """Quantile of a snapshot-form histogram dict (or None)."""
+    if not h:
+        return None
+    return _quantile_sorted(sorted(h.get("res") or ()), q)
+
+
+def hist_stats(h: dict | None) -> dict | None:
+    """Reduce a snapshot-form histogram to derived stats (drops the raw
+    reservoir: this is what lands in run_report.json)."""
+    if not h or not h.get("count"):
+        return None
+    res = sorted(h.get("res") or ())
+    return {
+        "count": h["count"],
+        "sum": h["sum"],
+        "mean": h["sum"] / h["count"],
+        "min": h.get("min"),
+        "max": h.get("max"),
+        "p50": _quantile_sorted(res, 0.50),
+        "p90": _quantile_sorted(res, 0.90),
+        "p99": _quantile_sorted(res, 0.99),
+    }

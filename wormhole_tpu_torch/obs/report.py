@@ -1,0 +1,376 @@
+"""End-of-run telemetry report.
+
+The port's copy of the JAX package's obs/report.py, renamed to this
+package and sharing nothing with it.
+
+The scheduler (apps/_runner.py) merges its own registry with the
+per-node snapshots piggybacked on heartbeats, folds in exact per-server
+push/pull stats from `PSClient.stats()`, builds this report, prints a
+human summary plus one machine line
+
+    [run-report] {...json...}
+
+and, when WH_OBS_DIR is set, writes `run_report.json` there atomically.
+The launcher also watches the scheduler's stdout for the machine line
+and writes the file if the scheduler's write didn't land on the
+launcher's filesystem (multi-host). Single-process solver runs build
+the report directly from the global registry.
+
+Histograms are reduced to derived stats (count/sum/mean/min/max/
+p50/p90/p99) so the report stays small enough for a stdout line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+
+from wormhole_tpu_torch.obs import metrics
+from wormhole_tpu_torch.obs import slo as _slo
+
+REPORT_PREFIX = "[run-report] "
+REPORT_NAME = "run_report.json"
+
+#: serving pipeline stages, in request order; wire/queue/partial
+#: decompose fanout (they overlap it, so the explained sum doesn't
+#: count them). batch_wait and partial only exist in score mode:
+#: batch_wait is the coalescer queue ahead of the round's fan-out,
+#: partial the slowest shard's own score-kernel time inside it.
+SERVE_STAGES = ("batch_wait", "pack", "fanout", "wire", "queue",
+                "partial", "score", "sum")
+_PIPELINE_STAGES = ("batch_wait", "pack", "fanout", "sum", "score")
+
+
+def serve_stage_table(aggregate: dict) -> dict:
+    """Per-stage serving-latency attribution from the serve.stage.*
+    histograms: {stages: {name: {p50_ms, p99_ms, mean_ms, count}},
+    latency_p50_ms, latency_mean_ms, explained_mean_ms,
+    explained_frac}. Empty when the run never served.
+
+    ``explained_frac`` is the acceptance metric: the pipeline stages'
+    MEAN sum over the end-to-end request mean. Means, not p50s —
+    request latency is the sum of its stages, and the mean of a sum
+    is the sum of the means regardless of how the stage durations
+    correlate, while a sum of p50s understates the latency p50
+    whenever a shared disturbance (a 256 MB snapshot write stealing
+    the core, GC, a noisy neighbor) inflates several stages of the
+    SAME request together. An attribution hole therefore shows up as
+    explained_frac < 1 instead of hiding inside correlation slack."""
+    hists = aggregate.get("hists") or {}
+    stages = {}
+    for stage in SERVE_STAGES:
+        h = hists.get(f"serve.stage.{stage}_s")
+        if not h or not h.get("count"):
+            continue
+        stages[stage] = {
+            "p50_ms": _round3(_ms(metrics.hist_quantile(h, 0.50))),
+            "p99_ms": _round3(_ms(metrics.hist_quantile(h, 0.99))),
+            "mean_ms": _round3(_ms(h["sum"] / h["count"])),
+            "count": h["count"],
+        }
+    if not stages:
+        return {}
+    out = {"stages": stages}
+    lat = hists.get("serve.latency_s")
+    p50 = _ms(metrics.hist_quantile(lat, 0.50))
+    mean = _ms(lat["sum"] / lat["count"]) if lat and lat.get("count") \
+        else 0.0
+    explained = sum(stages[s]["mean_ms"] or 0.0
+                    for s in _PIPELINE_STAGES if s in stages)
+    out["latency_p50_ms"] = _round3(p50)
+    out["latency_mean_ms"] = _round3(mean)
+    out["explained_mean_ms"] = _round3(explained)
+    out["explained_frac"] = (_round3(explained / mean)
+                             if mean else None)
+    return out
+
+
+#: training-step stages, in batch order. The train thread's wall per
+#: batch is load (queue wait) + step (the learner's call) + metrics
+#: (merge/print) — those three are the pipeline whose p50s must sum to
+#: the per-batch total. pack and h2d run in loader threads overlapped
+#: with compute, and sync is either inside step (synchronous mode's
+#: flush) or hidden behind it (async fold wait shows up as load/step
+#: stall), so they inform but don't sum.
+TRAIN_STAGES = ("load", "pack", "h2d", "step", "sync", "metrics")
+_TRAIN_PIPELINE = ("load", "step", "metrics")
+
+
+def train_stage_table(aggregate: dict) -> dict:
+    """Per-stage training-step attribution from the train.stage.*
+    histograms — the serve_stage_table contract for the train plane:
+    {stages: {name: {p50_ms, p99_ms, mean_ms, count}}, total_p50_ms,
+    explained_p50_ms, explained_frac}. Empty when the run never
+    trained. ``explained_frac`` is the acceptance metric: the train
+    thread's pipeline stages' p50 sum over the per-batch total p50."""
+    hists = aggregate.get("hists") or {}
+    stages = {}
+    for stage in TRAIN_STAGES:
+        h = hists.get(f"train.stage.{stage}_s")
+        if not h or not h.get("count"):
+            continue
+        stages[stage] = {
+            "p50_ms": _round3(_ms(metrics.hist_quantile(h, 0.50))),
+            "p99_ms": _round3(_ms(metrics.hist_quantile(h, 0.99))),
+            "mean_ms": _round3(_ms(h["sum"] / h["count"])),
+            "count": h["count"],
+        }
+    if not stages:
+        return {}
+    out = {"stages": stages}
+    p50 = _ms(metrics.hist_quantile(
+        hists.get("train.stage.total_s"), 0.50))
+    explained = sum(stages[s]["p50_ms"] or 0.0
+                    for s in _TRAIN_PIPELINE if s in stages)
+    out["total_p50_ms"] = _round3(p50)
+    out["explained_p50_ms"] = _round3(explained)
+    out["explained_frac"] = (_round3(explained / p50)
+                             if p50 else None)
+    return out
+
+
+def enabled() -> bool:
+    return bool(os.environ.get("WH_OBS_DIR", "").strip())
+
+
+def build(aggregate: dict, nodes=(), run_id=None,
+          ps_stats=None, extra=None) -> dict:
+    """Shape a merged metrics snapshot into the run report.
+
+    aggregate: a snapshot dict (metrics.merge_snapshots output);
+    ps_stats: {rank: stats-dict} from PSClient.stats() — its
+    num_push/num_pull are authoritative (surviving-incarnation truth
+    straight from the servers), counters are the fallback.
+    """
+    c = dict(aggregate.get("counters") or {})
+    g = dict(aggregate.get("gauges") or {})
+    hists = aggregate.get("hists") or {}
+    num_push = num_pull = None
+    if ps_stats:
+        num_push = sum(int(s.get("num_push", 0)) for s in ps_stats.values())
+        num_pull = sum(int(s.get("num_pull", 0)) for s in ps_stats.values())
+    rpc = hists.get("ps.client.rpc_s")
+    summary = {
+        "num_push": num_push if num_push is not None
+        else c.get("ps.server.num_push", 0),
+        "num_pull": num_pull if num_pull is not None
+        else c.get("ps.server.num_pull", 0),
+        "bytes_pushed": c.get("ps.client.bytes_push", 0),
+        "bytes_pulled": c.get("ps.client.bytes_pull", 0),
+        "net_bytes_sent": c.get("net.bytes_sent", 0),
+        "net_bytes_recv": c.get("net.bytes_recv", 0),
+        "rpc_p50_ms": _ms(metrics.hist_quantile(rpc, 0.50)),
+        "rpc_p99_ms": _ms(metrics.hist_quantile(rpc, 0.99)),
+        "connect_retries": c.get("net.connect_retries", 0),
+        "ps_retries": c.get("ps.client.retries", 0),
+        "journal_replays": c.get("ps.client.replays", 0),
+        "replay_dedup_hits": c.get("ps.client.replay_dedup", 0),
+        "push_dedup_hits": c.get("ps.server.dedup_hits", 0),
+        "server_recoveries": c.get("sched.server_recoveries", 0),
+        "server_restores": c.get("ps.server.restores", 0),
+        "liveness_evictions": c.get("sched.liveness_evictions", 0),
+        "keycache_hits": c.get("ps.keycache.hits", 0),
+        "keycache_misses": c.get("ps.keycache.misses", 0),
+        "keycache_invalidations": c.get("ps.keycache.invalidations", 0),
+        "net_compress_bytes_in": c.get("net.compress.bytes_in", 0),
+        "net_compress_bytes_out": c.get("net.compress.bytes_out", 0),
+        "wire_bytes_raw": c.get("wire.codec.bytes_raw", 0),
+        "wire_bytes_wire": c.get("wire.codec.bytes_wire", 0),
+        "wire_ef_resid_norm": g.get("wire.codec.ef_resid_norm", 0.0),
+        "bshuf_bytes_in": c.get("net.bshuf.bytes_in", 0),
+        "bshuf_bytes_out": c.get("net.bshuf.bytes_out", 0),
+        "hot_plane_steps": c.get("ps.hot.steps", 0),
+        "hot_plane_flushes": c.get("ps.hot.flushes", 0),
+        "bsp_rounds": c.get("bsp.rounds", 0),
+        "bsp_recoveries": c.get("bsp.recoveries", 0),
+        "bsp_ring_retries": c.get("bsp.ring_retries", 0),
+        "bsp_result_fetches": c.get("bsp.result_fetches", 0),
+        "bsp_checkpoints": c.get("bsp.checkpoints", 0),
+        "bsp_checkpoint_bytes": c.get("bsp.checkpoint_bytes", 0),
+        "membership_epochs": c.get("sched.membership_epochs", 0),
+        "worker_joins": c.get("sched.joins", 0),
+        "worker_leaves": c.get("sched.leaves", 0),
+        "ps_rehellos": c.get("ps.client.rehellos", 0),
+        "retry_attempts": c.get("retry.attempts", 0),
+        "retry_successes": c.get("retry.successes", 0),
+        "retry_give_ups": c.get("retry.give_ups", 0),
+        "sched_recoveries": c.get("sched.recoveries", 0),
+        "sched_incarnation": int(g.get("sched.incarnation", 0) or 0),
+        "sched_journal_appends": c.get("sched.journal.appends", 0),
+        "sched_journal_replays": c.get("sched.journal.replays", 0),
+        "sched_journal_compactions": c.get("sched.journal.compactions", 0),
+        "sched_rpc_dedup_hits": c.get("sched.rpc.dedup_hits", 0),
+        # overload-protection plane: shed/hedge/degrade tallies the
+        # chaos drills pin their verdicts on
+        "deadline_sheds": c.get("net.deadline.shed", 0),
+        "admit_sheds": c.get("admit.sheds", 0),
+        "serve_sheds_deadline": c.get("serve.shed.deadline", 0),
+        "serve_sheds_busy": c.get("serve.shed.busy", 0),
+        "hedges_issued": c.get("serve.hedge.issued", 0),
+        "hedge_wins": c.get("serve.hedge.wins", 0),
+        "hedges_suppressed": c.get("serve.hedge.suppressed", 0),
+        "degraded_replies": c.get("serve.degraded.replies", 0),
+        "degraded_enters": c.get("serve.degraded.enters", 0),
+        "degraded_exits": c.get("serve.degraded.exits", 0),
+    }
+    report = {
+        "run_id": run_id or os.environ.get("WH_RUN_ID"),
+        "generated_unix": time.time(),
+        "nodes": sorted(nodes),
+        "summary": summary,
+        "counters": c,
+        "gauges": g,
+        "hists": {k: metrics.hist_stats(h) for k, h in sorted(hists.items())
+                  if h and h.get("count")},
+    }
+    stages = serve_stage_table(aggregate)
+    if stages:
+        report["serve_stages"] = stages
+    tstages = train_stage_table(aggregate)
+    if tstages:
+        report["train_stages"] = tstages
+    slos = _slo.evaluate(aggregate)
+    if slos:
+        report["slos"] = slos
+    if ps_stats:
+        report["ps_servers"] = {str(k): v for k, v in sorted(ps_stats.items())}
+    if extra:
+        report.update(extra)
+    return report
+
+
+def build_local(run_id=None, extra=None) -> dict:
+    """Report for a single-process run, straight off the global
+    registry (no scheduler to aggregate)."""
+    from wormhole_tpu_torch.obs import trace
+
+    return build(metrics.REGISTRY.snapshot(), nodes=[trace.node_id()],
+                 run_id=run_id, extra=extra)
+
+
+def write(report: dict, out_dir=None) -> str | None:
+    """Atomically write run_report.json into `out_dir` (default
+    WH_OBS_DIR). Returns the path, or None when disabled."""
+    out_dir = out_dir or os.environ.get("WH_OBS_DIR", "").strip()
+    if not out_dir:
+        return None
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, REPORT_NAME)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    with open(tmp, "w") as fh:
+        json.dump(report, fh, indent=2, sort_keys=True, default=str)
+        fh.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def machine_line(report: dict) -> str:
+    """The one-line form the launcher scrapes from scheduler stdout."""
+    return REPORT_PREFIX + json.dumps(report, separators=(",", ":"),
+                                      sort_keys=True, default=str)
+
+
+def format_lines(report: dict) -> list[str]:
+    """Human summary printed at end of run."""
+    s = report["summary"]
+    lines = [
+        "run report"
+        + (f" ({report['run_id']})" if report.get("run_id") else "")
+        + f": {len(report.get('nodes') or [])} nodes",
+        f"  pushes={s['num_push']} pulls={s['num_pull']} "
+        f"bytes_pushed={s['bytes_pushed']} bytes_pulled={s['bytes_pulled']}",
+        f"  net: sent={s['net_bytes_sent']}B recv={s['net_bytes_recv']}B "
+        f"connect_retries={s['connect_retries']}",
+    ]
+    if s["rpc_p50_ms"] is not None:
+        lines.append(f"  rpc latency: p50={s['rpc_p50_ms']:.3f}ms "
+                     f"p99={s['rpc_p99_ms']:.3f}ms")
+    lines.append(
+        f"  recovery: retries={s['ps_retries']} "
+        f"replays={s['journal_replays']} "
+        f"(dedup {s['replay_dedup_hits']}) "
+        f"push_dedup={s['push_dedup_hits']} "
+        f"server_recoveries={s['server_recoveries']} "
+        f"restores={s['server_restores']} "
+        f"evictions={s['liveness_evictions']}")
+    if s.get("bsp_rounds") or s.get("bsp_recoveries"):
+        lines.append(
+            f"  bsp: rounds={s['bsp_rounds']} "
+            f"checkpoints={s['bsp_checkpoints']} "
+            f"({s['bsp_checkpoint_bytes']}B) "
+            f"recoveries={s['bsp_recoveries']} "
+            f"ring_retries={s['bsp_ring_retries']} "
+            f"result_fetches={s['bsp_result_fetches']}")
+    if s.get("membership_epochs"):
+        lines.append(
+            f"  membership: epochs={s['membership_epochs']} "
+            f"joins={s['worker_joins']} leaves={s['worker_leaves']} "
+            f"rehellos={s['ps_rehellos']}")
+    if s.get("sched_recoveries") or s.get("sched_journal_appends"):
+        lines.append(
+            f"  control plane: recoveries={s['sched_recoveries']} "
+            f"incarnation={s['sched_incarnation']} "
+            f"journal_appends={s['sched_journal_appends']} "
+            f"replays={s['sched_journal_replays']} "
+            f"compactions={s['sched_journal_compactions']} "
+            f"rpc_dedup={s['sched_rpc_dedup_hits']}")
+    if s.get("retry_attempts") or s.get("retry_give_ups"):
+        lines.append(
+            f"  retry policy: attempts={s['retry_attempts']} "
+            f"successes={s['retry_successes']} "
+            f"give_ups={s['retry_give_ups']}")
+    if s.get("keycache_hits") or s.get("keycache_misses") \
+            or s.get("keycache_invalidations"):
+        lines.append(
+            f"  keycache: hits={s['keycache_hits']} "
+            f"misses={s['keycache_misses']} "
+            f"invalidations={s['keycache_invalidations']}")
+    if s.get("net_compress_bytes_in") or s.get("net_compress_bytes_out"):
+        lines.append(
+            f"  net compress: out={s['net_compress_bytes_out']}B "
+            f"in={s['net_compress_bytes_in']}B")
+    if s.get("wire_bytes_raw"):
+        saved = s["wire_bytes_raw"] / max(s["wire_bytes_wire"], 1)
+        lines.append(
+            f"  wire codec: {s['wire_bytes_wire']}B on the wire for "
+            f"{s['wire_bytes_raw']}B of f32 values ({saved:.2f}x saved, "
+            f"ef_resid_norm={s['wire_ef_resid_norm']:.3g})")
+    if s.get("hot_plane_steps") or s.get("hot_plane_flushes"):
+        lines.append(
+            f"  hot plane: steps={s['hot_plane_steps']} "
+            f"cold_flushes={s['hot_plane_flushes']}")
+    stages = report.get("serve_stages")
+    if stages:
+        lines.append(
+            "  serve stages (p50 ms): "
+            + " ".join(f"{k}={v['p50_ms']:.2f}"
+                       for k, v in stages["stages"].items()))
+        if stages.get("explained_frac") is not None:
+            lines.append(
+                f"  serve latency mean={stages['latency_mean_ms']:.2f}ms "
+                f"(p50={stages['latency_p50_ms']:.2f}ms), "
+                f"{stages['explained_frac'] * 100:.0f}% explained by "
+                "batch_wait+pack+fanout+sum+score")
+    tstages = report.get("train_stages")
+    if tstages:
+        lines.append(
+            "  train stages (p50 ms): "
+            + " ".join(f"{k}={v['p50_ms']:.2f}"
+                       for k, v in tstages["stages"].items()))
+        if tstages.get("explained_frac") is not None:
+            lines.append(
+                f"  train step p50={tstages['total_p50_ms']:.2f}ms, "
+                f"{tstages['explained_frac'] * 100:.0f}% explained by "
+                "load+step+metrics")
+    if report.get("slos"):
+        lines.extend(_slo.format_lines(report["slos"]))
+    return lines
+
+
+def _ms(v):
+    return None if v is None else v * 1000.0
+
+
+def _round3(v):
+    return None if v is None else round(v, 3)

@@ -29,8 +29,15 @@ import numpy as np
 import torch
 
 from wormhole_tpu_torch.device import resolve_device
+from wormhole_tpu_torch.obs import metrics as _obs
 from wormhole_tpu_torch.parallel import collectives
 from wormhole_tpu_torch.parallel.mesh import MODEL_AXIS, Mesh, table_range
+
+
+# the PS plane's row traffic between the card and the host: one per
+# gather (device -> host) and one per scatter (host -> device)
+_D2H = _obs.REGISTRY.counter("kvstore.d2h_copies")
+_H2D = _obs.REGISTRY.counter("kvstore.h2d_copies")
 
 
 @dataclasses.dataclass
@@ -94,6 +101,7 @@ class KVStore:
     def gather_rows(self, name: str, idx: np.ndarray) -> np.ndarray:
         """Fetch rows `idx` of a table to host: a device gather plus an
         O(touched) transfer, never a full-table copy."""
+        _D2H.inc()
         return self.state[name][self._index(idx)].cpu().numpy()
 
     def gather_rows_multi(self, names: list[str],
@@ -101,6 +109,7 @@ class KVStore:
         """gather_rows for several same-height tables sharing one index
         set (FTRL's z and n always do), with one index transfer."""
         i = self._index(idx)
+        _D2H.inc(len(names))
         return {k: self.state[k][i].cpu().numpy() for k in names}
 
     def scatter_rows(self, name: str, idx: np.ndarray,
@@ -109,8 +118,11 @@ class KVStore:
         if np.asarray(idx).size == 0:
             return
         t = self.state[name]
-        t[self._index(idx)] = torch.as_tensor(
-            np.asarray(vals), dtype=t.dtype).to(self.device)
+        _H2D.inc()
+        # torch.tensor copies, so a read-only array (a decoded wire
+        # frame) is fine
+        t[self._index(idx)] = torch.tensor(np.asarray(vals), dtype=t.dtype,
+                                           device=self.device)
 
     def zero_init_names(self) -> set[str]:
         """Tables created as zeros (spec.init is None)."""

@@ -9,8 +9,8 @@ compact tables with a model scorer, on the card unless the scorer was
 given ``device="cpu"``; in score mode the shards return partial
 products the router folds on the host. Both are bit-identical on the
 CPU to the trainer's own predict path (DiFacto's score mode to a few
-ulp). The launcher's serve role (``run_serve_role``) waits for the
-port's scheduler.
+ulp). ``run_serve_role`` is the launcher's ``--serve`` role: a shard
+that registers with the scheduler and lives until the job shuts down.
 """
 
 from wormhole_tpu_torch.serving.router import Router
@@ -18,7 +18,7 @@ from wormhole_tpu_torch.serving.scoring import (
     DifactoScorer, LinearScorer, PackedBatch,
 )
 from wormhole_tpu_torch.serving.server import (
-    ModelServer, ServingModel, load_with_retry,
+    ModelServer, ServingModel, load_with_retry, run_serve_role,
 )
 
 __all__ = [
@@ -29,4 +29,5 @@ __all__ = [
     "Router",
     "ServingModel",
     "load_with_retry",
+    "run_serve_role",
 ]

@@ -38,6 +38,7 @@ keeps serving byte-for-byte identical to the trainer's own predict.
 
 from __future__ import annotations
 
+import os
 import socket
 import socketserver
 import threading
@@ -460,3 +461,42 @@ class ModelServer:
             return {"ok": 1, "version": m.version}, {}
         return {"error": f"unknown op {op!r}", "version": m.version}, {}
 
+
+def run_serve_role(cfg, env) -> dict:
+    """Entry for a launcher-spawned ``--serve`` process (role dispatch in
+    apps/_runner.run_minibatch_app): load the shard, register with the
+    scheduler (re-registration after a respawn is the recovery signal
+    the router's resolver picks up), heartbeat with piggybacked metrics,
+    exit when the job announces shutdown."""
+    from wormhole_tpu_torch.runtime.tracker import SchedulerClient
+
+    base = str(knob_value("WH_SERVE_SNAPSHOT") or "")
+    if not base:
+        snap_dir = os.environ.get("WH_SNAPSHOT_DIR", "")
+        if not snap_dir:
+            raise RuntimeError(
+                "serve role needs WH_SERVE_SNAPSHOT or the launcher's "
+                "snapshot dir (WH_SNAPSHOT_DIR) to locate the model")
+        base = os.path.join(snap_dir, "srv")
+    world = max(int(getattr(env, "num_serve", 1)), 1)
+    # startup must outlast the trainer's FIRST snapshot cycle, which the
+    # router retry window does not have to
+    deadline = max(float(knob_value("WH_SERVE_RETRY_SEC")), 120.0)
+    server = ModelServer(env.rank, world, base, deadline_s=deadline)
+    server.serve()
+    client = SchedulerClient(env.scheduler_uri, f"serve-{env.rank}")
+    client.call(op="register_serve", rank=env.rank, uri=server.uri)
+    print(f"[serve {env.rank}] serving {base} version "
+          f"{server.version} at {server.uri}", flush=True)
+    try:
+        while not server.wait_shutdown(2.0):
+            try:
+                r = client.call(op="epoch",
+                                metrics=_obs.REGISTRY.snapshot())
+            except Exception:
+                break  # scheduler gone: the job is over
+            if r.get("shutdown"):
+                break
+    finally:
+        server.stop()
+    return {}
