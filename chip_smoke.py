@@ -11,8 +11,9 @@
 Drives the port (wormhole_tpu_torch) through its main paths at the
 bench's full width: three minibatch learners and the two BSP batch
 learners, the linear and GBDT learners on a device mesh of four ranks,
-and linear and DiFacto workers training one shared model through the
-launcher's scheduler and PS servers. Two run over 65,536-row minibatches of 39
+linear and DiFacto workers training one shared model through the
+launcher's scheduler and PS servers, and GBDT and L-BFGS workers summing
+their statistics over the launcher's BSP allreduce ring. Two run over 65,536-row minibatches of 39
 Criteo-shaped features: linear FTRL logistic regression, and the DiFacto
 factorization machine (dim 8, w over 2^22 buckets, V over 2^20 rows,
 threshold 2; the reference's learn/difacto/guide/criteo.conf, as bench.py
@@ -164,7 +165,7 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    (trained at the bench's width) from 3 shards, 64 batches in each
    mode against its predict_batch. The tier launches no kernel; its
    trainers' launches count with the main paths'.
-13. the parameter-server plane ([ps], last of the file phases;
+13. the parameter-server plane ([ps], after [cache];
    bench.py bench_linear_ps's operating point): `python -m
    wormhole_tpu_torch.launcher.dmlc_tpu -n N -s S -- python -m
    wormhole_tpu_torch.apps.{linear,difacto} conf device=cuda
@@ -194,8 +195,42 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    logloss; that run's distance from the single process is reported
    beside the 0.05 bar, which the synthetic labels (no signal) do not let
    the JAX package's launcher hold either (tests/torch_ps_reference.py).
-   [ps] takes ~160 s of command time, the whole script ~575 s.
+   [ps] takes ~160 s of command time;
+14. the BSP allreduce plane ([bsp], after [ps]): `python -m
+   wormhole_tpu_torch.launcher.dmlc_tpu -n 3 -s 0 --node-timeout 30
+   --max-worker-restarts 1 -- python -m
+   wormhole_tpu_torch.apps.{gbdt,lbfgs_linear,lbfgs_fm} ... bsp=1
+   device=cuda`, each launch in a session of its own under a 240 s
+   timeout, its group killed after it, WH_OBS_DIR set so the scheduler
+   writes run_report.json. GBDT at the HIGGS widths (28 features, 256
+   bins, depth 6, 4 rounds) over three 40,960-row train files, one a
+   rank (every rank keeps all its rows in its sketch, so the edges are
+   one device's on the union of the files, byte for byte), with a
+   16,384-row eval file: the model rank 0 saves against a one-device
+   run in this process on the union (splits equal except at a near tie,
+   every reached leaf within 1e-5 of the f64 sums of its rows: the
+   [mesh] bar); then the same launch with worker 1 killed at its 12th
+   allreduce (round 1's fourth level: 8 collectives a round, checked
+   from the counts), respawned by the launcher, whose run report must
+   show a recovery and result fetches, its model held to the same bar
+   against the fault-free one, and whether it came out bit-identical.
+   L-BFGS linear at the agaricus shape (6,513 rows, 126 ids) read as
+   3 parts, reg_L2 0.1, 30 iterations: the objective never rises and its
+   first 8 iterations are within rtol 1e-4 of the single process on the
+   card; then killed at allreduce #4 (inside iteration 1), its final
+   objective within the same bar of the fault-free launch's; the FM
+   (nfactor 8) fault-free, held the same way. Every worker prints its
+   kernel launches at exit ([bsp-worker]): each must have launched
+   level_hist, level_partition and parse_libsvm (L-BFGS: parse_libsvm)
+   on cuda, and the scheduler must report no CUDA context. Per launch,
+   bench_bsp's numbers (bench.py:551-611): the wall, bsp.allreduce_s
+   mean and p99, bsp.checkpoint_s mean and the bytes a checkpoint, the
+   counts of collectives and checkpoints, a kill launch's recovery
+   overhead, and GBDT's ms a round. [bsp] takes ~110 s of command time,
+   the whole script ~665 s.
 
+The [ps] and [bsp] workers are child processes: their launches are not
+in the kernels line's counts, and each launch checks its workers' own.
 The launches of parse_libsvm over the apps, the passes, the k-means run,
 the L-BFGS apps and [cache] make its launch count; parse_criteo's are
 the Criteo passes', the convert's and the one-reader check's text side,
@@ -4607,11 +4642,294 @@ def run_ps(device, smi: str, workdir: str, e2e_file: str,
     return out
 
 
+BSP_RANKS = 3
+BSP_GBDT_ROWS = 40_960      # a rank's train file: at most 43,690 rows a
+                            # rank keeps every row in both sketches
+BSP_GBDT_EVAL_ROWS = 16_384
+BSP_GBDT_ROUNDS = 4
+# depth 6 with one eval set: 7 levels + the metric sums = 8 collectives a
+# round, so #12 is round 1's fourth level (checked against the counts)
+BSP_GBDT_KILL = "worker:1:kill@allreduce:12"
+BSP_LBFGS_KILL = "worker:1:kill@allreduce:4"  # inside iteration 1
+BSP_LBFGS_ITERS = 30
+BSP_LBFGS_RTOL = 1e-4     # objv_history over the first 8 iterations
+BSP_LAUNCH_TIMEOUT_S = 240  # each launch's own; its group is killed after
+BSP_NODE_TIMEOUT_S = 30     # the launcher's; WH_BSP_RETRY_SEC follows it
+BSP_KNOBS = ("WH_FAULT_SPEC", "WH_OBS_DIR", "WH_WIRE", "WH_SNAPSHOT_DIR",
+             "WH_BSP_RETRY_SEC", "WH_BSP_STEP_TIMEOUT", "WH_ROLE",
+             "WH_RESTORE_EPOCH")
+
+
+def bsp_launch(tag: str, app: str, args: list, device, workdir: str,
+               fault: str = "", kernels=(),
+               timeout=BSP_LAUNCH_TIMEOUT_S) -> dict:
+    """One BSP launch as a user runs it: python -m
+    wormhole_tpu_torch.launcher.dmlc_tpu -n 3 -s 0 --node-timeout 30
+    --max-worker-restarts 1 -- python -m wormhole_tpu_torch.apps.APP ...
+    bsp=1 device=..., in a session of its own, the whole group killed on
+    timeout, with WH_OBS_DIR set so the scheduler writes run_report.json.
+    Fails unless it exited 0, each of the 3 ranks printed its
+    [bsp-worker] line (on the card: having launched each of `kernels` on
+    cuda), the scheduler opened no CUDA context, and a `fault` launch
+    respawned its worker. Returns the output, wall, report and the
+    workers' records."""
+    import re
+    import signal
+
+    import torch
+
+    obs = os.path.join(workdir, f"obs-{tag.replace(' ', '-')}")
+    argv = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
+            "-n", str(BSP_RANKS), "-s", "0", "--node-timeout",
+            str(BSP_NODE_TIMEOUT_S), "--max-worker-restarts", "1", "--",
+            sys.executable, "-m", f"wormhole_tpu_torch.apps.{app}", *args,
+            "bsp=1", f"device={device}"]
+    full = {k: v for k, v in os.environ.items()
+            if k not in PS_KNOBS + BSP_KNOBS}
+    full.update(PYTHONPATH=ROOT, WH_OBS_DIR=obs)
+    if fault:
+        full["WH_FAULT_SPEC"] = fault
+    t = time.perf_counter()
+    p = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=full,
+                         cwd=ROOT, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        raise AssertionError(f"[bsp] {tag}: launch timed out after "
+                             f"{timeout}s; its group was killed\n"
+                             f"{out[-3000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+    wall = time.perf_counter() - t
+    if p.returncode != 0:
+        raise AssertionError(f"[bsp] {tag}: launch exited {p.returncode}\n"
+                             f"{out[-4000:]}")
+    workers = [json.loads(m)
+               for m in re.findall(r"\[bsp-worker\] (\{.*\})", out)]
+    ctx = re.findall(r"\[scheduler\] cuda context: (.+)", out)
+    if sorted(w["rank"] for w in workers) != list(range(BSP_RANKS)) or \
+            len(ctx) != 1:
+        raise AssertionError(f"[bsp] {tag}: [bsp-worker] lines of ranks "
+                             f"{[w['rank'] for w in workers]}, {len(ctx)} "
+                             f"cuda-context lines\n{out[-3000:]}")
+    if not ctx[0].startswith("none"):
+        raise AssertionError(f"[bsp] {tag}: the scheduler opened a CUDA "
+                             f"context")
+    if fault and "respawning with restore epoch 1" not in out:
+        raise AssertionError(f"[bsp] {tag}: no respawn\n{out[-3000:]}")
+    if torch.device(device).type == "cuda":
+        for w in workers:
+            missing = [k for k in kernels
+                       if not w["kernel_launches"].get(k)]
+            if missing or not w["device"].startswith("cuda"):
+                raise AssertionError(
+                    f"[bsp] {tag}: worker {w['rank']} on {w['device']} "
+                    f"launched no {missing}")
+    with open(os.path.join(obs, "run_report.json")) as f:
+        report = json.load(f)
+    objv = [float(x) for x in re.findall(
+        r"\[worker-0\] lbfgs (?:init|iter \d+): objv ([-0-9.e+]+)", out)]
+    m = re.search(r"\[worker-0\] \[gbdt-bsp\] round ms: (\[.*\])", out)
+    return {"out": out, "wall_s": wall, "report": report,
+            "workers": workers, "objv": objv,
+            "round_ms": json.loads(m.group(1)) if m else None}
+
+
+def bsp_summary(rec: dict) -> dict:
+    """bench_bsp's numbers of one launch (bench.py:551-611): the wall,
+    bsp.allreduce_s mean and p99, bsp.checkpoint_s mean and the bytes a
+    checkpoint, the counts of rounds and checkpoints, recoveries, fetches
+    and ring retries from the run report, and each worker's launches."""
+    s = rec["report"]["summary"]
+    hists = rec["report"].get("hists") or {}
+    ar = hists.get("bsp.allreduce_s") or {}
+    ck = hists.get("bsp.checkpoint_s") or {}
+    out = {"wall_s": rec["wall_s"],
+           "allreduce_ms": (ar.get("mean") or 0.0) * 1e3,
+           "allreduce_p99_ms": (ar.get("p99") or 0.0) * 1e3,
+           "checkpoint_ms": (ck.get("mean") or 0.0) * 1e3,
+           "checkpoint_bytes": int(s.get("bsp_checkpoint_bytes", 0))
+           // max(int(s.get("bsp_checkpoints") or 0), 1),
+           "bsp_rounds": int(s.get("bsp_rounds", 0)),
+           "bsp_checkpoints": int(s.get("bsp_checkpoints", 0)),
+           "bsp_recoveries": int(s.get("bsp_recoveries", 0)),
+           "bsp_result_fetches": int(s.get("bsp_result_fetches", 0)),
+           "bsp_ring_retries": int(s.get("bsp_ring_retries", 0)),
+           "kernel_launches": {w["rank"]: w["kernel_launches"]
+                               for w in rec["workers"]}}
+    if rec["round_ms"]:
+        out["round_ms"] = rec["round_ms"]
+        out["round_ms_median_after_first"] = statistics.median(
+            rec["round_ms"][1:] or rec["round_ms"])
+    return out
+
+
+def bsp_model(path: str, device):
+    from wormhole_tpu_torch.models.gbdt import GbdtConfig, GbdtLearner
+
+    lrn = GbdtLearner(GbdtConfig(), device=device)
+    lrn.load(path)
+    return lrn
+
+
+def bsp_trees_hold(tag: str, got, want, ds, rounds: int) -> dict:
+    """The [mesh] bar between two GBDT models on the rows of ds: splits
+    equal except at a near tie, every reached leaf of `got` within
+    LEAF_ATOL of the f64 sums of its rows; and whether they are equal bit
+    for bit."""
+    with uncounted():
+        differing, tie = compare_trees(tag, got, want, ds, rounds)
+        off = 0.0
+        for r in range(rounds):
+            ref, reached = leaf_reference(got, ds, r)
+            off = max(off, float(np.abs(got.trees["leaf_value"][r]
+                                        - ref)[reached].max()))
+    if off > LEAF_ATOL:
+        raise AssertionError(f"[bsp] {tag}: leaves {off} from the f64 sums")
+    same = rounds if tie is None else tie
+    return {"splits_differing": differing, "near_tie_round": tie,
+            "leaf_diff": float(np.abs(got.trees["leaf_value"][:same]
+                                      - want.trees["leaf_value"][:same]
+                                      ).max()) if same else 0.0,
+            "leaf_off_f64": off,
+            "bit_identical": all(np.array_equal(got.trees[k], want.trees[k])
+                                 for k in got.trees)}
+
+
+def bsp_objv_hold(tag: str, got: list, want: list, iters: int) -> float:
+    """An L-BFGS history that never rises and stays within rtol
+    BSP_LBFGS_RTOL of `want` over the first 8 iterations (the bar of
+    tests/test_torch_lbfgs.py). Returns the largest relative gap."""
+    n = min(9, len(want))
+    if len(got) < n or any(b > a for a, b in zip(got, got[1:])):
+        raise AssertionError(f"[bsp] {tag}: objective {got}")
+    rel = float(np.max(np.abs(np.subtract(got[:n], want[:n]))
+                       / np.abs(want[:n])))
+    if not rel <= BSP_LBFGS_RTOL:
+        raise AssertionError(f"[bsp] {tag}: objective {got[:n]} vs "
+                             f"{want[:n]} (rtol {rel:.3g})")
+    return rel
+
+
+def run_bsp(device, smi: str, workdir: str, rows=BSP_GBDT_ROWS,
+            eval_rows=BSP_GBDT_EVAL_ROWS, depth=GBDT_DEPTH,
+            max_bin=GBDT_BINS, rounds=BSP_GBDT_ROUNDS,
+            agaricus_rows=AGARICUS_ROWS, iters=BSP_LBFGS_ITERS,
+            gbdt_kill=BSP_GBDT_KILL) -> dict:
+    """[bsp]: the BSP allreduce plane through the launcher (see the
+    module docstring). Each launch's workers run on `device`."""
+    import torch
+
+    from wormhole_tpu_torch.apps import lbfgs_fm, lbfgs_linear
+    from wormhole_tpu_torch.models.gbdt import GbdtConfig, GbdtLearner
+
+    d = os.path.join(workdir, "bsp")
+    os.makedirs(d)
+    t = time.perf_counter()
+    for r in range(BSP_RANKS):
+        write_higgs_libsvm(os.path.join(d, f"train-{r}.libsvm"), rows,
+                           HIGGS_DIM, seed=90 + r)
+    write_higgs_libsvm(os.path.join(d, "eval.libsvm"), eval_rows, HIGGS_DIM,
+                       seed=93)
+    aga = os.path.join(d, "agaricus.libsvm")
+    with open(aga, "w") as f:
+        f.write(agaricus_text(agaricus_rows, seed=81))
+    log(f"[bsp] files written in {time.perf_counter() - t:.1f}s")
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the workers' contexts share the card
+    out = {}
+
+    # GBDT at the HIGGS widths: one device on the union of the files in
+    # this process (not the main path: a reference), then the launches
+    pattern = os.path.join(d, "train-.*")
+    with uncounted():
+        one = GbdtLearner(GbdtConfig(train_data=pattern, max_depth=depth,
+                                     max_bin=max_bin, num_round=rounds),
+                          device=device)
+        train = one.load_dataset(pattern, fit_bins=True)
+        one.fit_prepared(train, [], verbose=False)
+    args = [f"train_data={pattern}",
+            f"eval_data={os.path.join(d, 'eval.libsvm')}",
+            f"max_depth={depth}", f"max_bin={max_bin}",
+            f"num_round={rounds}"]
+    models = {}
+    for tag, fault in (("gbdt", ""), ("gbdt kill", gbdt_kill)):
+        models[tag] = os.path.join(d, f"{tag.replace(' ', '-')}.npz")
+        rec = bsp_launch(tag, "gbdt", args + [f"model_out={models[tag]}"],
+                         device, d, fault, (*GBDT_KERNELS, "parse_libsvm"))
+        out[tag] = bsp_summary(rec)
+    per_round = out["gbdt"]["bsp_rounds"] / (BSP_RANKS * rounds)
+    if per_round != depth + 2:
+        raise AssertionError(f"[bsp] gbdt: {per_round} collectives a round, "
+                             f"not {depth + 2}")
+    kill = out["gbdt kill"]
+    if kill["bsp_recoveries"] < 1 or kill["bsp_result_fetches"] < 1:
+        raise AssertionError(f"[bsp] gbdt kill: {json.dumps(kill)}")
+    base, killed = (bsp_model(models[k], device) for k in ("gbdt",
+                                                           "gbdt kill"))
+    if not (base.edges.dtype == one.edges.dtype
+            and np.array_equal(base.edges, one.edges)):
+        raise AssertionError("[bsp] gbdt: the edges differ from one "
+                             "device's on the union of the files")
+    out["gbdt"]["vs_one_device"] = bsp_trees_hold(
+        "gbdt vs one device", base, one, train, rounds)
+    out["gbdt kill"]["vs_fault_free"] = bsp_trees_hold(
+        "gbdt kill vs fault-free", killed, base, train, rounds)
+    out["gbdt kill"]["recovery_overhead_s"] = (kill["wall_s"]
+                                               - out["gbdt"]["wall_s"])
+    log(f"[bsp] gbdt, {BSP_RANKS} x {rows} rows of {HIGGS_DIM} features, "
+        f"{max_bin} bins, depth {depth}, {rounds} rounds ({per_round:.0f} "
+        f"collectives a round, so {gbdt_kill} lands in round "
+        f"{(int(gbdt_kill.rsplit(':', 1)[1]) - 1) // int(per_round)}); the "
+        f"edges equal one device's on the union byte for byte: "
+        f"{json.dumps(out['gbdt'])}; {json.dumps(out['gbdt kill'])}")
+    del one, train, base, killed
+
+    # L-BFGS at the agaricus shape: one file read as 3 parts
+    lin = [f"data={aga}", "reg_L2=0.1", f"max_lbfgs_iter={iters}"]
+    for tag, app, extra in (("lbfgs", lbfgs_linear, []),
+                            ("lbfgs-fm", lbfgs_fm, ["nfactor=8"])):
+        with uncounted():
+            single, _ = drive_lbfgs_app(app, lin + extra, device)
+        runs = [("", "")] if tag == "lbfgs-fm" else [("", ""),
+                                                     (" kill", BSP_LBFGS_KILL)]
+        for sfx, fault in runs:
+            rec = bsp_launch(tag + sfx, app.__name__.rsplit(".", 1)[1],
+                             lin + extra + ["num_parts_per_file=3"], device,
+                             d, fault, ("parse_libsvm",))
+            out[tag + sfx] = dict(bsp_summary(rec), iterations=len(
+                rec["objv"]) - 1, objective=rec["objv"][-1])
+            if fault:
+                out[tag + sfx]["recovery_overhead_s"] = (
+                    rec["wall_s"] - out[tag]["wall_s"])
+                # the killed run's final objective against the fault-free
+                # launch's, to the same bar
+                gap = abs(rec["objv"][-1] - out[tag]["objective"]) / abs(
+                    out[tag]["objective"])
+                if not gap <= BSP_LBFGS_RTOL:
+                    raise AssertionError(
+                        f"[bsp] {tag}{sfx}: final objective "
+                        f"{rec['objv'][-1]} vs {out[tag]['objective']}")
+                out[tag + sfx]["vs_fault_free_rel"] = gap
+            out[tag + sfx]["vs_single_rel"] = bsp_objv_hold(
+                tag + sfx, rec["objv"], single, iters)
+        out[tag]["single_objective"] = single[-1]
+        log(f"[bsp] {tag}: " + json.dumps({k: v for k, v in out.items()
+                                           if k.startswith(tag + " ")
+                                           or k == tag}))
+    return out
+
+
 def data_phases(device, smi: str, data_dir: str, knums: dict,
                 launches: dict) -> None:
     """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
-    [lbfgs] and [cache]. Adds their main paths' launches to `launches`
-    and coo_spmv_t's k-means numbers to `knums`."""
+    [lbfgs], [cache], [ps] and [bsp]. Adds their main paths' launches to
+    `launches` (the [ps] and [bsp] workers check their own) and
+    coo_spmv_t's k-means numbers to `knums`."""
     from wormhole_tpu_torch.ops import _cuda
 
     # k-means: its run and app are the main path (launch counts are taken
@@ -4738,6 +5056,13 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
     ps = run_ps(device, smi, data_dir, files[DENSE_BUCKETS])
     log(f"[ps] {smi}: " + json.dumps(ps))
     log(f"[phase] ps {time.perf_counter() - t:.1f}s")
+
+    # the BSP plane: its workers are child processes as well, and each
+    # launch checks their own counts
+    t = time.perf_counter()
+    bsp = run_bsp(device, smi, data_dir)
+    log(f"[bsp] {smi}: " + json.dumps(bsp))
+    log(f"[phase] bsp {time.perf_counter() - t:.1f}s")
 
 
 

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from conftest import synth_libsvm_text
+from torch_bsp_role import bsp_worker_role
 from wormhole_tpu.apps import gbdt as j_app
 from wormhole_tpu.data.minibatch import MinibatchIter as JIter
 from wormhole_tpu.data.rowblock import RowBlock as JRowBlock
@@ -625,10 +626,52 @@ def test_app_reads_a_conf_file(sparse_files, tmp_path, capsys):
 
 
 @pytest.mark.parametrize("key", ["global_mesh", "bsp"])
-def test_app_refuses_multi_process_modes(sparse_files, key):
+def test_app_refuses_multi_process_modes(sparse_files, key, monkeypatch,
+                                         tmp_path):
+    """global_mesh=1 waits for its slice (item 5.4); a bsp=1 worker
+    refuses what the JAX app's refuses: a warm start and task=pred."""
     tr, _ = sparse_files
-    with pytest.raises(NotImplementedError, match="slice"):
-        t_app.main([f"train_data={tr}", f"{key}=1", "device=cpu"])
+    if key == "global_mesh":
+        with pytest.raises(NotImplementedError, match="item 5.4"):
+            t_app.main([f"train_data={tr}", f"{key}=1", "device=cpu"])
+        return
+    with bsp_worker_role(monkeypatch):
+        with pytest.raises(NotImplementedError, match="model_in"):
+            t_app.main([f"train_data={tr}", "bsp=1", "device=cpu",
+                        f"model_in={tmp_path}/m.npz"])
+    with bsp_worker_role(monkeypatch):
+        with pytest.raises(ValueError, match="task=train"):
+            t_app.main([f"train_data={tr}", "bsp=1", "device=cpu",
+                        "task=pred"])
+
+
+def test_bsp_worker_of_one_rank_trains_as_one_process(sparse_files,
+                                                      monkeypatch, tmp_path,
+                                                      capsys):
+    """The app's bsp=1 worker body under a launcher role, a ring of one
+    rank: the sketch through the blob channel, the rank's parts parsed
+    into its dataset, every level's block and the metric sums through
+    the ring, a version checkpoint a round. One rank's ring returns its
+    own sums, so the model equals the single-process app's bit for bit,
+    and the checkpoint holds every round's trees."""
+    tr, va = sparse_files
+    args = [f"train_data={tr}", f"eval_data={va}", "max_depth=3",
+            "num_round=3", "max_bin=32", "device=cpu", "bsp=1"]
+    one, bsp = tmp_path / "one.npz", tmp_path / "bsp.npz"
+    assert t_app.main(args + [f"model_out={one}"]) == 0
+    with bsp_worker_role(monkeypatch) as sched:
+        monkeypatch.setenv("WH_SNAPSHOT_DIR", str(tmp_path))
+        assert t_app.main(args + [f"model_out={bsp}"]) == 0
+        assert sched.has_blob("gbdt_bsp_meta")
+    out = capsys.readouterr().out
+    assert "[bsp-worker] " in out and "final test: error=" in out
+    a, b = np.load(one), np.load(bsp)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        assert np.array_equal(a[k], b[k]), k
+    st = np.load(tmp_path / "bsp_rank0.npz")
+    assert int(st["round"]) == 3 and int(st["__version"]) == 3
+    np.testing.assert_array_equal(st["split_feat"], a["split_feat"])
 
 
 def test_default_device_is_cuda(sparse_files):

@@ -164,11 +164,22 @@ def test_scan_covers_the_ps_plane():
         assert PORT / rel in SOURCES
 
 
+def test_scan_covers_the_bsp_plane():
+    """The BSP ring, the host part of multihost.py and the metric-name
+    registry are among the sources scanned and the modules the probe
+    imports with JAX blocked."""
+    for rel in ("runtime/allreduce.py", "parallel/multihost.py",
+                "obs/names.py"):
+        assert PORT / rel in SOURCES
+
+
 def test_ps_plane_host_modules_import_no_torch():
     """The roles that never touch the card (scheduler, servers, launcher)
-    run on modules that import neither torch nor JAX."""
+    and the BSP ring run on modules that import neither torch nor JAX."""
     probe = (
         "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import wormhole_tpu_torch.runtime.allreduce\n"
+        "import wormhole_tpu_torch.obs.names\n"
         "import wormhole_tpu_torch.runtime.tracker\n"
         "import wormhole_tpu_torch.runtime.ps_server\n"
         "import wormhole_tpu_torch.launcher.dmlc_tpu\n"

@@ -23,6 +23,7 @@ import torch
 
 from conftest import synth_libsvm_text
 from test_difacto import fm_synth_text
+from torch_bsp_role import bsp_worker_role
 from wormhole_tpu.apps import lbfgs_linear as j_app
 from wormhole_tpu.models import batch_objectives as jb
 from wormhole_tpu.parallel.mesh import make_mesh
@@ -244,14 +245,60 @@ def test_apps_run_on_cpu(lin_file, fm_file, tmp_path, capsys):
     assert st["w"].shape == (nf * 5 + 1,) and int(st["nfactor"]) == 4
 
 
-@pytest.mark.parametrize("what", ["linear-bsp", "linear-global_mesh",
-                                  "fm-bsp", "comm", "unseen-feature"])
-def test_what_waits_raises(what, lin_file, tmp_path):
+@pytest.mark.parametrize("what", ["linear-bsp", "fm-bsp", "comm"])
+def test_bsp_paths_run(what, lin_file, tmp_path, monkeypatch, capsys):
+    """bsp=1 under a launcher's worker role runs the app's BSP worker
+    body (load_batches_bsp, the solver with `comm`, a version checkpoint
+    an iteration), and the solver takes a ring worker as `comm`. A ring
+    of one rank returns its own sums, so each equals the single process
+    bit for bit."""
     if what == "comm":
+        from wormhole_tpu_torch.runtime.allreduce import BspWorker
+        from wormhole_tpu_torch.runtime.tracker import SchedulerClient
+
         _, to = _objs("linear", lin_file)
-        with pytest.raises(NotImplementedError, match="BSP"):
-            LBFGSSolver(to, LBFGSConfig(), comm=object())
+        cfg = LBFGSConfig(max_iter=5, reg_l2=1e-3)
+        w1, o1 = LBFGSSolver(to, cfg).run(verbose=False)
+        with bsp_worker_role(monkeypatch) as sched:
+            client = SchedulerClient(sched.uri, "worker-0")
+            client.register()
+            comm = BspWorker(0, 1, client, snapshot_dir=str(tmp_path))
+            try:
+                s = LBFGSSolver(to, cfg, comm=comm)
+                w2, o2 = s.run(verbose=False)
+            finally:
+                comm.close()
+        assert torch.equal(w1, w2) and o1 == o2
+        assert comm.version == s.iter == 5
+        st = np.load(tmp_path / "bsp_rank0.npz")
+        assert set(st.files) == {"__version", "w", "g", "iter", "objv", "S",
+                                 "Y"}
+        np.testing.assert_array_equal(st["w"], w2.numpy())
         return
+    app = t_app if what == "linear-bsp" else t_fm_app
+    args = [f"data={lin_file}", "max_lbfgs_iter=5", "reg_L2=0.001",
+            "minibatch=512", "nnz_per_row=16", "device=cpu", "bsp=1"]
+    if what == "fm-bsp":
+        args.append("nfactor=4")
+    one, bsp = tmp_path / "one.npz", tmp_path / "bsp.npz"
+    assert app.main(args + [f"model_out={one}"]) == 0
+    with bsp_worker_role(monkeypatch) as sched:
+        assert app.main(args + [f"model_out={bsp}"]) == 0
+        key = "lbfgs_dim" if what == "linear-bsp" else "lbfgs_fm_dim"
+        assert sched.has_blob(key) and sched.has_blob(f"{key}_0")
+    out = capsys.readouterr().out
+    objv = [line for line in out.splitlines()
+            if line.startswith("final objective")]
+    assert len(objv) == 2 and objv[0] == objv[1]
+    assert "[bsp-worker] " in out
+    a, b = np.load(one), np.load(bsp)
+    assert sorted(a.files) == sorted(b.files)
+    for k in a.files:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("what", ["linear-global_mesh", "unseen-feature"])
+def test_what_waits_raises(what, lin_file, tmp_path):
     if what == "unseen-feature":
         model = str(tmp_path / "small.npz")
         np.savez(model, w=np.zeros(11, np.float32), num_feature=10)
@@ -259,7 +306,5 @@ def test_what_waits_raises(what, lin_file, tmp_path):
             t_app.main([f"data={lin_file}", "task=pred",
                         f"model_in={model}", "device=cpu"])
         return
-    app, key = what.split("-")
-    main = t_app.main if app == "linear" else t_fm_app.main
-    with pytest.raises(NotImplementedError, match="slice"):
-        main([f"data={lin_file}", f"{key}=1", "device=cpu"])
+    with pytest.raises(NotImplementedError, match="item 5.4"):
+        t_app.main([f"data={lin_file}", "global_mesh=1", "device=cpu"])

@@ -223,8 +223,8 @@ def test_save_iter_and_model_in_resume(data, tmp_path):
 
 
 def test_other_apps_refuse_launcher_roles(data, tmp_path):
-    """An app without a distributed mode in the port fails the launch and
-    names the ROADMAP item (here the gbdt app under -n 1 -s 0)."""
+    """A batch app launched without bsp=1 has no role to play: the launch
+    fails and says how to run it (here the gbdt app under -n 1 -s 0)."""
     cmd = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
            "-n", "1", "-s", "0", "--", sys.executable, "-m",
            "wormhole_tpu_torch.apps.gbdt", f"train_data={data}/one.libsvm",
@@ -234,7 +234,7 @@ def test_other_apps_refuse_launcher_roles(data, tmp_path):
                        cwd=REPO, timeout=LAUNCH_TIMEOUT,
                        start_new_session=True)
     assert p.returncode != 0
-    assert "ROADMAP.md Queue A item 4" in p.stdout + p.stderr
+    assert "run with bsp=1, or without the launcher" in p.stdout + p.stderr
 
 
 def test_hot_plane_and_global_mesh_raise(data, tmp_path):

@@ -199,6 +199,8 @@ def test_bad_fault_specs_raise_in_both(spec):
 
 def test_declared_knobs_match_the_jax_registry():
     assert len(tconfig.KNOBS) > 30
+    # the BSP ring's (runtime/allreduce.py)
+    assert {"WH_BSP_STEP_TIMEOUT", "WH_BSP_RETRY_SEC"} <= set(tconfig.KNOBS)
     for name, knob in tconfig.KNOBS.items():
         assert dataclasses.astuple(knob) == \
             dataclasses.astuple(jconfig.KNOBS[name]), name
@@ -217,7 +219,8 @@ def test_every_knob_the_port_reads_is_declared():
         read |= set(re.findall(r'knob_value\("(WH_[A-Z0-9_]+)"\)',
                                path.read_text()))
     assert {"WH_ELASTIC", "WH_ELASTIC_JOIN", "WH_ELASTIC_PLAN",
-            "WH_SCHED_JOURNAL", "WH_OBS_RING"} <= read
+            "WH_SCHED_JOURNAL", "WH_OBS_RING", "WH_BSP_STEP_TIMEOUT",
+            "WH_BSP_RETRY_SEC"} <= read
     assert read <= set(tconfig.KNOBS), sorted(read - set(tconfig.KNOBS))
     for name in ("WH_PS_RETRY_SEC", "WH_ASYNC_SYNC", "WH_KEYCACHE",
                  "WH_WIRE", "WH_WIRE_EF", "WH_WIRE_COMP", "WH_PS_PLANE",

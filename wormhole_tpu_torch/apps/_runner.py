@@ -31,6 +31,12 @@ does:
   the server group through a SyncedStore, every `max_delay` minibatches
   and at every part's end.
 
+The batch apps (gbdt, lbfgs_linear, lbfgs_fm) dispatch with bsp=1
+through `maybe_run_bsp` instead: the scheduler is rendezvous and
+liveness only, and each worker, a rank of a BspWorker ring
+(runtime/allreduce.py), learns on its stable slice of the file parts and
+sums its statistics with the other ranks' over the ring.
+
 The scheduler, server and serve roles are host code (sockets, threads,
 numpy): they dispatch before any learner is built, so they never open a
 CUDA context. Several workers share one card, each in a context of its
@@ -84,14 +90,14 @@ def parse_cli(cls, argv, ranks: bool = False):
     return load_config(cls, conf_file=conf, argv=kept), device
 
 
-def refuse_roles(app: str, item: str) -> None:
-    """Raise under a launcher role: `app` runs in one process until the
-    ROADMAP.md item `item` ports its distributed mode."""
+def refuse_roles(app: str, remedy: str) -> None:
+    """Raise under a launcher role that `app` has no part for in this
+    launch (the BSP apps without bsp=1, k-means at all); `remedy` says
+    how to run it instead."""
     role = os.environ.get("WH_ROLE")
     if role:
         raise NotImplementedError(
-            f"the {app} app has no {role} role in the port yet: its "
-            f"distributed mode waits for ROADMAP.md Queue A item {item}")
+            f"the {app} app has no {role} role in this launch: {remedy}")
 
 
 @contextlib.contextmanager
@@ -150,6 +156,85 @@ def run_minibatch_app(cfg, make_learner, device="cuda",
     if env.role.value == "server":
         return _run_server(cfg, env)
     return _run_worker(cfg, env, make_learner, device, verbose)
+
+
+def maybe_run_bsp(cfg, worker_body, device="cuda"):
+    """Role dispatch for the BSP-allreduce apps (bsp=1 under the
+    launcher): returns an exit code when this process has a launcher
+    role, else None (the caller runs its single-process path). Each
+    worker gets a `BspWorker` (runtime/allreduce.py) registered with the
+    scheduler and is called as worker_body(cfg, env, client, comm,
+    device). The scheduler runs liveness and rendezvous and emits the
+    run report at drain; servers have no part (`-s 0` is the natural
+    launch). The scheduler and server roles return before any learner or
+    tensor exists, so they open no CUDA context."""
+    if not getattr(cfg, "bsp", False):
+        return None
+    env = node_env()
+    if env.role is None:
+        return None
+    if env.role.value == "scheduler":
+        _run_scheduler_bsp(env)
+        return 0
+    if env.role.value == "server":
+        print(f"[bsp server {env.rank}] cuda context: {_cuda_context()}",
+              flush=True)
+        return 0
+    from wormhole_tpu_torch.runtime.allreduce import BspWorker
+
+    client = SchedulerClient(env.scheduler_uri, f"worker-{env.rank}")
+    client.register()
+    pinger = LivenessPinger(client)
+    comm = BspWorker(env.rank, env.num_workers, client)
+    try:
+        rc = worker_body(cfg, env, client, comm, device)
+    finally:
+        pinger.stop()
+        comm.close()
+    # this incarnation's kernel launches (a respawn counts its own)
+    kc = sys.modules.get("wormhole_tpu_torch.ops._cuda")
+    print("[bsp-worker] " + json.dumps({
+        "rank": env.rank, "device": str(device),
+        "restore_epoch": int(os.environ.get("WH_RESTORE_EPOCH", "0") or 0),
+        "kernel_launches": ({k: v for k, v in kc.LAUNCHES.items() if v}
+                            if kc is not None else {})}), flush=True)
+    try:
+        # the final metrics snapshot rides the deregistration: bye ONLY
+        # on a clean run, as _run_worker's; a crashed worker must be
+        # evicted instead, which is what lets its respawn rejoin
+        client.call(op="bye", metrics=_obs.REGISTRY.snapshot())
+    except Exception:
+        pass
+    return rc
+
+
+def _run_scheduler_bsp(env) -> None:
+    """BSP-mode scheduler: liveness and rendezvous (register_bsp,
+    bsp_peers, blobs); the collectives themselves run worker to worker.
+    Exits once every worker registered and left, emitting the aggregated
+    run report; bounded startup, so a mis-launched job fails loudly."""
+    sched = Scheduler.from_env(env)
+    sched.serve()
+    if knob_value("WH_ELASTIC"):
+        sched.start_membership_controller(env.num_workers)
+    startup_deadline = time.monotonic() + max(60.0, sched.node_timeout * 4)
+    try:
+        # a respawned scheduler (journal replay) already saw workers in a
+        # previous incarnation: the startup deadline must not fire while
+        # the restored group rides out the restart on its retry budgets
+        seen_any = sched.incarnation > 0
+        while True:
+            time.sleep(0.5)
+            seen_any = seen_any or bool(sched.live_workers())
+            if seen_any and sched.workers_drained(env.num_workers):
+                break
+            if not seen_any and time.monotonic() > startup_deadline:
+                raise RuntimeError(
+                    "no BSP worker registered within the startup deadline")
+        _emit_run_report(sched, None, verbose=True)
+        print(f"[scheduler] cuda context: {_cuda_context()}", flush=True)
+    finally:
+        sched.stop()
 
 
 def _cuda_context() -> str:
@@ -625,7 +710,6 @@ def _drain_round(solver, learner, pool: RemotePool, wtype, data_pass,
     train = wtype == WorkType.TRAIN
     step = learner.train_batch if train else learner.eval_batch
     mode = "train" if train else "eval"
-    span_name = f"solver.{mode}_step"
     absorb = getattr(synced, "absorb_membership", None)
     while (got := pool.get()) is not None:
         part_id, f = got
@@ -645,7 +729,7 @@ def _drain_round(solver, learner, pool: RemotePool, wtype, data_pass,
                 if blk is None:
                     break
                 t0 = time.perf_counter()
-                with _trace.span(span_name, cat="solver"):
+                with _trace.span(f"solver.{mode}_step", cat="solver"):
                     p = step(blk)
                 perf.add(f"{mode}_step", time.perf_counter() - t0)
                 for k, v in p.items():

@@ -22,7 +22,8 @@ def main(argv=None) -> int:
     argv = [a.replace("data=", "train_data=", 1)
             if a.startswith("data=") else a for a in argv]
     cfg, device = parse_cli(KmeansConfig, argv)
-    refuse_roles("kmeans", "4 (the BSP allreduce plane)")
+    refuse_roles("kmeans", "its multi-process mode, the global mesh, waits "
+                 "for ROADMAP.md Queue A item 5.4; run without the launcher")
     if cfg.global_mesh:
         raise NotImplementedError(
             "global_mesh=1 (k-means with rows sharded over several "

@@ -1,15 +1,20 @@
 """lbfgs linear.dmlc: batch logistic regression trained by L-BFGS/OWL-QN
-(reference learn/lbfgs-linear/lbfgs.cc), on one device. Rabit-style
-key=value args:
+(reference learn/lbfgs-linear/lbfgs.cc), on one device, or with bsp=1
+under the launcher on several worker processes whose gradients and
+losses sum over the BSP allreduce ring (runtime/allreduce.py).
+Rabit-style key=value args:
 
   python -m wormhole_tpu_torch.apps.lbfgs_linear data=train.libsvm \
       reg_L1=1 max_lbfgs_iter=30 model_out=model.npz device=cuda \
       task=train|pred [test_data=... pred_out=...]
+  python -m wormhole_tpu_torch.launcher.dmlc_tpu -n 3 -s 0 -- \
+      python -m wormhole_tpu_torch.apps.lbfgs_linear data=train.libsvm \
+      num_parts_per_file=3 bsp=1
 
 task=pred reads model_in (an .npz of w and num_feature, the JAX app's
 or this one's) and writes one margin a row, %.6g. A test row with a
-feature id the model does not have raises. bsp=1 (the BSP allreduce
-ring) and global_mesh=1 (several devices) raise until their slices.
+feature id the model does not have raises. global_mesh=1 (the vector
+sharded over several devices) raises until its slice.
 """
 
 from __future__ import annotations
@@ -20,10 +25,11 @@ from typing import Optional
 
 import numpy as np
 
-from wormhole_tpu_torch.apps._runner import parse_cli, refuse_roles
+from wormhole_tpu_torch.apps._runner import (maybe_run_bsp, parse_cli,
+                                              refuse_roles)
 from wormhole_tpu_torch.interop import lbfgs_state_from_numpy
 from wormhole_tpu_torch.models.batch_objectives import (
-    LinearObjFunction, load_batches,
+    LinearObjFunction, load_batches, load_batches_bsp,
 )
 from wormhole_tpu_torch.solver.lbfgs import LBFGSConfig, LBFGSSolver
 
@@ -49,9 +55,11 @@ class LbfgsLinearConfig:
     minibatch: int = 4096
     nnz_per_row: int = 64
     num_parts_per_file: int = 1
-    # several processes over one device mesh (the multi-GPU slice)
+    # several processes over one device mesh (ROADMAP.md item 5.4)
     global_mesh: bool = False
-    # several processes over the BSP allreduce ring (the BSP slice)
+    # several processes over the BSP allreduce ring: parameters
+    # replicated per rank, data partitioned, gradient and loss summed
+    # over the ring, fault-tolerant through version checkpoints
     bsp: bool = False
 
 
@@ -62,16 +70,45 @@ def solver_config(cfg) -> LBFGSConfig:
 
 
 def check_single_process(cfg) -> None:
-    refuse_roles("L-BFGS", "4 (the BSP allreduce plane)")
-    if cfg.bsp:
-        raise NotImplementedError(
-            "bsp=1 (L-BFGS over the BSP allreduce ring) waits for the "
-            "port's BSP slice; run single-process")
+    """Refuse what the port lacks in a process that is no BSP rank."""
     if getattr(cfg, "global_mesh", False):
         raise NotImplementedError(
             "global_mesh=1 (L-BFGS with the vector sharded over several "
-            "devices) waits for the port's multi-GPU slice; run "
-            "single-process")
+            "devices) waits for the port's multi-GPU slice, ROADMAP.md "
+            "Queue A item 5.4; run single-process or with bsp=1")
+    refuse_roles("L-BFGS", "run with bsp=1, or without the launcher")
+
+
+def run_bsp_rank(cfg, env, client, comm, device, make_obj,
+                 key: str = "lbfgs_dim", **saved) -> int:
+    """One rank of L-BFGS over the BSP allreduce ring: this rank loads
+    its part slice, the solver sums the gradient and the raw loss over
+    the ring, and every iteration ends in a version checkpoint, so a
+    killed worker respawns, reloads (w, g, history, S, Y) and replays
+    the collectives it missed from its peers' result caches. Every rank
+    drives the same host loop on the same reduced values; w is
+    replicated, so rank 0 alone saves it (with num_feature and `saved`)
+    and prints the final objective."""
+    if getattr(cfg, "task", "train") != "train":
+        raise ValueError(f"bsp=1 runs task=train, not {cfg.task!r}")
+    batches, num_feature = load_batches_bsp(
+        cfg.data, env, client, cfg.data_format, cfg.minibatch,
+        cfg.nnz_per_row, cfg.num_parts_per_file, key=key, device=device)
+    obj = make_obj(batches, num_feature)
+    w, objv = LBFGSSolver(obj, solver_config(cfg), comm=comm).run(
+        verbose=(env.rank == 0))
+    if env.rank == 0:
+        if cfg.model_out:
+            np.savez(cfg.model_out, w=w.cpu().numpy(),
+                     num_feature=num_feature, **saved)
+            print(f"saved model to {cfg.model_out}", flush=True)
+        print(f"final objective: {objv:.6f}", flush=True)
+    return 0
+
+
+def _bsp_worker_body(cfg, env, client, comm, device) -> int:
+    return run_bsp_rank(cfg, env, client, comm, device,
+                        lambda b, nf: LinearObjFunction(b, nf, device))
 
 
 def predict(cfg, device) -> int:
@@ -108,6 +145,9 @@ def predict(cfg, device) -> int:
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     cfg, device = parse_cli(LbfgsLinearConfig, argv)
+    rc = maybe_run_bsp(cfg, _bsp_worker_body, device)
+    if rc is not None:
+        return rc
     check_single_process(cfg)
     if cfg.task == "pred":
         return predict(cfg, device)

@@ -456,6 +456,10 @@ declare_knob("WH_WIRE_COMP", str, "",
 declare_knob("WH_NUM_SERVE", int, 0,
              "Serving-shard count the launcher's --serve role group exports.",
              group="serve")
+declare_knob("WH_BSP_STEP_TIMEOUT", float, 2.0,
+             "Seconds a BSP worker blocks on one ring step before "
+             "re-polling the tracker for a membership change.",
+             group="bsp")
 declare_knob("WH_BSP_RETRY_SEC", float, 120.0,
              "Total seconds a blocked BSP collective waits for a dead "
              "peer's respawn before failing the job.",

@@ -1,4 +1,5 @@
-"""Batch objectives for the L-BFGS solver: linear and FM, on one device.
+"""Batch objectives for the L-BFGS solver: linear and FM, on one device
+(one rank of a BSP ring holds its own rows' batches, load_batches_bsp).
 
 Parity targets:
 - learn/lbfgs-linear (lbfgs.cc, linear.h): logistic regression with the
@@ -63,6 +64,45 @@ def load_batches(pattern: str, fmt: str = "libsvm", minibatch: int = 4096,
         batches.append((put(db.seg), put(db.idx), put(db.val),
                         put(db.label), put(db.row_mask)))
     return batches, max_id + 1
+
+
+def load_batches_bsp(pattern: str, env, client, fmt: str = "libsvm",
+                     minibatch: int = 4096, nnz_per_row: int = 64,
+                     num_parts_per_file: int = 1, key: str = "lbfgs_dim",
+                     device=None):
+    """The BSP-ring variant of load_batches: this rank's stable slice of
+    the file parts (parallel/multihost.py rank_parts), parsed on `device`
+    into batches on it. Parameters are replicated per rank and the solver
+    reduces gradients and losses over the ring. The global feature count
+    (the Allreduce<Max> of lbfgs.cc:107-113) is agreed through the
+    scheduler's blob channel (`{key}_{rank}`, then `key`): blobs persist,
+    so a respawned worker re-reads the same value without consuming a
+    collective counter, and its (version, seq) sequence stays aligned
+    with the survivors'. A rank with no parts holds no batches."""
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    dev = resolve_device(device)
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    batches, max_id = [], -1
+    for f, k in mh.rank_parts(pattern, num_parts_per_file, env):
+        for blk in MinibatchIter(f, k, num_parts_per_file, fmt,
+                                 minibatch_size=minibatch, device=dev):
+            if blk.nnz:
+                max_id = max(max_id, int(blk.index.max()))
+            if max_id >= _MAX_ID:
+                raise ValueError(f"feature id {max_id}: the batch "
+                                 f"objectives take ids below 2^31 - 1")
+            db = to_device_batch(blk, minibatch, minibatch * nnz_per_row,
+                                 _MAX_ID)
+            batches.append((put(db.seg), put(db.idx), put(db.val),
+                            put(db.label), put(db.row_mask)))
+    client.blob_put(f"{key}_{env.rank}", np.int64(max_id))
+    if env.rank == 0 and not client.call(op="blob_get", key=key)["ok"]:
+        dims = [int(client.blob_get(f"{key}_{r}", timeout=120))
+                for r in range(env.num_workers)]
+        client.blob_put(key, np.int64(max(dims)))
+    return batches, int(client.blob_get(key, timeout=120)) + 1
 
 
 def _dual(margin, label, mask):

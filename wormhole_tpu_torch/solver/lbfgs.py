@@ -1,4 +1,5 @@
-"""Batch L-BFGS / OWL-QN solver on one device.
+"""Batch L-BFGS / OWL-QN solver on one device, or replicated on each rank
+of a BSP allreduce ring.
 
 Parity target: reference learn/solver/lbfgs.h — vector-free L-BFGS with
 backtracking line search and OWL-QN L1 handling: global quantities are
@@ -16,8 +17,18 @@ of the basis. The host drives the outer iteration and the line search;
 OWL-QN (lbfgs.h:358-407): pseudo-gradient at w = 0, direction sign fix
 against the pseudo-gradient, orthant projection of each trial point.
 
-The distributed mode of the JAX solver (``comm``, a BSP allreduce ring
-worker) waits for the port's BSP slice.
+With ``comm`` (a runtime/allreduce.py BspWorker) the solver runs the
+reference's distributed layout: parameters and history replicated per
+rank, data partitioned, and the two data-dependent quantities, the
+gradient and the raw objective, summed over the worker ring
+(lbfgs.h:235-303, 321-356). They cross to the host as numpy (the ring is
+host code) and come back to the objective's device as f32. Every other
+scalar is computed from those reduced values, identical on every rank,
+so all ranks drive the same host loop in lockstep. Checkpoints go
+through the ring's version protocol (rabit CheckPoint) with the JAX
+package's state keys; the state holds g and the objective history, so a
+resumed rank skips the initial grad and eval, which keeps its collective
+counters aligned with the survivors'.
 """
 
 from __future__ import annotations
@@ -56,15 +67,13 @@ class LBFGSConfig:
 
 
 class LBFGSSolver:
-    """Host-driven L-BFGS over vectors on the objective's device."""
+    """Host-driven L-BFGS over vectors on the objective's device; with
+    `comm`, one rank of a BSP ring (see the module docstring)."""
 
     def __init__(self, obj: ObjFunction, cfg: LBFGSConfig, comm=None):
-        if comm is not None:
-            raise NotImplementedError(
-                "comm (L-BFGS over the BSP allreduce ring) waits for the "
-                "port's BSP slice; run single-process")
         self.obj = obj
         self.cfg = cfg
+        self.comm = comm
         self.S: list[torch.Tensor] = []   # s_k = w_{k+1} - w_k
         self.Y: list[torch.Tensor] = []   # y_k = g_{k+1} - g_k
         self.iter = 0
@@ -146,7 +155,25 @@ class LBFGSSolver:
 
     # -- one iteration (UpdateOneIter, lbfgs.h:168-196) -----------------------
     def _eval_full(self, w) -> float:
-        return self._fetch(self._full_obj(w, self.obj.eval(w)))
+        """Full objective at w. Over a ring the RAW data loss is summed
+        before the regularizers: they are functions of the replicated w
+        and are added once, not once a rank (lbfgs.h:321-340)."""
+        raw = self.obj.eval(w)
+        if self.comm is not None:
+            raw = float(self.comm.allreduce(np.float32(raw)))
+        return self._fetch(self._full_obj(w, raw))
+
+    def _grad(self, w):
+        """Gradient of the data loss: this rank's sum, then over a ring
+        one allreduce (the single Allreduce<Sum> an iteration of
+        lbfgs.h:194), back on the objective's device as f32."""
+        g = self.obj.grad(w)
+        if self.comm is not None:
+            # a copy: the ring keeps its result cached for replays
+            g = torch.from_numpy(np.array(
+                self.comm.allreduce(g.cpu().numpy()), np.float32)).to(
+                    g.device)
+        return g
 
     def run(self, verbose: bool = True) -> tuple[torch.Tensor, float]:
         cfg = self.cfg
@@ -157,7 +184,7 @@ class LBFGSSolver:
         # a checkpoint with g and the objective history skips both
         # recomputes; one without them recomputes
         if g is None:
-            g = self.obj.grad(w)
+            g = self._grad(w)
         if objv is None:
             objv = self._eval_full(w)
         if not resumed:  # a resumed history already ends with this objv
@@ -208,7 +235,7 @@ class LBFGSSolver:
                     print("lbfgs: line search failed, stopping", flush=True)
                 break
 
-            g_new = self.obj.grad(w_new)
+            g_new = self._grad(w_new)
             s = w_new - w
             y = (g_new + cfg.reg_l2 * w_new) - (g + cfg.reg_l2 * w)
             if self._fetch(torch.dot(s, y)) > 1e-10:
@@ -241,6 +268,12 @@ class LBFGSSolver:
                     S=stack(self.S), Y=stack(self.Y))
 
     def _checkpoint(self, w, g) -> None:
+        if self.comm is not None:
+            # version-stamped ring checkpoint: bumps (version, seq) on
+            # every rank in lockstep and persists under the launcher's
+            # snapshot dir for a respawned incarnation
+            self.comm.checkpoint(self._state(w, g))
+            return
         cdir = self.cfg.checkpoint_dir
         if not cdir:
             return
@@ -251,20 +284,26 @@ class LBFGSSolver:
                      **self._state(w, g))
 
     def _try_resume(self):
-        """(w, g, objv) from the checkpoint dir's lbfgs_state.npz (the
-        JAX package's or the port's; a mesh's padding stripped by
+        """(w, g, objv) from the ring's checkpoint (with ``comm``) or the
+        checkpoint dir's lbfgs_state.npz (the JAX package's or the
+        port's; a mesh's padding stripped by
         interop.lbfgs_state_from_numpy), or Nones. g and objv are None
         when the file predates them and must be recomputed."""
         from wormhole_tpu_torch.interop import lbfgs_state_from_numpy
 
-        cdir = self.cfg.checkpoint_dir
-        path = os.path.join(cdir, "lbfgs_state.npz") if cdir else None
-        if path is None or not os.path.exists(path):
+        if self.comm is not None:
+            arrays = self.comm.load_checkpoint()
+        else:
+            cdir = self.cfg.checkpoint_dir
+            path = os.path.join(cdir, "lbfgs_state.npz") if cdir else None
+            arrays = None
+            if path is not None and os.path.exists(path):
+                with np.load(path) as f:
+                    arrays = {k: f[k] for k in f.files}
+        if arrays is None:
             return None, None, None
-        with np.load(path) as f:
-            st = lbfgs_state_from_numpy(
-                {k: f[k] for k in f.files}, self.obj.num_dim,
-                getattr(self.obj, "device", None))
+        st = lbfgs_state_from_numpy(arrays, self.obj.num_dim,
+                                    getattr(self.obj, "device", None))
         self.iter = st["iter"]
         self.objv_history = st["objv"]
         self.S, self.Y = st["S"], st["Y"]
