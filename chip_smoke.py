@@ -34,10 +34,12 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    compact; the DiFacto half runs on a
    full-width batch packed by the learner's own pack; level_hist runs on
    the inputs a real round gives it at each of its six levels, with
-   quantile bins and with the same rows in 0/1 bins, and its partition of the rows by node is held
-   against a stable sort there; every library's ptxas figures and
-   whether the f32 atomics of level_hist (shared) and coo_spmv (global)
-   are native adds are printed;
+   quantile bins and with the same rows in 0/1 bins, two launches at
+   each level must give equal bits, those of the fixed-point rule in
+   plain ops, and its partition of the rows by node is held against a
+   stable sort there; every library's ptxas figures and whether the
+   integer atomics of level_hist (shared and global) and the f32
+   atomics of coo_spmv (global) are native adds are printed;
 2. runs LinearLearner on the card at 2^22 buckets (dense tables, kernels
    coo_spmv + coo_spmv_t) and 2^26 buckets (compacted path, tile_gather +
    coo_spmv_t + scatter_update): train steps, eval, predict, each against
@@ -69,7 +71,8 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    (every CityHash64 branch) and a 65,536-row adfea chunk (negative and
    22-digit fids, gids over 0-1023): equal RowBlocks byte for byte,
    every token converted on the card, timed as the kernels are plus the
-   whole call's wall and the plain parser's (one call a format); and the
+   whole call's wall and the plain parser's (one call a format), the
+   libsvm chunks with the device ops a call split by kernel; and the
    pack with its sorts on the card against the numpy pack, byte for byte,
    at full width (pack_sorted_coo at 2^22, pack_tile_coo at 2^26,
    DiFacto's _pack_fm), in seconds a batch;
@@ -213,7 +216,9 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    allreduce (round 1's fourth level: 8 collectives a round, checked
    from the counts), respawned by the launcher, whose run report must
    show a recovery and result fetches, its model held to the same bar
-   against the fault-free one, and whether it came out bit-identical.
+   against the fault-free one and bit-identical to it, and a second
+   fault-free launch bit-identical to the first (the level sums are
+   integer sums on the card).
    L-BFGS linear at the agaricus shape (6,513 rows, 126 ids) read as
    3 parts, reg_L2 0.1, 30 iterations: the objective never rises and its
    first 8 iterations are within rtol 1e-4 of the single process on the
@@ -398,6 +403,37 @@ def device_ms(fn, device, iters: int = 20) -> float:
         if us > 0:
             break
     return us / 1e3 / iters
+
+
+def device_split(fn, device, iters: int = 10) -> list:
+    """The device ops that one call of fn enqueues, by name in the order
+    of the last call: [name, ops a call, device ms a call] (the
+    profiler's events over iters calls, after a warm-up call; the ops a
+    call are rounded, as the profiler may drop the first event); None
+    off the card."""
+    import torch
+
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize(device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize(device)
+    split = {}
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            k = split.setdefault(e.name, [0, 0.0, 0])
+            k[0] += 1
+            k[1] += e.time_range.elapsed_us()
+            k[2] = max(k[2], e.time_range.start)
+    out = []
+    for name, (n, us, _) in sorted(split.items(), key=lambda kv: kv[1][2]):
+        per_call = max(1, round(n / iters))
+        out.append([name[:70], per_call, us / n * per_call / 1e3])
+    return out
 
 
 def host_us(fn, device, iters: int = 50) -> float:
@@ -643,9 +679,14 @@ def check_kernels(device, dense_buckets=DENSE_BUCKETS,
     if (g[untouched] != 0).any():
         raise AssertionError("coo_spmv_t compact: untouched slot not "
                              "exactly 0")
-    out["coo_spmv_t_compact"] = timings(
-        lambda: ck.coo_spmv_t(d, csidx, csseg, csval, None, None, u_cap,
-                              f32), device)
+    # least traffic, as the dense push's: the stream, d, g written once
+    c_live = int((pc.val != 0).sum())
+    nb = c_live * 12 + (pc.idx.shape[0] - c_live) * 4 + MINIBATCH * 4 \
+        + u_cap * 4
+    out["coo_spmv_t_compact"] = dict(
+        **timings(lambda: ck.coo_spmv_t(d, csidx, csseg, csval, None, None,
+                                        u_cap, f32), device),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(nb, 2 * c_live))))
     log(f"[kernel] coo_spmv_t compact: "
         + json.dumps(out["coo_spmv_t_compact"]))
     hyper = dict(lr_eta=0.1, lr_beta=1.0, lambda_l1=1.0, lambda_l2=0.1)
@@ -1284,29 +1325,15 @@ def binned_dataset(device, binned, label):
         num_real=label.shape[0])
 
 
-def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
-                      max_bin=GBDT_BINS) -> dict:
-    """level_hist against its plain version (with f64 accumulators) on
-    the inputs the main path gives it: the (g, h, rel, num_nodes) of every
+def round_levels(device, higgs, depth=GBDT_DEPTH, max_bin=GBDT_BINS):
+    """(dataset, [(g, h, rel, num_nodes)]): what level_hist takes at each
     level of a real boosting round (the second round of the learner, so g
-    and h are not constant), once with the quantile bins and once with the same rows in 0/1 bins
-    (every row of a feature in one of two cells, the mushroom data's
-    shape). Returns the kernel's numbers over the levels of a round with
-    quantile bins (times and bound averaged, the largest error), and each
-    level's, of both kinds of bins, under `per_level`; and the same for
-    level_partition (the rows grouped by node, which level_hist launches
-    first), held exactly against a stable sort at each level. Returns
-    {"level_hist": ..., "level_partition": ...}."""
-    import torch
-
+    and h are not constant) on the HIGGS data."""
     from wormhole_tpu_torch.models import gbdt
-    from wormhole_tpu_torch.ops import hist as hk
 
     edges, binned_np, y, _, _ = higgs
-    rows, F = binned_np.shape
-    B = max_bin
-    lrn = gbdt_learner(device, "mxu", edges, F, depth=depth, rounds=2,
-                       max_bin=B)
+    lrn = gbdt_learner(device, "mxu", edges, binned_np.shape[1], depth=depth,
+                       rounds=2, max_bin=max_bin)
     ds = binned_dataset(device, binned_np, y)
     calls = []
     real = gbdt.level_hist
@@ -1325,15 +1352,38 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
         gbdt.level_hist = real
     if [c[3] for c in calls] != [1] + [2 ** d for d in range(depth - 1)]:
         raise AssertionError(f"levels of a round: {[c[3] for c in calls]}")
+    return ds, calls
+
+
+def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
+                      max_bin=GBDT_BINS) -> dict:
+    """level_hist against its plain version (with f64 accumulators) on
+    the inputs the main path gives it: the (g, h, rel, num_nodes) of every
+    level of a real boosting round (the second round of the learner, so g
+    and h are not constant), once with the quantile bins and once with the same rows in 0/1 bins
+    (every row of a feature in one of two cells, the mushroom data's
+    shape). Returns the kernel's numbers over the levels of a round with
+    quantile bins (times and bound averaged, the largest error), and each
+    level's, of both kinds of bins, under `per_level`; and the same for
+    level_partition (the rows grouped by node, which level_hist launches
+    first), held exactly against a stable sort at each level. Returns
+    {"level_hist": ..., "level_partition": ...}."""
+    import torch
+
+    from wormhole_tpu_torch.ops import hist as hk
+
+    rows, F = higgs[1].shape
+    B = max_bin
+    ds, calls = round_levels(device, higgs, depth, max_bin)
 
     binary = (ds.binned >= B // 2).to(torch.uint8)
     ones = torch.ones(rows, device=device)
     levels, parts = [], []
-    # rtol 1e-5 with quantile bins (a cell sums a few thousand rows). With
-    # 0/1 bins a cell sums up to a million rows, a CTA's share of them
-    # thousands: an f32 accumulator that takes n adds is off by up to
-    # n * 2^-24 of the magnitudes, and g's few distinct values make the
-    # roundings share a sign, so the bar there is rtol 2e-4.
+    # rtol 1e-5 with quantile bins (a cell sums a few thousand rows), 2e-4
+    # with 0/1 bins (a cell sums up to a million rows): the bars of the
+    # f32 kernel before the fixed point, kept. A fixed-point term is off
+    # by at most 2^(r + e - 63) (max|g| < 2^e, rows <= 2^r), far within
+    # both.
     for kind, bins, rtol in (("quantile", ds.binned, 1e-5),
                              ("binary", binary, 2e-4)):
         for d, (g, h, rel, nodes) in enumerate(calls):
@@ -1343,10 +1393,22 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
             tag = f"level_hist {kind} bins level {d} nodes {nodes}"
             G, H = hk.level_hist(bins, g, h, rel, nodes, B)
             G2, H2 = hk.level_hist(bins, g, h, rel, nodes, B)
+            # the card's sums are integers: every launch gives the same
+            # bits, those of the fixed-point rule in plain ops (off the
+            # card level_hist is the plain f32 scatter)
             same_bits = bool(torch.equal(G, G2) and torch.equal(H, H2))
-            # the plain version with f64 accumulators; float atomics sum
-            # in another order: atol 1e-4 + rtol * the sum of the terms'
-            # magnitudes (h is not negative)
+            rule_bits = True
+            if device.type == "cuda":
+                Gf, Hf = hk.level_hist_fixed_plain(bins, g, h, rel, nodes, B)
+                rule_bits = bool(torch.equal(G, Gf) and torch.equal(H, Hf))
+                del Gf, Hf
+            del G2, H2
+            if not (same_bits and rule_bits):
+                raise AssertionError(
+                    f"{tag}: two launches give equal bits {same_bits}, the "
+                    f"fixed-point rule's bits {rule_bits}")
+            # the plain version with f64 accumulators: atol 1e-4 + rtol *
+            # the sum of the terms' magnitudes (h is not negative)
             Gp, Hp = hk.level_hist_plain(bins, g, h, rel, nodes, B,
                                          acc_dtype=torch.float64)
             Gmag, cnt = hk.level_hist_plain(bins, g.abs(), ones, rel, nodes,
@@ -1384,6 +1446,7 @@ def check_hist_kernel(device, higgs, depth=GBDT_DEPTH,
                 max_abs_err=e, max_err_over_magnitudes=share,
                 plain_f32_max_abs_err=drift,
                 equal_bits_in_two_launches=same_bits,
+                fixed_point_rule_bits=rule_bits,
                 **dict(zip(("bound_ms", "bound_by"),
                            bound_ms(nb, 2 * n_active * F))),
                 **timings(lambda: hk.level_hist(bins, g, h, rel, nodes, B),
@@ -1621,9 +1684,10 @@ def start_ptxas_report() -> dict:
 def finish_ptxas_report(procs: dict) -> None:
     """Prints ptxas's figures for each kernel of each source (over a
     kernel's template instances: the fewest and most registers, the most
-    spilled bytes and shared memory), and which SASS the f32 atomicAdd of
-    level_hist_kernel (shared memory) and of pull_kernel (device memory)
-    became: a native add, or a compare-and-swap loop (.CAS, .CAST.SPIN)."""
+    spilled bytes and shared memory), and which SASS the atomics of
+    level_hist_kernel (integer adds, shared and device memory) and the
+    f32 atomicAdd of pull_kernel (device memory) became: native adds, or
+    a compare-and-swap loop (.CAS, .CAST.SPIN)."""
     import re
     import shutil
 
@@ -1653,16 +1717,19 @@ def finish_ptxas_report(procs: dict) -> None:
                 f"{f['spill']} bytes spilled, {f['smem']} bytes static smem")
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        log("[sass] cuobjdump not found: the f32 atomics' SASS was not read")
+        log("[sass] cuobjdump not found: the atomics' SASS was not read")
         return
     for tag, src, kernel, what in (
-            ("hist-sass", "hist", "level_hist_kernel", "shared-memory"),
-            ("pull-sass", "coo_kernels", "pull_kernel", "global-memory")):
+            ("hist-sass", "hist", "level_hist_kernel",
+             "shared-memory and device-memory atomics (the 32-bit integer "
+             "adds of the tile, the 64-bit adds of the merge)"),
+            ("pull-sass", "coo_kernels", "pull_kernel",
+             "global-memory atomics (its f32 atomicAdd)")):
         ops = sass_atomics(tool, procs[src][1], kernel)
         cas = any(".CAS" in k for k in ops)
-        log(f"[{tag}] {kernel} {what} atomics {ops}: the f32 atomicAdd is "
+        log(f"[{tag}] {kernel} {what} {ops}: "
             + ("a compare-and-swap loop, not a native add" if cas
-               else "a native add"))
+               else "native adds"))
 
 
 def sass_atomics(tool: str, cubin, kernel: str) -> dict:
@@ -2078,11 +2145,18 @@ def check_parse(device, rows=PARSE_ROWS) -> dict:
         raw = text.encode()
         buf = native.upload(raw, device)
         n_exact = int(native.parse_libsvm_kernel(buf).stats[native.EXACT])
+        split = device_split(lambda: native.parse_libsvm_kernel(buf), device)
+        ops = None if split is None else sum(k[1] for k in split)
         row = parse_chunk_row(
             name, lambda: native.parse_libsvm_kernel(buf), raw, got, want,
             plain_s, walls, device, f"; exact-path decimals {n_exact} "
-            f"(every token converted on the card)")
+            f"(every token converted on the card); device ops a call "
+            f"{ops}, by kernel [name, a call, ms]: {json.dumps(split)}")
+        row.update(device_ops_per_call=ops, device_split=split)
         out.setdefault("parse_libsvm", row)
+        out["parse_libsvm"].setdefault("chunks", {})[name] = {
+            k: row[k] for k in ("ms", "device_ms", "host_us", "bound_ms",
+                                "call_ms", "mb", "device_split")}
     plain = {}
     for name, fmt, raw in format_chunks(rows):
         if fmt == "adfea":
@@ -4857,7 +4931,8 @@ def run_bsp(device, smi: str, workdir: str, rows=BSP_GBDT_ROWS,
             f"max_depth={depth}", f"max_bin={max_bin}",
             f"num_round={rounds}"]
     models = {}
-    for tag, fault in (("gbdt", ""), ("gbdt kill", gbdt_kill)):
+    for tag, fault in (("gbdt", ""), ("gbdt kill", gbdt_kill),
+                       ("gbdt again", "")):
         models[tag] = os.path.join(d, f"{tag.replace(' ', '-')}.npz")
         rec = bsp_launch(tag, "gbdt", args + [f"model_out={models[tag]}"],
                          device, d, fault, (*GBDT_KERNELS, "parse_libsvm"))
@@ -4869,8 +4944,8 @@ def run_bsp(device, smi: str, workdir: str, rows=BSP_GBDT_ROWS,
     kill = out["gbdt kill"]
     if kill["bsp_recoveries"] < 1 or kill["bsp_result_fetches"] < 1:
         raise AssertionError(f"[bsp] gbdt kill: {json.dumps(kill)}")
-    base, killed = (bsp_model(models[k], device) for k in ("gbdt",
-                                                           "gbdt kill"))
+    base, killed, again = (bsp_model(models[k], device)
+                           for k in ("gbdt", "gbdt kill", "gbdt again"))
     if not (base.edges.dtype == one.edges.dtype
             and np.array_equal(base.edges, one.edges)):
         raise AssertionError("[bsp] gbdt: the edges differ from one "
@@ -4879,15 +4954,27 @@ def run_bsp(device, smi: str, workdir: str, rows=BSP_GBDT_ROWS,
         "gbdt vs one device", base, one, train, rounds)
     out["gbdt kill"]["vs_fault_free"] = bsp_trees_hold(
         "gbdt kill vs fault-free", killed, base, train, rounds)
+    out["gbdt again"]["vs_fault_free"] = bsp_trees_hold(
+        "gbdt again vs fault-free", again, base, train, rounds)
+    # the level sums are integer sums on the card too (csrc/hist.cu), so
+    # a respawned worker's blocks, and a second launch's, have the bits
+    # of the fault-free launch's
+    for tag in ("gbdt kill", "gbdt again"):
+        if not out[tag]["vs_fault_free"]["bit_identical"]:
+            raise AssertionError(
+                f"[bsp] {tag}: the model is not bit-identical to the "
+                f"fault-free launch's: {json.dumps(out[tag]['vs_fault_free'])}")
     out["gbdt kill"]["recovery_overhead_s"] = (kill["wall_s"]
                                                - out["gbdt"]["wall_s"])
     log(f"[bsp] gbdt, {BSP_RANKS} x {rows} rows of {HIGGS_DIM} features, "
         f"{max_bin} bins, depth {depth}, {rounds} rounds ({per_round:.0f} "
         f"collectives a round, so {gbdt_kill} lands in round "
         f"{(int(gbdt_kill.rsplit(':', 1)[1]) - 1) // int(per_round)}); the "
-        f"edges equal one device's on the union byte for byte: "
-        f"{json.dumps(out['gbdt'])}; {json.dumps(out['gbdt kill'])}")
-    del one, train, base, killed
+        f"edges equal one device's on the union byte for byte; the killed "
+        f"launch and a second fault-free one bit-identical to the first: "
+        f"{json.dumps(out['gbdt'])}; {json.dumps(out['gbdt kill'])}; "
+        f"{json.dumps(out['gbdt again'])}")
+    del one, train, base, killed, again
 
     # L-BFGS at the agaricus shape: one file read as 3 parts
     lin = [f"data={aga}", "reg_L2=0.1", f"max_lbfgs_iter={iters}"]

@@ -10,11 +10,13 @@ the FM push in another order (a fixed tree), so they hold to atol 1e-4 +
 rtol 1e-5 * (sum of the terms' magnitudes); the gathers are exact; the
 updates hold to rtol 1e-5 / atol 1e-6 (the plain version divides by a
 scalar as a multiply by its reciprocal on CUDA), and the V update is
-also bit-equal to numpy's IEEE f32 steps; level_hist sums with
-float atomics too and holds to the same bar as the pull and push, with
-every cell that no row reaches exactly 0. The host data path on the
-card (the libsvm, criteo and adfea parse kernels, the pack's sorts and
-uniques) gives the plain routes' bytes exactly.
+also bit-equal to numpy's IEEE f32 steps; level_hist sums in 64-bit
+fixed point: it gives level_hist_fixed_plain's bits exactly, the same in
+every launch and any row order, holds to the same bar as the pull and
+push against the f64 sums, and every cell that no row reaches is exactly
+0. The host data path on the card (the libsvm, criteo and adfea parse
+kernels, the pack's sorts and uniques) gives the plain routes' bytes
+exactly.
 """
 
 import threading
@@ -355,6 +357,170 @@ def test_level_hist_syncs_nothing_in_five_launches(cuda):
     device_ops = [e.name for e in prof.events()
                   if e.device_type == torch.autograd.DeviceType.CUDA]
     assert 1 <= len(device_ops) <= 5, device_ops
+
+
+# The fixed point (csrc/hist.cu): level_hist gives level_hist_fixed_plain's
+# bits, the same in every launch and in any order of the rows.
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,F,B,nodes,layout", HIST_SHAPES)
+def test_level_hist_is_the_fixed_point_rule_bit_for_bit(cuda, rows, F, B,
+                                                        nodes, layout):
+    binned, g, h, rel = _hist_inputs(cuda, rows, F, B, nodes,
+                                     seed=rows + F + nodes + 1, layout=layout)
+    G, H = hk.level_hist(binned, g, h, rel, nodes, B)
+    Gf, Hf = hk.level_hist_fixed_plain(binned, g, h, rel, nodes, B)
+    assert torch.equal(G, Gf) and torch.equal(H, Hf)
+    p = torch.randperm(rows, device=cuda)
+    G2, H2 = hk.level_hist(binned[p].contiguous(), g[p].contiguous(),
+                           h[p].contiguous(), rel[p].contiguous(), nodes, B)
+    assert torch.equal(G2, G) and torch.equal(H2, H)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["inf", "nan", "both-inf", "zeros"])
+def test_level_hist_non_finite_and_zero_g(cuda, case):
+    """Non-finite g and h flag their cells (+-inf, or nan) as the plain f32
+    sums have them, every other cell keeps its finite sum; all-zero g and
+    h give zeros."""
+    rows, F, B, nodes = 20000, 28, 64, 4
+    binned, g, h, rel = _hist_inputs(cuda, rows, F, B, nodes, seed=21)
+    if case == "zeros":
+        g.zero_()
+        h.zero_()
+    else:
+        g[5] = float("nan") if case == "nan" else float("inf")
+        if case == "both-inf":
+            binned[9] = binned[5]
+            rel[9] = rel[5]
+            g[9] = -float("inf")
+        h[7] = float("inf")
+    G, H = hk.level_hist(binned, g, h, rel, nodes, B)
+    Gf, Hf = hk.level_hist_fixed_plain(binned, g, h, rel, nodes, B)
+    Gp, Hp = hk.level_hist_plain(binned, g, h, rel, nodes, B)
+    for got, fixed, plain in ((G, Gf, Gp), (H, Hf, Hp)):
+        assert torch.equal(got.isnan(), plain.isnan())
+        assert torch.equal(got.isinf() & (got > 0), plain.isinf() & (plain > 0))
+        assert torch.equal(got.isinf() & (got < 0), plain.isinf() & (plain < 0))
+        fin = got.isfinite()
+        assert torch.equal(got[fin], fixed[fin])
+    if case == "zeros":
+        assert not G.any() and not H.any()
+
+
+def _round_levels(cuda, monkeypatch, rows=200_000, depth=6, B=256):
+    """(binned, [(g, h, rel, num_nodes)]): the inputs of level_hist at
+    each of the six levels of a real boosting round (the learner's second
+    round, at the HIGGS widths)."""
+    from wormhole_tpu_torch.data.synth import synth_higgs
+    from wormhole_tpu_torch.models import gbdt
+
+    X, y = synth_higgs(np.random.default_rng(5), rows, 28)
+    edges = gbdt.quantile_edges(X[:1 << 17], B)
+    lrn = gbdt.GbdtLearner(gbdt.GbdtConfig(
+        dim=28, max_depth=depth, num_round=2, eta=0.3, max_bin=B,
+        hist_kernel="mxu"), device=cuda)
+    lrn.edges = edges
+    ds = gbdt.BinnedDataset(
+        binned=torch.from_numpy(gbdt.bin_matrix(X, edges)).to(cuda),
+        label=torch.from_numpy(y).to(cuda),
+        mask=torch.ones(rows, device=cuda), num_real=rows)
+    calls = []
+    real = gbdt.level_hist
+
+    def recording(binned, g, h, rel, num_nodes, B):
+        calls.append((g.clone(), h.clone(), rel.clone(), num_nodes))
+        return real(binned, g, h, rel, num_nodes, B)
+
+    monkeypatch.setattr(gbdt, "level_hist", recording)
+    _, _, margin = lrn._round(ds, lrn._base_margins(ds))
+    calls.clear()
+    lrn._round(ds, margin)
+    assert [c[3] for c in calls] == [1] + [2 ** d for d in range(depth - 1)]
+    return ds.binned, calls
+
+
+@pytest.mark.cuda
+def test_level_hist_same_bits_at_a_rounds_six_levels(cuda, monkeypatch):
+    """Two launches at each level of a real round give equal bits, so do
+    the level's rows permuted within their nodes, and both are the fixed
+    point rule's bits, within the bar of the f64 sums."""
+    binned, calls = _round_levels(cuda, monkeypatch)
+    B = 256
+    for g, h, rel, nodes in calls:
+        G, H = hk.level_hist(binned, g, h, rel, nodes, B)
+        G2, H2 = hk.level_hist(binned, g, h, rel, nodes, B)
+        assert torch.equal(G, G2) and torch.equal(H, H2), nodes
+        # rows permuted within each node: a stable sort of a random
+        # permutation by node keeps every node's rows, in another order
+        p = torch.randperm(rel.numel(), device=cuda)
+        p = p[torch.sort(rel[p], stable=True).indices]
+        G3, H3 = hk.level_hist(binned[p].contiguous(), g[p].contiguous(),
+                               h[p].contiguous(), rel[p].contiguous(), nodes,
+                               B)
+        assert torch.equal(G3, G) and torch.equal(H3, H), nodes
+        Gf, Hf = hk.level_hist_fixed_plain(binned, g, h, rel, nodes, B)
+        assert torch.equal(G, Gf) and torch.equal(H, Hf), nodes
+        Gp, Hp = hk.level_hist_plain(binned, g, h, rel, nodes, B,
+                                     acc_dtype=torch.float64)
+        Gmag, _ = hk.level_hist_plain(binned, g.abs(), h, rel, nodes, B,
+                                      acc_dtype=torch.float64)
+        _sum_close(G, Gp, Gmag)
+        _sum_close(H, Hp, Hp)
+
+
+@pytest.mark.cuda
+def test_level_totals_same_bits_on_the_card_and_the_cpu(cuda):
+    """The GBDT learner's node totals: two calls on the card give equal
+    bits, the rows permuted too, and they are the CPU's bits (exact
+    integer sums, then the same f64 steps)."""
+    from wormhole_tpu_torch.models.gbdt import _TOTALS_WAYS
+
+    rng = np.random.default_rng(23)
+    rows, nodes = 2_000_000, 32
+    g = torch.from_numpy(rng.standard_normal(rows).astype(np.float32))
+    h = torch.from_numpy(rng.random(rows).astype(np.float32))
+    rel = torch.from_numpy(rng.integers(0, nodes + 1, rows).astype(np.int32))
+    want = hk.level_totals(g, h, rel, nodes, ways=_TOTALS_WAYS)
+    gc, hc, rc = g.to(cuda), h.to(cuda), rel.to(cuda)
+    got = hk.level_totals(gc, hc, rc, nodes, ways=_TOTALS_WAYS)
+    again = hk.level_totals(gc, hc, rc, nodes, ways=_TOTALS_WAYS)
+    p = torch.randperm(rows, device=cuda)
+    moved = hk.level_totals(gc[p], hc[p], rc[p], nodes, ways=_TOTALS_WAYS)
+    assert torch.equal(got, again) and torch.equal(got, moved)
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_gbdt_rounds_deterministic_on_the_card(cuda, monkeypatch):
+    """Two rounds of the GBDT learner on the card under
+    torch.use_deterministic_algorithms(True) (which raises on an op with
+    no deterministic version): no op raises, and two fits give equal
+    trees bit for bit."""
+    from wormhole_tpu_torch.data.synth import synth_higgs
+    from wormhole_tpu_torch.models import gbdt
+
+    rows, B = 100_000, 256
+    X, y = synth_higgs(np.random.default_rng(6), rows, 28)
+    edges = gbdt.quantile_edges(X[:1 << 17], B)
+    binned = torch.from_numpy(gbdt.bin_matrix(X, edges)).to(cuda)
+    trees = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for _ in range(2):
+            lrn = gbdt.GbdtLearner(gbdt.GbdtConfig(
+                dim=28, max_depth=6, num_round=2, eta=0.3, max_bin=B,
+                hist_kernel="mxu"), device=cuda)
+            lrn.edges = edges
+            ds = gbdt.BinnedDataset(binned=binned,
+                                    label=torch.from_numpy(y).to(cuda),
+                                    mask=torch.ones(rows, device=cuda),
+                                    num_real=rows)
+            lrn.fit_prepared(ds, [], verbose=False)
+            trees.append(lrn.trees)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for k in trees[0]:
+        assert np.array_equal(trees[0][k], trees[1][k]), k
 
 
 def _edge_stream(case, rows, dim, seed):
@@ -779,6 +945,39 @@ LIBSVM_ERRORS = {
 }
 
 
+# The tile-edge corpus: csrc/parse.cu cuts a chunk into tiles (kTile
+# bytes on the card, smaller in tests/test_torch_parse.py's mirror). Each
+# piece below starts `shift` bytes before a tile edge (a comment line of
+# x's fills the gap), so that over the shifts every seam of it (a
+# comment line, "\r\n" and empty lines, a label, "k:v" tokens, bare keys,
+# blanks, a decimal longer than the mirror's halo, a last line with no
+# line break) crosses an edge.
+TILE_EDGE_PIECES = ("# a comment 1:2 3:4\n", "1 3:1.5 4\r\n", "\r\n\n",
+                    "  0\t7:2.25  8 9:1e-3\n",
+                    "1 10:" + "1" * 60 + "e-58 11:1\n", "#\n",
+                    "\n\r1 13\t \n", "-1 12:0.5")
+
+
+def tile_edge_text(tile: int, shift: int) -> str:
+    out = ""
+    for piece in TILE_EDGE_PIECES:
+        target = (len(out) // tile + 1) * tile - shift
+        while target - len(out) < 2:
+            target += tile
+        out += "#" + "x" * (target - len(out) - 2) + "\n" + piece
+    return out
+
+
+def sized_text(size: int, final_newline: bool) -> str:
+    """A libsvm chunk of exactly `size` bytes: rows of three tokens, the
+    last row padded with blanks to the size."""
+    line = "1 3:1.5 4:2\n"
+    body = line * max(0, (size - 16) // len(line))
+    rest = size - len(body)
+    last = "0" + " " * (rest - 1 - final_newline) + "\n" * final_newline
+    return body + last
+
+
 def _same_arrays(a, b):
     a, b = np.asarray(a), np.asarray(b)
     assert a.dtype == b.dtype and a.shape == b.shape
@@ -838,6 +1037,29 @@ def test_parse_libsvm_kernel_synthetic_chunk(cuda, values):
     got = native.parse_libsvm_cuda(text, cuda)
     same_block(got, parse_libsvm(text))
     assert got.size == 4096
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1, 2, 3, 5, 8, 13, 21, 34, 64, 100,
+                                   255, 256, 257, 300])
+def test_parse_libsvm_kernel_tile_edges(cuda, shift):
+    """The tile-edge corpus at the kernel's own tile (16,384 bytes; a
+    shift past 256 puts a token's start before an edge and its end past
+    the halo): the plain parser's bytes."""
+    text = tile_edge_text(16384, shift)
+    same_block(native.parse_libsvm_cuda(text, cuda), parse_libsvm(text))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size,final_newline", [(1, False)] + [
+    (size, nl) for size in (2, 100, 16383, 16384, 16385, 32767, 32768, 32769,
+                            5 * 16384 - 1, 5 * 16384, 5 * 16384 + 1)
+    for nl in (True, False)])
+def test_parse_libsvm_kernel_chunk_sizes(cuda, size, final_newline):
+    """Chunks under one tile and around whole numbers of tiles."""
+    text = sized_text(size, final_newline)
+    assert len(text) == size
+    same_block(native.parse_libsvm_cuda(text, cuda), parse_libsvm(text))
 
 
 # The criteo and adfea edge corpora. tests/test_torch_formats.py holds the

@@ -32,6 +32,7 @@ from wormhole_tpu_torch.data.minibatch import MinibatchIter as TIter
 from wormhole_tpu_torch.data.rowblock import RowBlock as TRowBlock
 from wormhole_tpu_torch.data.synth import synth_higgs
 from wormhole_tpu_torch.models import gbdt as t_gbdt
+from wormhole_tpu_torch.ops import hist as t_hist
 from wormhole_tpu_torch.solver.workload import iter_parts, iter_rowblocks
 
 STRUCT = ("split_feat", "split_bin", "is_split")
@@ -681,3 +682,55 @@ def test_default_device_is_cuda(sparse_files):
         t_gbdt.GbdtLearner(t_gbdt.GbdtConfig())
     with pytest.raises(RuntimeError, match="CUDA"):
         t_app.main([f"train_data={tr}", "num_round=1"])
+
+
+# --------------------------------------- the card's fixed-point sums
+# On the card level_hist sums in 64-bit fixed point (csrc/hist.cu), and
+# the learner's last-level totals sum the same way (ops/hist.py
+# level_totals) on every device. level_hist_fixed_plain is the kernel's
+# rule in plain ops; with it under the learner the CPU grows the trees
+# the card grows.
+@pytest.mark.parametrize("objective", ["binary:logistic", "reg:squarederror"])
+def test_learner_with_the_kernels_fixed_point_matches_jax(tmp_path,
+                                                          monkeypatch,
+                                                          objective):
+    monkeypatch.setattr(t_gbdt, "level_hist", t_hist.level_hist_fixed_plain)
+    train = _dense_file(tmp_path / "tr.libsvm", objective, seed=11)
+    kw = dict(train_data=train, max_depth=4, num_round=3, eta=0.3,
+              max_bin=32, min_child_weight=16.0, objective=objective,
+              base_score=0.5 if objective == "binary:logistic" else 0.0)
+    lt = t_gbdt.GbdtLearner(t_gbdt.GbdtConfig(hist_kernel="mxu", **kw),
+                            device="cpu")
+    assert lt._use_kernel()
+    lt.fit(verbose=False)
+    lj = j_gbdt.GbdtLearner(j_gbdt.GbdtConfig(hist_kernel="xla", **kw))
+    lj.fit(verbose=False)
+    assert lt.trees["is_split"].sum() > 20
+    _assert_trees_close(lt.trees, lj.trees)
+
+
+def test_learner_with_the_kernels_fixed_point_is_order_free(monkeypatch):
+    """Every sum of a round is then an exact integer sum (the level
+    histograms and the last level's totals): the same rows in another
+    order grow the same trees bit for bit, as the card does from call to
+    call and a respawned BSP worker does."""
+    monkeypatch.setattr(t_gbdt, "level_hist", t_hist.level_hist_fixed_plain)
+    rng = np.random.default_rng(17)
+    X, y = synth_higgs(rng, 6000, 8)
+    edges = t_gbdt.quantile_edges(X, 32)
+    binned = t_gbdt.bin_matrix(X, edges)
+    trees = []
+    for p in (np.arange(6000), rng.permutation(6000), rng.permutation(6000)):
+        lrn = t_gbdt.GbdtLearner(t_gbdt.GbdtConfig(
+            dim=8, max_depth=5, num_round=3, eta=0.3, max_bin=32,
+            hist_kernel="mxu"), device="cpu")
+        lrn.edges = edges
+        lrn.fit_prepared(t_gbdt.BinnedDataset(
+            binned=torch.from_numpy(np.ascontiguousarray(binned[p])),
+            label=torch.from_numpy(np.ascontiguousarray(y[p])),
+            mask=torch.ones(6000), num_real=6000), [], verbose=False)
+        trees.append(lrn.trees)
+    assert trees[0]["is_split"].sum() > 20
+    for other in trees[1:]:
+        for k in trees[0]:
+            assert np.array_equal(other[k], trees[0][k]), k

@@ -8,6 +8,8 @@ element); rtol 1e-5 / atol 1e-5 against the numpy loop (f32 sums in
 another order).
 """
 
+from fractions import Fraction
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -304,3 +306,204 @@ def test_level_partition_rejects():
         t_hist.level_partition(torch.zeros(4, 2, dtype=torch.int32), 2)
     with pytest.raises(ValueError):
         t_hist.level_partition(torch.zeros(4, dtype=torch.int32), 0)
+
+
+# ------------------------------------------- the kernel's fixed point
+# csrc/hist.cu sums each level in 64-bit fixed point;
+# level_hist_fixed_plain is its rule in plain ops (the card's kernel
+# gives its bits, tests/test_torch_cuda.py).
+def _fixed(binned, g, h, rel, nodes, B):
+    G, H = t_hist.level_hist_fixed_plain(
+        *(torch.from_numpy(a) for a in (binned, g, h, rel)), nodes, B)
+    return G.numpy(), H.numpy()
+
+
+def _f64(x, rel, nodes):
+    """(num_nodes,) f64 sums of x by node."""
+    live = (rel >= 0) & (rel < nodes)
+    return np.bincount(rel[live], x[live].astype(np.float64),
+                       minlength=nodes)
+
+
+@pytest.mark.parametrize("rows,F,B,nodes", SHAPES)
+def test_level_hist_fixed_plain_matches_jax_kernel_and_loop(rows, F, B,
+                                                            nodes):
+    args = _inputs(rows, F, B, nodes, seed=rows + F + B + nodes)
+    G, H = _fixed(*args, nodes, B)
+    assert G.dtype == H.dtype == np.float32
+    Gl, Hl = _loop(*args, nodes, B)
+    np.testing.assert_allclose(G, Gl, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(H, Hl, rtol=1e-5, atol=1e-5)
+    Gj, Hj = _jax(*args, nodes, B)
+    np.testing.assert_allclose(G, Gj, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(H, Hj, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["some", "empty_nodes", "wild_rel",
+                                  "skewed"])
+@pytest.mark.parametrize("binary", [False, True], ids=["bins", "binary"])
+def test_level_hist_fixed_plain_same_bits_in_any_row_order(case, binary):
+    """Integer sums take no order: the rows permuted (so every cell's
+    terms come in another order) give the same bits; so does the plain
+    f32 scatter only by chance, and here it does not."""
+    rows, F, B, nodes = 20000, 6, 64, 16
+    rng = np.random.default_rng(len(case) + binary)
+    binned, g, h, _ = _inputs(rows, F, B, nodes, seed=11, binary=binary)
+    rel = _rel_case(case, rows, nodes, rng)
+    G, H = _fixed(binned, g, h, rel, nodes, B)
+    moved = False
+    for seed in range(3):
+        p = np.random.default_rng(seed).permutation(rows)
+        G2, H2 = _fixed(binned[p], g[p], h[p], rel[p], nodes, B)
+        assert G2.tobytes() == G.tobytes() and H2.tobytes() == H.tobytes()
+        P2, _ = (a.numpy() for a in t_hist.level_hist_plain(
+            *(torch.from_numpy(a[p]) for a in (binned, g, h, rel)), nodes, B))
+        P, _ = (a.numpy() for a in t_hist.level_hist_plain(
+            *(torch.from_numpy(a) for a in (binned, g, h, rel)), nodes, B))
+        moved |= P2.tobytes() != P.tobytes()
+    assert moved or case == "empty_nodes" and binary
+
+
+def test_level_hist_fixed_plain_two_million_equal_g_in_one_cell():
+    """The bench's largest level, 2,000,000 rows, all in one cell with one
+    repeated g that no binary fraction holds: the f64 sum of the fixed
+    terms is within rows * 2^-(s+1) of the exact sum (some 1e-6 of
+    max|g|), and the f32 cell within the kernel's bar (atol 1e-4 + rtol
+    1e-5 of the terms' magnitudes) of the f64 sum; so is a cell of the
+    same rows with g and -g alternating."""
+    rows = 2_000_000
+    g0 = np.float32(0.1)
+    for g in (np.full(rows, g0, np.float32),
+              np.where(np.arange(rows) % 2 == 0, g0, -g0).astype(np.float32)):
+        binned = np.zeros((rows, 1), np.uint8)
+        rel = np.zeros(rows, np.int32)
+        G, H = _fixed(binned, g, np.abs(g), rel, 1, 4)
+        exact = float(g.astype(np.float64).sum())
+        q, nf, s = t_hist.fixed_point(torch.from_numpy(g)[:, None],
+                                      torch.ones(rows, dtype=torch.bool))
+        sum64 = float(t_hist.from_fixed(q.sum(0), nf.sum(0), s)[0])
+        assert abs(sum64 - exact) <= rows * 2.0 ** -(int(s[0]) + 1)
+        assert abs(sum64 - exact) <= 1e-6 * float(g0)
+        mag = rows * float(g0)
+        assert abs(float(G[0, 0, 0]) - exact) <= 1e-4 + 1e-5 * mag
+        assert float(H[0, 0, 0]) == np.float32(rows * float(g0))
+        assert not G[0, 0, 1:].any() and not H[0, 0, 1:].any()
+
+
+def test_level_hist_fixed_plain_zero_g_gives_zeros():
+    rows, F, B, nodes = 5000, 5, 16, 4
+    binned, _, _, rel = _inputs(rows, F, B, nodes, seed=12)
+    z = np.zeros(rows, np.float32)
+    G, H = _fixed(binned, z, -z, rel, nodes, B)
+    assert not G.any() and not H.any()
+    assert not np.signbit(G).any() and not np.signbit(H).any()
+
+
+@pytest.mark.parametrize("kind", ["inf", "-inf", "nan", "both-inf",
+                                  "outlier"])
+def test_level_hist_fixed_plain_non_finite_g(kind):
+    """A non-finite g makes its cells what level_hist_plain gives them
+    (+-inf, or nan where a nan or both infinities came), and every other
+    cell keeps the finite sum of its rows: never a finite wrong number. A
+    finite outlier (1e4, some 1e4 of the other g) coarsens the scale,
+    and the cells stay within the bar (a term is off by at most
+    2^(r + e - 63), max|g| < 2^e, rows <= 2^r)."""
+    rows, F, B, nodes = 5000, 5, 16, 4
+    binned, g, h, rel = _inputs(rows, F, B, nodes, seed=13, inactive="none")
+    bad = {"inf": [(3, np.inf)], "-inf": [(3, -np.inf)],
+           "nan": [(3, np.nan)], "both-inf": [(3, np.inf), (7, -np.inf)],
+           "outlier": [(3, 1e4)]}[kind]
+    binned[7] = binned[3]
+    rel[7] = rel[3]
+    for r, v in bad:
+        g[r] = v
+    h[5] = np.inf
+    G, H = _fixed(binned, g, h, rel, nodes, B)
+    Gp, Hp = (a.numpy() for a in t_hist.level_hist_plain(
+        *(torch.from_numpy(a) for a in (binned, g, h, rel)), nodes, B))
+    for got, want in ((G, Gp), (H, Hp)):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(np.isposinf(got), np.isposinf(want))
+        np.testing.assert_array_equal(np.isneginf(got), np.isneginf(want))
+    fin = np.isfinite(Gp)
+    assert (~fin).any() or kind == "outlier"
+    mag, _ = (a.numpy() for a in t_hist.level_hist_plain(
+        *(torch.from_numpy(a) for a in (binned, np.abs(g), h, rel)), nodes,
+        B, acc_dtype=torch.float64))
+    Gd, _ = (a.numpy() for a in t_hist.level_hist_plain(
+        *(torch.from_numpy(a) for a in (binned, g, h, rel)), nodes, B,
+        acc_dtype=torch.float64))
+    err = np.abs(G[fin].astype(np.float64) - Gd[fin])
+    assert (err <= 1e-4 + 1e-5 * mag[fin]).all()
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_fixed_scale_never_lets_a_level_overflow(seed):
+    """For a level of `rows` terms of at most maxabs, s = fixed_scale_exp
+    keeps rows x round(maxabs x 2^s) <= 2^62 (so no int64 sum can
+    overflow) and is within one of the largest such s, over maxabs from 0
+    and the least subnormal to the largest f32, powers of two and their
+    neighbours, and rows from 1 to 2^31 - 1."""
+    rng = np.random.default_rng(seed)
+    m = np.concatenate([
+        [0.0, 1e-45, 1.1754942e-38, 1.1754944e-38, 3.4028235e38, 1.0,
+         np.nextafter(np.float32(1.0), np.float32(0.0)), 2.0, 0.5],
+        np.ldexp(1.0, rng.integers(-149, 128, 40)),
+        rng.standard_normal(40) * 10.0 ** rng.integers(-40, 38, 40)])
+    m = np.abs(m.astype(np.float32))
+    m = m[np.isfinite(m)]
+    rows = np.concatenate([[1, 2, 3, 4, 2_000_000, 2 ** 21, 2 ** 21 + 1,
+                            2 ** 31 - 1],
+                           rng.integers(1, 2 ** 31 - 1, 20)])
+    for n in rows:
+        s = t_hist.fixed_scale_exp(torch.from_numpy(m), int(n)).numpy()
+        sn = t_hist.fixed_scale_exp(torch.from_numpy(m),
+                                    torch.tensor(int(n))).numpy()
+        np.testing.assert_array_equal(s, sn)
+        for x, k in zip(m.tolist(), s.tolist()):
+            q = round(Fraction(x) * Fraction(2) ** k)  # ties to even
+            assert int(n) * q <= 2 ** 62, (x, n, k)
+            if x >= 2.0 ** -126:  # normal: e is tight
+                assert int(n) * Fraction(x) * Fraction(2) ** (k + 2) \
+                    >= 2 ** 62, (x, n, k)
+
+
+@pytest.mark.parametrize("ways", [1, 64])
+def test_level_totals_same_bits_in_any_row_order(ways):
+    """The GBDT learner's node totals (models/gbdt.py totals): f64 sums
+    within rows * 2^-(s+1) of the exact sums, the same bits with the
+    rows permuted; a rel outside [0, nodes) adds nothing."""
+    rows, nodes = 50000, 16
+    rng = np.random.default_rng(ways)
+    g = rng.standard_normal(rows).astype(np.float32)
+    h = rng.random(rows).astype(np.float32)
+    rel = rng.integers(-1, nodes + 2, rows).astype(np.int32)
+    tg, th, tr = (torch.from_numpy(a) for a in (g, h, rel))
+    got = t_hist.level_totals(tg, th, tr, nodes, ways=ways)
+    assert got.shape == (nodes, 2) and got.dtype == torch.float64
+    for k, x in enumerate((g, h)):
+        exact = _f64(x, rel, nodes)
+        live = (rel >= 0) & (rel < nodes)
+        s = int(t_hist.fixed_scale_exp(
+            torch.tensor(np.abs(x[live]).max()), int(live.sum())))
+        assert (np.abs(got[:, k].numpy() - exact)
+                <= live.sum() * 2.0 ** -(s + 1)).all()
+    for seed in range(3):
+        p = torch.from_numpy(np.random.default_rng(seed).permutation(rows))
+        again = t_hist.level_totals(tg[p], th[p], tr[p], nodes, ways=ways)
+        assert torch.equal(again, got)
+
+
+def test_level_totals_non_finite_and_empty():
+    g = np.array([1.0, np.inf, 2.0, np.nan, -np.inf, np.inf, 3.0],
+                 np.float32)
+    h = np.ones(7, np.float32)
+    rel = np.array([0, 0, 1, 2, 3, 3, 5], np.int32)
+    got = t_hist.level_totals(*(torch.from_numpy(a) for a in (g, h, rel)),
+                              5).numpy()
+    assert got[0, 0] == np.inf and got[1, 0] == 2.0
+    assert np.isnan(got[2, 0]) and np.isnan(got[3, 0]) and got[4, 0] == 0.0
+    np.testing.assert_array_equal(got[:, 1], [2.0, 1.0, 1.0, 2.0, 0.0])
+    empty = t_hist.level_totals(torch.zeros(0), torch.zeros(0),
+                                torch.zeros(0, dtype=torch.int32), 3)
+    assert empty.shape == (3, 2) and not empty.any()

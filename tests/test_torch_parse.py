@@ -4,11 +4,14 @@ parser's rules on the CPU.
 - The plain parser (wormhole_tpu_torch/data/parsers.py parse_libsvm, the
   card parser's contract) gives the JAX package's Python parser's bytes,
   and its parse_text's, on an edge corpus.
-- parse_libsvm_mirror, csrc/parse.cu's stages in numpy and Python (byte
-  classes, scans, the per-token grammar, the fast path and the exact
-  path), gives the plain parser's bytes, on the corpus and on
-  hypothesis-made lines; its number rules give float()'s double and
-  int()'s key bit for bit, halfway cases included.
+- parse_libsvm_mirror, csrc/parse.cu's tiled design in Python at a
+  small tile (the masks of 32-byte groups, the warps' state maps, the
+  scan of the tiles' maps, the walks from each warp's carry, the
+  per-token grammar, the fast path and the exact path), gives the plain
+  parser's bytes, on the corpus, on the tile-edge corpus at every shift,
+  on chunks around whole numbers of tiles and on hypothesis-made lines;
+  its number rules give float()'s double and int()'s key bit for bit,
+  halfway cases included.
 - Where the plain parser raises, so do the mirror and the JAX parsers.
 
 The kernel itself meets the plain parser on the card
@@ -25,7 +28,7 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_torch_cuda import (LIBSVM_EDGE, LIBSVM_EDGE_EXACT, LIBSVM_ERRORS,
-                             same_block)
+                             same_block, sized_text, tile_edge_text)
 from wormhole_tpu.data import parsers as j_parsers
 from wormhole_tpu_torch.data import parsers as t_parsers
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
@@ -306,77 +309,265 @@ def parse_key(p: bytes):
 
 
 _SEP = b" \t\r\n"
+# csrc/parse.cu's tiles: kTile bytes a CTA, kTile / 32 / warps groups of
+# 32 bytes a warp, kHalo bytes loaded past a tile. The mirror takes them
+# small (a 64-byte tile of two one-group warps, a 32-byte halo), so that
+# short texts cross many tile edges and long tokens run past the halo.
+CARD_TILE, CARD_WARPS, CARD_HALO = 16384, 16, 256
+NOHEAD, KEPT, COMMENT, UNKNOWN = range(4)
+_M32 = 0xFFFFFFFF
 
 
-def parse_libsvm_mirror(data):
-    """csrc/parse.cu's stages in numpy and Python, step for step: the byte
-    classes, the scans, the per-token rules. Returns the RowBlock and the
+def _ffs(x: int) -> int:
+    return (x & -x).bit_length()  # __ffs: 1 + the lowest set bit, 0 for 0
+
+
+def _top(x: int) -> int:
+    return x.bit_length() - 1     # 31 - __clz
+
+
+# parse.cu Agg: (tok, pre, fh, has_nl, lines, rows, feats, exit)
+_IDENTITY = (0, 0, 0, 0, 0, 0, 0, UNKNOWN)
+
+
+def _apply(a, s):
+    """parse.cu apply: (lines, rows, feats, state after) from state s."""
+    _, pre, fh, has_nl, lines, rows, feats, ex = a
+    if pre > 0:
+        if s == NOHEAD:
+            lines += 1
+            if not fh:
+                rows, feats = rows + 1, feats + pre - 1
+            s = COMMENT if fh else KEPT
+        elif s == KEPT:
+            feats += pre
+    return lines, rows, feats, ex if has_nl else s
+
+
+def _compose(a, b):
+    """parse.cu compose: a then b."""
+    if a[3]:
+        lines, rows, feats, ex = _apply(b, a[7])
+        return (a[0] + b[0], a[1], a[2], 1, a[4] + lines, a[5] + rows,
+                a[6] + feats, ex)
+    return (a[0] + b[0], a[1] + b[1], a[2] if a[1] else b[2], b[3], b[4],
+            b[5], b[6], b[7])
+
+
+class _Tile:
+    """A tile as parse.cu's load_tile leaves it in shared memory: its
+    bytes with the halo (spaces outside the chunk), each group's masks,
+    and its first byte outside the alphabet."""
+
+    def __init__(self, raw: bytes, t0: int, tile: int, halo: int):
+        n = len(raw)
+        self.t0, self.tile, self.halo = t0, tile, halo
+        self.buf = bytes(raw[t0 + i] if 0 <= t0 + i < n else 32
+                         for i in range(-1, tile + halo))
+        self.sep, self.nl, self.hash = [], [], []
+        for g in range((tile + halo) // 32):
+            grp = self.buf[1 + 32 * g:33 + 32 * g]
+            self.sep.append(sum((c in _SEP) << i for i, c in enumerate(grp)))
+            self.nl.append(sum((c in b"\r\n") << i
+                               for i, c in enumerate(grp)))
+            self.hash.append(sum((c == 35) << i for i, c in enumerate(grp)))
+        self.err = next((t0 + i for i in range(min(tile, n - t0))
+                         if not (0x20 <= raw[t0 + i] <= 0x7E
+                                 or raw[t0 + i] in b"\t\r\n")), None)
+
+    def starts(self, g: int) -> int:
+        sep = self.sep[g]
+        before = self.sep[g - 1] >> 31 if g else int(self.buf[0] in _SEP)
+        return ~sep & ((sep << 1) | before) & _M32
+
+    def walk(self, g: int, e: int):
+        """parse.cu walk_group: (start, head, row, feat, exit), in mask
+        arithmetic (32-bit): carries from the byte after each line break
+        (and byte 0 where no token came yet) ripple over the gaps between
+        events onto the heads; a comment runs from a '#' head to the next
+        line break."""
+        S, NL, HM = self.starts(g), self.nl[g], self.hash[g]
+        before_nl = (1 << (_ffs(NL) - 1)) - 1 if NL else _M32
+        head = ((~(S | NL) & _M32) + (((NL << 1) | (e == NOHEAD)) & _M32)
+                & _M32) & S
+        not_nl = ~NL & _M32
+        comment = (((not_nl + (head & HM)) & _M32) ^ not_nl) & not_nl
+        if e == COMMENT:
+            comment |= before_nl
+        feat = S & ~head & ~comment & _M32
+        if e == UNKNOWN:
+            feat &= ~before_nl
+        if NL:
+            after = S & ~((2 << _top(NL)) - 1) & _M32
+            ex = (NOHEAD if not after else
+                  COMMENT if HM >> (_ffs(after) - 1) & 1 else KEPT)
+        elif e == NOHEAD and S:
+            ex = COMMENT if HM >> (_ffs(S) - 1) & 1 else KEPT
+        else:
+            ex = e
+        return S, head, head & ~HM & _M32, feat, ex
+
+    def group_agg(self, g: int):
+        S, head, row, feat, ex = self.walk(g, UNKNOWN)
+        NL = self.nl[g]
+        pre = S & ((1 << (_ffs(NL) - 1)) - 1) if NL else S
+        fh = self.hash[g] >> (_ffs(pre) - 1) & 1 if pre else 0
+        return (S.bit_count(), pre.bit_count(), fh, int(NL != 0),
+                head.bit_count(), row.bit_count(), feat.bit_count(), ex)
+
+    def region_aggs(self, warps: int):
+        per = self.tile // 32 // warps
+        out = []
+        for w in range(warps):
+            a = _IDENTITY
+            for k in range(per):
+                a = _compose(a, self.group_agg(w * per + k))
+            out.append(a)
+        return out
+
+    def token(self, raw: bytes, p: int) -> bytes:
+        """parse.cu token_end: the token at tile offset p, its end from
+        the separator masks, read on from the chunk past the halo."""
+        g, m = p >> 5, self.sep[p >> 5] & (_M32 << (p & 31)) & _M32
+        while m == 0 and g + 1 < len(self.sep):
+            g += 1
+            m = self.sep[g]
+        if m:
+            return self.buf[1 + p:1 + 32 * g + _ffs(m) - 1]
+        end = self.t0 + self.tile + self.halo
+        while end < len(raw) and raw[end] not in _SEP:
+            end += 1
+        return raw[self.t0 + p:end]
+
+
+def _scan(aggs, threads: int):
+    """parse.cu parse_scan_kernel: runs of tiles a thread, each run
+    composed, the runs scanned in a tree (a Hillis-Steele step a
+    shuffle), then each tile's carry (state, rows, features before it)
+    and the chunk's (tokens, lines, rows, features)."""
+    per = -(-len(aggs) // threads)
+    runs = []
+    for t in range(threads):
+        a = _IDENTITY
+        for x in aggs[t * per:(t + 1) * per]:
+            a = _compose(a, x)
+        runs.append(a)
+    incl, o = list(runs), 1
+    while o < threads:
+        incl = [_compose(incl[i - o], incl[i]) if i >= o else incl[i]
+                for i in range(threads)]
+        o *= 2
+    carry = []
+    for t in range(threads):
+        before = incl[t - 1] if t else _IDENTITY
+        lines, rows, feats, state = _apply(before, NOHEAD)
+        tok = before[0]
+        for x in aggs[t * per:(t + 1) * per]:
+            carry.append((state, rows, feats))
+            lines_x, rows_x, feats_x, state = _apply(x, state)
+            lines, rows, feats, tok = (lines + lines_x, rows + rows_x,
+                                       feats + feats_x, tok + x[0])
+    return carry, (tok, lines, rows, feats)
+
+
+def parse_libsvm_mirror(data, tile: int = 64, warps: int = 2,
+                        halo: int = 32, threads: int = 4):
+    """csrc/parse.cu's design in Python, step for step at a small tile:
+    each tile's masks and its warps' state maps of their regions, and the
+    tile's (count pass), the scan of the tiles' maps, then each warp
+    walking its groups from its carry (the tile's, then the regions'
+    before it), the heads' offsets and the slots of the queued tokens,
+    each converted with the per-token rules. Returns the RowBlock and the
     number of decimals the exact path converted; raises ValueError where
     the kernel's wrapper raises."""
     raw = data.encode() if isinstance(data, str) else bytes(data)
-    b = np.frombuffer(raw, np.uint8)
-    n = len(b)
-    alphabet = ((b >= 0x20) & (b <= 0x7E)) | np.isin(b, list(b"\t\r\n"))
-    bad = np.flatnonzero(~alphabet)
-    if len(bad):
-        raise ValueError(f"libsvm chunk: byte {bad[0]} is outside the "
+    n = len(raw)
+    assert tile % (32 * warps) == 0 and halo % 32 == 0
+    tiles = [_Tile(raw, t0, tile, halo) for t0 in range(0, n, tile)]
+    errs = [t.err for t in tiles if t.err is not None]
+    if errs:
+        raise ValueError(f"libsvm chunk: byte {min(errs)} is outside the "
                          f"alphabet")
-    sep = np.isin(b, list(_SEP))
-    nl = np.isin(b, list(b"\r\n"))
-    # 1. token starts; their scan numbers the tokens
-    tflag = ~sep & np.concatenate([[True], sep[:-1]]) if n else sep
-    start = np.flatnonzero(tflag)
-    T = len(start)
-    sep_at = np.append(np.flatnonzero(sep), n)
-    end = sep_at[np.searchsorted(sep_at, start)]
-    # 2. a token heads its line if a line break (or the chunk's start)
-    # comes before it with only blanks between
-    nl_upto = np.concatenate([[0], np.cumsum(nl)])  # breaks in b[:i]
-    prev_end = np.concatenate([[0], end[:-1]])
-    head = np.ones(T, bool)
-    head[1:] = nl_upto[start[1:]] > nl_upto[prev_end[1:]]
-    lno = np.cumsum(head)
-    # 3. kept lines (not comments); 4. features
-    keep = b[start[head]] != ord("#")
-    rowc = np.cumsum(keep)
-    isfeat = ~head & keep[lno - 1]
-    fcum = np.cumsum(isfeat)
-    R = int(rowc[-1]) if T else 0
-    F = int(fcum[-1]) if T else 0
-    # 5. values
+    # 1. count: each warp's map of its region, and the tile's (its warps'
+    # composed in order)
+    raggs = [t.region_aggs(warps) for t in tiles]
+    aggs = []
+    for ra in raggs:
+        a = _IDENTITY
+        for x in ra:
+            a = _compose(a, x)
+        aggs.append(a)
+    # 2. scan: each tile's carry
+    carry, (T, _, R, F) = _scan(aggs, threads) if tiles else ([], (0,) * 4)
+    # 3. emit
     label = np.zeros(R, np.uint32)
     offset = np.zeros(R + 1, np.int64)
     index = np.zeros(F, np.uint64)
     value = np.zeros(F, np.uint32)
     offset[R] = F
-    ne1, n_exact = False, 0
-    for t in range(T):
-        tok, conv = raw[start[t]:end[t]], FAST
-        line = lno[t] - 1
-        if head[t]:
-            if not keep[line]:
-                continue
-            row = rowc[line] - 1
-            offset[row] = fcum[t]
-            conv, _, f32 = parse_float(tok)
+    ne1, n_exact, bad = False, 0, []
+    per = tile // 32 // warps
+    for t, ra, (state, rows, feats) in zip(tiles, raggs, carry):
+        starts = []  # each warp's carry: the tile's, then its regions
+        for a in ra:
+            starts.append((state, rows, feats))
+            _, dr, df, state = _apply(a, state)
+            rows, feats = rows + dr, feats + df
+        queued = []
+        for w, (state, rows, feats) in enumerate(starts):
+            for g in range(w * per, (w + 1) * per):
+                _, _, row_m, feat_m, ex = t.walk(g, state)
+                for lane in range(32):
+                    lt = (1 << lane) - 1
+                    slot_r = rows + (row_m & lt).bit_count()
+                    slot_f = feats + (feat_m & lt).bit_count()
+                    if row_m >> lane & 1:
+                        offset[slot_r] = slot_f  # a head is no feature
+                        queued.append((32 * g + lane, True, slot_r))
+                    elif feat_m >> lane & 1:
+                        queued.append((32 * g + lane, False, slot_f))
+                rows += row_m.bit_count()
+                feats += feat_m.bit_count()
+                state = ex
+        for p, is_label, slot in queued:
+            tok = t.token(raw, p)
+            if is_label:
+                conv, _, f32 = parse_float(tok)
+                if conv != BAD:
+                    label[slot] = f32
+            else:
+                k, colon, vtok = tok.partition(b":")
+                key = parse_key(k)
+                conv, v, f32 = (BAD, None, None) if key is None else (
+                    parse_float(vtok) if colon else (FAST, 1.0, 0x3F800000))
+                if conv != BAD:
+                    index[slot], value[slot] = key, f32
+                    ne1 = ne1 or v != 1.0
             if conv == BAD:
-                raise ValueError(f"libsvm chunk: token {tok!r}")
-            label[row] = f32
-        elif isfeat[t]:
-            f = fcum[t] - 1
-            k, colon, vtok = tok.partition(b":")
-            key = parse_key(k)
-            conv, v, f32 = (parse_float(vtok) if colon
-                            else (FAST, 1.0, 0x3F800000))
-            if key is None or conv == BAD:
-                raise ValueError(f"libsvm chunk: token {tok!r}")
-            index[f], value[f] = key, f32
-            ne1 = ne1 or v != 1.0
-        n_exact += conv == EXACT
+                bad.append(t.t0 + p)
+            n_exact += conv == EXACT
+    if bad:
+        beg = min(bad)
+        end = beg
+        while end < n and raw[end] not in _SEP:
+            end += 1
+        raise ValueError(f"libsvm chunk: token {raw[beg:end]!r} at byte "
+                         f"{beg} ({len(bad)} such tokens)")
+    assert T == sum(len(raw[a:b].split()) for a, b in _line_spans(raw))
     block = RowBlock(label=label.view(np.float32), offset=offset,
                      index=index, value=value.view(np.float32) if ne1
                      else None)
     return block, n_exact
+
+
+def _line_spans(raw: bytes):
+    """(start, end) of each line (at '\\r' or '\\n')."""
+    a = 0
+    for i, c in enumerate(raw):
+        if c in b"\r\n":
+            yield a, i
+            a = i + 1
+    yield a, len(raw)
 
 
 @pytest.mark.parametrize("name", sorted(LIBSVM_EDGE))
@@ -644,3 +835,75 @@ def test_file_chunks_match_jax(tmp_path, num_parts, chunk_bytes,
                                                  chunk_bytes))]
     assert got == want
     assert "".join("".join(c) for c in got) == text
+
+
+# ----------------------------------------- the tiled design, at tile edges
+_TILINGS = [(64, 2, 32), (128, 2, 32), (256, 4, 64)]
+
+
+@pytest.mark.parametrize("tiling", _TILINGS, ids=lambda t: "-".join(map(str, t)))
+@pytest.mark.parametrize("shift", range(0, 66))
+def test_mirror_tile_edge_corpus(shift, tiling):
+    """Every seam of the tile-edge corpus (comment lines, "\\r\\n" and empty
+    lines, labels, k:v tokens, bare keys, blanks, a long decimal past the
+    halo, no final line break) across a tile edge: the plain parser's
+    bytes, at the mirror's tile sizes."""
+    tile, warps, halo = tiling
+    text = tile_edge_text(tile, shift % tile)
+    got, n_exact = parse_libsvm_mirror(text, tile, warps, halo)
+    same_block(got, t_parsers.parse_libsvm(text))
+    assert n_exact == 1
+
+
+@pytest.mark.parametrize("final_newline", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_mirror_chunks_of_whole_tiles(k, delta, final_newline):
+    """Chunks of exactly k tiles and k tiles +- 1 byte."""
+    text = sized_text(64 * k + delta, final_newline)
+    got, _ = parse_libsvm_mirror(text)
+    same_block(got, t_parsers.parse_libsvm(text))
+    assert got.size == t_parsers.parse_libsvm(text).size
+
+
+@pytest.mark.parametrize("size", [1, 2, 17, 63])
+def test_mirror_chunk_under_one_tile(size):
+    text = sized_text(size, size > 1)
+    same_block(parse_libsvm_mirror(text)[0], t_parsers.parse_libsvm(text))
+
+
+@pytest.mark.parametrize("kind", ["binary", "values", "higgs"])
+def test_mirror_at_the_card_tile(kind):
+    """The mirror at the kernel's own tiling (16,384-byte tiles of 16
+    warps, a 256-byte halo) over the bench chunks."""
+    text = _bench_chunk(kind, rows=600)
+    got, n_exact = parse_libsvm_mirror(text, CARD_TILE, CARD_WARPS,
+                                       CARD_HALO, threads=1024)
+    same_block(got, t_parsers.parse_libsvm(text))
+    assert n_exact == 0 and len(text) > 2 * CARD_TILE
+
+
+def test_mirror_scan_groups_tiles_in_any_runs():
+    """The scan composes the tiles' maps in runs of any length (the
+    composition is associative): 1, 3, 4 and 1024 threads agree."""
+    text = tile_edge_text(64, 7) + "\n" + LIBSVM_EDGE["comments-blank"]
+    want = t_parsers.parse_libsvm(text)
+    for threads in (1, 3, 4, 1024):
+        same_block(parse_libsvm_mirror(text, threads=threads)[0], want)
+
+
+@settings(max_examples=150, deadline=None)
+@given(lines=st.lists(_LINE, max_size=10),
+       newline=st.sampled_from(["\n", "\r\n", "\r"]),
+       final=st.booleans(), lead=st.integers(0, 70))
+def test_mirror_matches_plain_on_generated_lines_at_any_offset(
+        lines, newline, final, lead):
+    """hypothesis lines after a comment line of `lead` bytes, so that
+    their seams land anywhere in a 64-byte tile."""
+    text = ("#" + "x" * lead + newline + newline.join(lines)
+            + (newline if final and lines else ""))
+    want = _outcome(t_parsers.parse_libsvm, text)
+    got = _outcome(parse_libsvm_mirror, text)
+    assert (want is None) == (got is None), text
+    if want is not None:
+        same_block(got[0], want)

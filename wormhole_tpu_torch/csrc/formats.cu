@@ -60,7 +60,7 @@
 //   4. cell_value_kernel, a thread a cell: labels, row offsets, keys, the
 //      bad labels and the counts.
 //   adfea (tokens: at most (n + 1) / 2):
-//   0. classify_kernel and 1. token_kernel of parse_common.cuh, with
+//   0. classify_kernel and 1. token_kernel (below), with
 //      their scans (tpos, lno).
 //   2. adfea_line_kernel, a thread a token: a line is kept if its head
 //      has two more tokens on its line; a feature is a token with three
@@ -83,6 +83,55 @@
 #include "parse_common.cuh"
 
 namespace {
+
+constexpr int kThreads = 256;
+
+unsigned blocks_for(int64_t items) {
+  return static_cast<unsigned>((items + kThreads - 1) / kThreads);
+}
+
+// ------------------------------------------------------ tokens (adfea)
+// classify_kernel and token_kernel cut a chunk into parse_common.cuh's
+// tokens and mark the first of each line.
+__device__ __forceinline__ int num_tokens(const int* tpos, int64_t n) {
+  return n > 0 ? tpos[n - 1] : 0;
+}
+
+__global__ void classify_kernel(const uint8_t* __restrict__ buf, int64_t n,
+                                uint8_t* __restrict__ tflag,
+                                unsigned int* __restrict__ err) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint8_t c = buf[i];
+  if (!in_alphabet(c)) atomicMin(err, static_cast<unsigned int>(i));
+  tflag[i] = (!is_sep(c) && (i == 0 || is_sep(buf[i - 1]))) ? 1 : 0;
+}
+
+__global__ void token_kernel(const uint8_t* __restrict__ buf, int64_t n,
+                             const uint8_t* __restrict__ tflag,
+                             const int* __restrict__ tpos,
+                             int* __restrict__ start, int* __restrict__ len,
+                             uint8_t* __restrict__ head) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n || !tflag[i]) return;
+  const int t = tpos[i] - 1;
+  int64_t j = i + 1;
+  while (j < n && !is_sep(buf[j])) ++j;
+  start[t] = static_cast<int>(i);
+  len[t] = static_cast<int>(j - i);
+  // the chunk's first token heads a line; so does one after a line break
+  bool is_head = true;
+  for (int64_t k = i - 1; k >= 0; --k) {
+    const uint8_t c = buf[k];
+    if (is_nl(c)) break;
+    if (!is_sep(c)) {
+      is_head = false;
+      break;
+    }
+  }
+  head[t] = is_head ? 1 : 0;
+}
+
 
 constexpr int kCriteoFields = 39;
 

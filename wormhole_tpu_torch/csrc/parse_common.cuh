@@ -4,9 +4,8 @@
 //
 // Byte classes: the kernels take printable ASCII, ' ', '\t', '\r' and
 // '\n' (in_alphabet); a token is a run of other bytes than those four
-// (is_sep), and '\r' and '\n' end lines (is_nl). classify_kernel and
-// token_kernel cut a chunk into such tokens and mark the first of each
-// line, for libsvm and adfea alike.
+// (is_sep), and '\r' and '\n' end lines (is_nl), for libsvm and adfea
+// alike.
 //
 // Numbers: every token is converted on the card, none on the host.
 //   - The grammar is float()'s and int()'s for ASCII text: an optional
@@ -39,8 +38,6 @@
 #include <cuda_runtime.h>
 
 namespace {
-
-constexpr int kThreads = 256;
 
 // stats[] slots (int32) of every parse chain
 constexpr int kErr = 0;    // first byte outside the alphabet (unsigned; ~0 = none)
@@ -415,49 +412,6 @@ __device__ __forceinline__ bool is_nl(uint8_t c) {
 
 __device__ __forceinline__ bool in_alphabet(uint8_t c) {
   return (c >= 0x20 && c <= 0x7e) || c == '\t' || c == '\n' || c == '\r';
-}
-
-__device__ __forceinline__ int num_tokens(const int* tpos, int64_t n) {
-  return n > 0 ? tpos[n - 1] : 0;
-}
-
-__global__ void classify_kernel(const uint8_t* __restrict__ buf, int64_t n,
-                                uint8_t* __restrict__ tflag,
-                                unsigned int* __restrict__ err) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const uint8_t c = buf[i];
-  if (!in_alphabet(c)) atomicMin(err, static_cast<unsigned int>(i));
-  tflag[i] = (!is_sep(c) && (i == 0 || is_sep(buf[i - 1]))) ? 1 : 0;
-}
-
-__global__ void token_kernel(const uint8_t* __restrict__ buf, int64_t n,
-                             const uint8_t* __restrict__ tflag,
-                             const int* __restrict__ tpos,
-                             int* __restrict__ start, int* __restrict__ len,
-                             uint8_t* __restrict__ head) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n || !tflag[i]) return;
-  const int t = tpos[i] - 1;
-  int64_t j = i + 1;
-  while (j < n && !is_sep(buf[j])) ++j;
-  start[t] = static_cast<int>(i);
-  len[t] = static_cast<int>(j - i);
-  // the chunk's first token heads a line; so does one after a line break
-  bool is_head = true;
-  for (int64_t k = i - 1; k >= 0; --k) {
-    const uint8_t c = buf[k];
-    if (is_nl(c)) break;
-    if (!is_sep(c)) {
-      is_head = false;
-      break;
-    }
-  }
-  head[t] = is_head ? 1 : 0;
-}
-
-unsigned blocks_for(int64_t items) {
-  return static_cast<unsigned>((items + kThreads - 1) / kThreads);
 }
 
 }  // namespace

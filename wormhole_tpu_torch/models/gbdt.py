@@ -45,7 +45,7 @@ import torch
 from wormhole_tpu_torch.data.rowblock import RowBlock
 from wormhole_tpu_torch.ops import metrics as M
 from wormhole_tpu_torch.ops.hist import (level_hist, level_hist_plain,
-                                         mesh_level_hist,
+                                         level_totals, mesh_level_hist,
                                          mesh_level_hist_plain)
 from wormhole_tpu_torch.parallel import collectives
 from wormhole_tpu_torch.parallel.mesh import (DATA_AXIS, Mesh, batch_range,
@@ -376,25 +376,18 @@ class GbdtLearner:
         def totals(g, h, relh):
             """Per-pair (sum g, sum h): the LAST level needs only node
             totals for leaf values, so the full (F, B) histogram pass is
-            skipped. Rows outside the level fall into an extra slot. The
-            sums are taken in f64 and rounded once: the right child's
-            total is parent - left, and an f32 running sum over a node's
-            rows would leave that difference a few 1e-5 off. Each node's
-            rows spread over _TOTALS_WAYS accumulators, summed at the
-            end: on the card all rows of a node adding to one address
-            serialise. On a mesh the f64 sums are summed over the data
-            axis before they round."""
-            n = hist_nodes + 1
-            way = torch.arange(g.shape[0], dtype=torch.int32,
-                               device=g.device) % _TOTALS_WAYS
-            acc = torch.zeros(_TOTALS_WAYS * n, 2, dtype=torch.float64,
-                              device=g.device)
-            acc.index_add_(0, way * n + relh,
-                           torch.stack([g, h], dim=1).double())
-            acc = acc.view(_TOTALS_WAYS, n, 2).sum(0)
+            skipped. Rows outside the level carry relh == hist_nodes. The
+            sums are taken as ops/hist.py level_totals takes them: exact
+            int64 sums in the level_hist kernel's fixed point, to f64,
+            rounded to f32 once, so they have the same bits in any order
+            of the rows, on the card too. The right child's total is
+            parent - left, and an f32 running sum over a node's rows would
+            leave that difference a few 1e-5 off. On a mesh the f64 sums
+            are summed over the data axis before they round."""
+            acc = level_totals(g, h, relh, hist_nodes, ways=_TOTALS_WAYS)
             if self._on_mesh:
                 collectives.allreduce_sum(acc, self.mesh, DATA_AXIS)
-            return acc[:hist_nodes].t().float().contiguous()  # [2, hist_nodes]
+            return acc.t().float().contiguous()  # [2, hist_nodes]
 
         def hist_part(binned, g, h, node, active):
             """This device's [2, ...] stacked G/H statistics for the

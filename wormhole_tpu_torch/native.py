@@ -9,10 +9,12 @@ the uniques its pack takes from numpy). It is not a copy of that C++:
   route the port had: the Python parsers (data/parsers.py parse_libsvm,
   parse_criteo, parse_adfea, which data/parsers.py parse_text calls
   there), numpy's stable argsort, fancy indexing and np.unique;
-- on CUDA the parse is a hand-written kernel chain: csrc/parse.cu for
-  libsvm (``parse_libsvm_kernel``), csrc/formats.cu for criteo and adfea
-  (``parse_criteo_kernel``, ``parse_adfea_kernel``, CityHash64 on the
-  card); each converts every token itself. The sorts and uniques are
+- on CUDA the parse is written by hand for the card: csrc/parse.cu for
+  libsvm (``parse_libsvm_kernel``: three launches over tiles of the
+  chunk, no library call), csrc/formats.cu for criteo and adfea
+  (``parse_criteo_kernel``, ``parse_adfea_kernel``: kernel chains with
+  scans between them, CityHash64 on the card); each converts every
+  token itself. The sorts and uniques are
   ``torch.sort(stable=True)`` and ``torch.unique`` on the card (the
   native core's sort.cc is host C++, not a TPU kernel).
 Both routes give the same bytes. Nothing changes route on its own: a CUDA
@@ -40,6 +42,7 @@ the Python parser.
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -50,8 +53,9 @@ from wormhole_tpu_torch.ops import _cuda
 
 _KEY_LIMIT = 1 << 63
 _MAX_CHUNK = 1 << 30          # bytes a parse call takes (csrc/parse.cu)
-# the parse kernels' stats[] slots
-_ERR, _NE1, _BAD, _TOKENS, _LINES, _ROWS, _FEATS, EXACT = range(8)
+# the parse kernels' stats[] slots; libsvm's has one more, the offset of
+# its first refused token
+_ERR, _NE1, _BAD, _TOKENS, _LINES, _ROWS, _FEATS, EXACT, _BAD_AT = range(9)
 
 
 def as_device(device) -> torch.device:
@@ -62,14 +66,14 @@ def as_device(device) -> torch.device:
 # ------------------------------------------------------------------ parse
 @dataclasses.dataclass
 class ParsedChunk:
-    """A parse kernel chain's device arrays (csrc/parse.cu for libsvm,
-    csrc/formats.cu for criteo, criteo_test and adfea), sized by bounds
-    from the byte count; ``stats`` holds the counts that cut them and
-    ``stats[EXACT]`` the decimals converted by the exact path;
-    ``scratch`` holds the arrays that place a refused token."""
+    """A parse's device arrays (csrc/parse.cu for libsvm, csrc/formats.cu
+    for criteo, criteo_test and adfea), sized by bounds from the byte
+    count; ``stats`` holds the counts that cut them and ``stats[EXACT]``
+    the decimals converted by the exact path; ``scratch`` holds the
+    arrays that place a refused token (libsvm: none, its stats do)."""
 
     fmt: str
-    stats: torch.Tensor    # (8,) int32
+    stats: torch.Tensor    # (8,) int32; libsvm (9,)
     label: torch.Tensor    # (tmax,) f32
     offset: torch.Tensor   # (tmax + 1,) int64
     index: torch.Tensor    # (tmax,) int64, uint64 bits
@@ -79,12 +83,6 @@ class ParsedChunk:
 
 # Each chain's scratch, in its C entry point's order: (name, dtype, size
 # in bytes (n) or in tokens or cells (t)).
-_LIBSVM_SCRATCH = (("tpos", torch.int32, "n"), ("start", torch.int32, "t"),
-                   ("len", torch.int32, "t"), ("lno", torch.int32, "t"),
-                   ("rowc", torch.int32, "t"), ("fcum", torch.int32, "t"),
-                   ("tflag", torch.uint8, "n"), ("head", torch.uint8, "t"),
-                   ("keep", torch.uint8, "t"), ("isfeat", torch.uint8, "t"),
-                   ("bad", torch.uint8, "t"))
 _CRITEO_SCRATCH = (("spos", torch.int32, "n"), ("sflag", torch.uint8, "n"),
                    ("cend", torch.int32, "t"), ("head", torch.uint8, "t"),
                    ("lno", torch.int32, "t"),
@@ -125,12 +123,12 @@ def check_chunk(buf: torch.Tensor, what: str) -> int:
 
 
 def _run_chain(buf, fmt: str, lib: str, entry: str, lead: tuple, spec,
-               tokens, stages, with_value: bool = False) -> ParsedChunk:
+               tokens, stages) -> ParsedChunk:
     """Allocate a chain's arrays for buf (`tokens(n)` entries where the
     spec says t), then run `stages` on the current stream with no host
     sync: a stage number launches entry(stage, *lead, buf, n, scratch...,
-    label, offset, index, [value,] stats, stream), a (src, dst) pair
-    scans src into dst (torch.cumsum)."""
+    label, offset, index, stats, stream), a (src, dst) pair scans src
+    into dst (torch.cumsum)."""
     n = check_chunk(buf, f"parse_{fmt}_kernel")
     tmax = tokens(n)
     dev = buf.device
@@ -139,32 +137,59 @@ def _run_chain(buf, fmt: str, lib: str, entry: str, lead: tuple, spec,
     label = torch.empty(tmax, dtype=torch.float32, device=dev)
     offset = torch.empty(tmax + 1, dtype=torch.int64, device=dev)
     index = torch.empty(tmax, dtype=torch.int64, device=dev)
-    value = (torch.empty(tmax, dtype=torch.float32, device=dev)
-             if with_value else None)
     stats = torch.empty(8, dtype=torch.int32, device=dev)
     fn, st = getattr(_cuda.lib(lib), entry), _cuda.stream(buf)
-    outs = [t for t in (label, offset, index, value, stats) if t is not None]
     ptrs = [buf.data_ptr(), n] + [s[name].data_ptr() for name, _, _ in
-                                  spec] + [t.data_ptr() for t in outs]
+                                  spec] + [t.data_ptr() for t in
+                                           (label, offset, index, stats)]
     for k in stages:
         if isinstance(k, tuple):
             torch.cumsum(s[k[0]], 0, dtype=torch.int32, out=s[k[1]])
         else:
             _cuda.check(lib, fn(k, *lead, *ptrs, st), f"{entry} stage {k}")
-    return ParsedChunk(fmt, stats, label, offset, index, value, s)
+    return ParsedChunk(fmt, stats, label, offset, index, None, s)
+
+
+def _carve(ws: torch.Tensor, at: int, count: int, dtype) -> torch.Tensor:
+    """count entries of dtype from byte `at` of a uint8 workspace."""
+    return ws[at:at + count * dtype.itemsize].view(dtype)
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
 
 
 def parse_libsvm_kernel(buf: torch.Tensor) -> ParsedChunk:
-    """Run csrc/parse.cu over a chunk's bytes on the card: five kernels
-    with torch.cumsum scans between them, on the current stream, with no
-    host sync. buf: (n,) uint8 CUDA tensor, 0 < n < 2^30."""
-    p = _run_chain(buf, "libsvm", "parse", "wh_parse_libsvm", (),
-                   _LIBSVM_SCRATCH, lambda n: (n + 1) // 2,
-                   (0, ("tflag", "tpos"), 1, ("head", "lno"), 2,
-                    ("keep", "rowc"), 3, ("isfeat", "fcum"), 4),
-                   with_value=True)
+    """Run csrc/parse.cu over a chunk's bytes on the card: three launches
+    (a count and an emit pass over tiles of the chunk, a scan between
+    them), on the current stream, with no host sync. Its arrays are views
+    of one workspace. buf: (n,) uint8 CUDA tensor, 0 < n < 2^30."""
+    n = check_chunk(buf, "parse_libsvm_kernel")
+    lib = _cuda.lib("parse")
+    nbytes, nslots = ctypes.c_int64(0), ctypes.c_int64(0)
+    _cuda.check("parse", lib.wh_parse_libsvm_scratch(
+        n, ctypes.addressof(nbytes), ctypes.addressof(nslots)),
+        "wh_parse_libsvm_scratch")
+    tmax = (n + 1) // 2
+    # offset, index, label, value, stats, scratch, each from a 16-byte edge
+    sizes = (8 * (tmax + 1), 8 * tmax, 4 * tmax, 4 * tmax, 4 * nslots.value,
+             nbytes.value)
+    at = [0]
+    for size in sizes:
+        at.append(at[-1] + _align16(size))
+    ws = torch.empty(at[-1], dtype=torch.uint8, device=buf.device)
+    offset = _carve(ws, at[0], tmax + 1, torch.int64)
+    index = _carve(ws, at[1], tmax, torch.int64)
+    label = _carve(ws, at[2], tmax, torch.float32)
+    value = _carve(ws, at[3], tmax, torch.float32)
+    stats = _carve(ws, at[4], nslots.value, torch.int32)
+    base = ws.data_ptr()
+    _cuda.check("parse", lib.wh_parse_libsvm(
+        buf.data_ptr(), n, base + at[2], base + at[0], base + at[1],
+        base + at[3], base + at[4], base + at[5], _cuda.stream(buf)),
+        "wh_parse_libsvm")
     _cuda.count("parse_libsvm")
-    return p
+    return ParsedChunk("libsvm", stats, label, offset, index, value, {})
 
 
 def parse_criteo_kernel(buf: torch.Tensor,
@@ -202,9 +227,18 @@ def upload(raw: bytes, device) -> torch.Tensor:
     return host.to(device, non_blocking=True)
 
 
-def _token_span(p: ParsedChunk, k: int) -> tuple[int, int]:
-    """Byte range of token (libsvm, adfea) or cell (criteo) k."""
+def _refused_span(p: ParsedChunk, st: np.ndarray,
+                  raw: bytes) -> tuple[int, int]:
+    """Byte range of the first refused token (libsvm, adfea) or cell
+    (criteo)."""
+    if p.fmt == "libsvm":
+        beg = int(st.view(np.uint32)[_BAD_AT])
+        end = beg
+        while end < len(raw) and raw[end] not in b" \t\r\n":
+            end += 1
+        return beg, end
     s = p.scratch
+    k = int(torch.nonzero(s["bad"][:int(st[_TOKENS])])[0])
     if p.fmt in ("criteo", "criteo_test"):
         return (int(s["cend"][k - 1]) + 1 if k else 0), int(s["cend"][k])
     beg = int(s["start"][k])
@@ -223,8 +257,7 @@ def finish_parse(p: ParsedChunk, raw: bytes) -> RowBlock:
             f"printable ASCII, space, tab, CR and LF, which the card's "
             f"parser does not take")
     if st[_BAD]:
-        k = int(torch.nonzero(p.scratch["bad"][:int(st[_TOKENS])])[0])
-        beg, end = _token_span(p, k)
+        beg, end = _refused_span(p, st, raw)
         raise ValueError(
             f"{p.fmt} chunk: token {raw[beg:end].decode()!r} at byte {beg} "
             f"is not {_REFUSED[p.fmt]} ({int(st[_BAD])} such tokens)")

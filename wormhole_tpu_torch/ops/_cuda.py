@@ -63,10 +63,12 @@ _SIGNATURES = {
     "hist": {
         "wh_level_scratch_ints": [_I64, _I, _P],
         "wh_level_partition": [_P, _P, _I64, _I, _P],
-        "wh_level_hist": [_P, _P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
+        "wh_level_hist_bytes": [_I64, _I, _I, _I, _P],
+        "wh_level_hist": [_P, _P, _P, _P, _P, _I64, _I, _I, _I, _P],
     },
     "parse": {
-        "wh_parse_libsvm": [_I, _P, _I64] + [_P] * 17,
+        "wh_parse_libsvm_scratch": [_I64, _P, _P],
+        "wh_parse_libsvm": [_P, _I64] + [_P] * 7,
     },
     "formats": {
         "wh_parse_criteo": [_I, _I, _P, _I64] + [_P] * 16,

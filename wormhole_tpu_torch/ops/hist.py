@@ -8,12 +8,16 @@ in per-thread CPU histograms and allreduces over rabit.
 ``level_hist`` keeps the JAX package's signature. On the card it first
 partitions the level's rows by node (``level_partition``: three kernels
 of csrc/hist.cu, nothing read back to the host), then one kernel
-accumulates each node's rows in f32 with atomic adds into a histogram
-tile in shared memory. Beside them here are the plain versions: for the
-histogram the JAX package's own scatter formulation (models/gbdt.py
-local_hist), a flat index ``rel * F * B + f * B + bin`` and an
-``index_add_``; for the partition a stable sort; and ``hist_shares``,
-how the kernel splits the partition among its CTAs.
+accumulates each node's rows into a histogram tile in shared memory, in
+64-bit fixed point: integer adds, so every launch gives the same bits.
+Beside them here are the plain versions: for the histogram the JAX
+package's own scatter formulation (models/gbdt.py local_hist), a flat
+index ``rel * F * B + f * B + bin`` and an ``index_add_``; for the
+partition a stable sort; ``hist_shares``, how the kernel splits the
+partition among its CTAs; and ``level_hist_fixed_plain``, the kernel's
+fixed-point rule in plain ops, which the tests hold against the kernel
+and the JAX package. ``level_totals``, the GBDT learner's node totals,
+sums in the same fixed point.
 
 The wrappers run the plain versions only for tensors on the CPU. For CUDA
 tensors they launch the kernels or raise.
@@ -60,6 +64,97 @@ def level_hist_plain(binned, g, h, rel, num_nodes: int, B: int,
             0, flat, x.to(acc_dtype)[:, None].expand(rows, F).reshape(-1))
         out.append(acc[:cells].float().reshape(num_nodes, F, B))
     return out[0], out[1]
+
+
+_FIXED_BITS = 62  # csrc/hist.cu kFixedBits
+
+
+def fixed_scale_exp(maxabs, rows):
+    """The exponent s of csrc/hist.cu's fixed point (fixed_exp): with
+    maxabs < 2^e (e from maxabs's f32 bits, its biased exponent less 126,
+    or -126 where it is 0 or subnormal) and rows <= 2^r (r the bit length
+    of rows), s = 62 - r - e, so that rows terms of at most maxabs * 2^s
+    each sum below 2^62. maxabs: f32 tensor (any shape); rows: an int or
+    an integer tensor. Returns s as an int64 tensor of maxabs's shape."""
+    bits = maxabs.float().contiguous().view(torch.int32).long()
+    biased = (bits >> 23) & 0xFF
+    e = torch.where(biased == 0, -126, biased - 126)
+    n = torch.as_tensor(rows, dtype=torch.float64, device=maxabs.device)
+    r = torch.frexp(n)[1].long()  # n < 2^r, n = 2^(r-1) .. 2^r - 1
+    return _FIXED_BITS - r - e
+
+
+def _pow2(k):
+    """2^k as f64, exactly (k an int64 tensor in [-1022, 1023])."""
+    return ((k + 1023) << 52).view(torch.float64)
+
+
+def fixed_point(x, live):
+    """A level's terms in csrc/hist.cu's fixed point: x (rows, k) f32, k
+    series each scaled on its own; live (rows,) bool, the rows in the
+    level. Returns (q, nonfinite, s): q (rows, k) int64, each finite term
+    times 2^s rounded to nearest (ties to even), 0 where it is not
+    finite; nonfinite (rows, k) f64, the non-finite terms, 0 elsewhere;
+    s (k,) from the largest finite |x| of the live rows and their
+    count."""
+    fin = torch.isfinite(x)
+    if x.shape[0]:
+        m = torch.where(live[:, None] & fin, x.abs(), 0).amax(0)
+    else:
+        m = x.new_zeros(x.shape[1:])
+    s = fixed_scale_exp(m, live.sum())
+    q = torch.round(torch.where(fin, x, 0).double() * _pow2(s)).long()
+    return q, torch.where(fin, 0, x).double(), s
+
+
+def from_fixed(acc, nonfinite, s):
+    """Sums in fixed point (int64) back to f64: each sum's double times
+    2^-s, exact up to the one rounding of the int64 to a double, plus the
+    sum of its non-finite terms (0 where there were none; +-inf, or nan
+    where a nan or both infinities came)."""
+    return acc.double() * _pow2(-s) + nonfinite
+
+
+def level_hist_fixed_plain(binned, g, h, rel, num_nodes: int, B: int):
+    """The kernel's rule in plain ops, for the tests: level_hist as
+    csrc/hist.cu computes it, bit for bit. Each g (h) of a row in the
+    level is taken in fixed point (fixed_point: the scale from the level's
+    max finite |g| and its rows), the cells sum those integers exactly,
+    and each cell is rounded to f32 once (from_fixed); a bin id >= B adds
+    nothing. The same bits in any order of the rows."""
+    rows, F = binned.shape
+    live = (rel >= 0) & (rel < num_nodes)
+    cells = num_nodes * F * B
+    flat = torch.where((binned.int() < B).reshape(-1),
+                       hist_index(binned, rel, num_nodes, B).long(), cells)
+    q, nf, s = fixed_point(torch.stack([g, h], dim=1), live)
+    acc = torch.zeros(cells + F * B, 2, dtype=torch.int64, device=g.device)
+    acc.index_add_(0, flat, q.repeat_interleave(F, dim=0))
+    nfs = torch.zeros(cells + F * B, 2, dtype=torch.float64, device=g.device)
+    nfs.index_add_(0, flat, nf.repeat_interleave(F, dim=0))
+    out = from_fixed(acc[:cells], nfs[:cells], s).float()
+    return (out[:, 0].reshape(num_nodes, F, B),
+            out[:, 1].reshape(num_nodes, F, B))
+
+
+def level_totals(g, h, rel, num_nodes: int, ways: int = 1):
+    """Each node's (sum of g, sum of h) as (num_nodes, 2) f64, the same
+    bits in any order of the rows: the terms in csrc/hist.cu's fixed
+    point (fixed_point, the scale from the level's rows), summed as exact
+    int64 adds (index_add_ of integers takes no order), then from_fixed.
+    Rows with rel outside [0, num_nodes) add nothing. `ways` spreads
+    each node's rows over that many accumulators, summed at the end (on
+    the card all rows of a node adding to one address serialise)."""
+    live = (rel >= 0) & (rel < num_nodes)
+    n = num_nodes + 1
+    node = torch.where(live, rel, num_nodes).long()
+    idx = (torch.arange(g.shape[0], device=g.device) % ways) * n + node
+    q, nf, s = fixed_point(torch.stack([g, h], dim=1), live)
+    acc = torch.zeros(ways * n, 2, dtype=torch.int64, device=g.device)
+    acc = acc.index_add_(0, idx, q).view(ways, n, 2).sum(0)
+    nfs = torch.zeros(ways * n, 2, dtype=torch.float64, device=g.device)
+    nfs = nfs.index_add_(0, idx, nf).view(ways, n, 2).sum(0)
+    return from_fixed(acc[:num_nodes], nfs[:num_nodes], s)
 
 
 def level_partition_plain(rel, num_nodes: int):
@@ -145,10 +240,12 @@ def level_hist(binned, g, h, rel, num_nodes: int, B: int):
     (num_nodes, F, B) f32, each cell the f32 sum of its rows' g (h); a
     cell no row reaches is exactly 0.0. B <= 256.
 
-    On the card the sums are float atomics, so their order, and with it
-    the last bits, may change from launch to launch. Five launches (the
-    output's memset, the partition's three kernels, the histogram), no
-    host sync.
+    On the card the sums are taken in 64-bit fixed point
+    (level_hist_fixed_plain gives the same bits), so every launch on the
+    same inputs gives the same bits, in whatever order the rows come. G
+    and H are views of one workspace. Five launches (the workspace's
+    memset, the partition's three kernels, the histogram), no host
+    sync.
 
     Replaces wormhole_tpu/ops/hist.py level_hist (_hist_kernel).
     Kernels: csrc/hist.cu, the partition's and level_hist_kernel."""
@@ -164,14 +261,18 @@ def level_hist(binned, g, h, rel, num_nodes: int, B: int):
         return level_hist_plain(binned, g, h, rel, num_nodes, B)
     _cuda.require("level_hist", binned.device, binned=binned, g=g, h=h,
                   rel=rel)
-    scratch = _scratch(rows, num_nodes, binned.device)
-    out = torch.empty(2, num_nodes, F, B, dtype=torch.float32,
-                      device=binned.device)
-    rc = _cuda.lib("hist").wh_level_hist(
+    lib = _cuda.lib("hist")
+    n = ctypes.c_int64(0)
+    _cuda.check("hist", lib.wh_level_hist_bytes(rows, F, B, num_nodes,
+                                                ctypes.addressof(n)),
+                "level_hist workspace")
+    ws = torch.empty(n.value, dtype=torch.uint8, device=binned.device)
+    rc = lib.wh_level_hist(
         binned.data_ptr(), g.data_ptr(), h.data_ptr(), rel.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), rows, F, B, num_nodes,
-        _cuda.stream(binned))
+        ws.data_ptr(), rows, F, B, num_nodes, _cuda.stream(binned))
     _cuda.check("hist", rc, "level_hist")
+    out = ws[:8 * num_nodes * F * B].view(torch.float32).view(
+        2, num_nodes, F, B)
     _cuda.LAUNCHES["level_partition"] += 1
     _cuda.LAUNCHES["level_hist"] += 1
     return out[0], out[1]
