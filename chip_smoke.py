@@ -69,10 +69,12 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    card) on a 65,536-row synthetic Criteo TSV chunk (~16 MB), the same
    rows as criteo_test, a chunk of one token of every length 0 to 300
    (every CityHash64 branch) and a 65,536-row adfea chunk (negative and
-   22-digit fids, gids over 0-1023): equal RowBlocks byte for byte,
-   every token converted on the card, timed as the kernels are plus the
-   whole call's wall and the plain parser's (one call a format), the
-   libsvm chunks with the device ops a call split by kernel; and the
+   22-digit fids, gids over 0-1023), and a tile-edge chunk of each
+   format (its corpus at 15 shifts around the card's 16,384-byte tile
+   edges): equal RowBlocks byte for byte, every token converted on the
+   card, timed as the kernels are plus the whole call's wall and the
+   plain parser's (one call a format), each chunk with the device ops a
+   call split by kernel; and the
    pack with its sorts on the card against the numpy pack, byte for byte,
    at full width (pack_sorted_coo at 2^22, pack_tile_coo at 2^26,
    DiFacto's _pack_fm), in seconds a batch;
@@ -291,6 +293,10 @@ GBDT_TIMED_ROUNDS = 3
 LEAF_ATOL = 1e-5   # the kernel path's leaves against f64 sums of their rows
 GBDT_APP_ROWS = (65_536, 16_384)  # train, eval rows of the app's files
 PARSE_ROWS = 65_536  # rows of each [parse] chunk
+PARSE_TILE = 16_384  # the parse kernels' tile (csrc/parse.cu, formats.cu)
+# where the tile-edge chunks put each piece before a tile edge
+TILE_EDGE_SHIFTS = (0, 1, 2, 3, 5, 8, 13, 21, 34, 64, 100, 255, 256, 257,
+                    300)
 E2E_BATCHES = 8      # full minibatches in each [e2e] file
 E2E_PARTS = 4        # its num_parts_per_file, and max_concurrency
 KM_MINIBATCH = 16_384  # k-means at bench.py bench_kmeans's MNIST-784 shape
@@ -2111,6 +2117,19 @@ def format_chunks(rows=PARSE_ROWS) -> tuple:
                                                 rows)))
 
 
+def edge_chunk(fmt: str) -> bytes:
+    """A tile-edge chunk of `fmt`: the format's tile-edge corpus
+    (data/synth.py tile_edge_text) at each of TILE_EDGE_SHIFTS, each
+    starting at a tile edge (blanks pad the one before)."""
+    from wormhole_tpu_torch.data.synth import tile_edge_text
+
+    out = ""
+    for shift in TILE_EDGE_SHIFTS:
+        out += " " * (-len(out) % PARSE_TILE)
+        out += tile_edge_text(fmt, PARSE_TILE, shift) + "\n"
+    return out.encode()
+
+
 def check_parse(device, rows=PARSE_ROWS) -> dict:
     """[parse]: the card's parsers against the plain parsers. libsvm on
     four full-width chunks (Criteo keys at 2^26 as write_libsvm writes
@@ -2125,7 +2144,8 @@ def check_parse(device, rows=PARSE_ROWS) -> dict:
     (one call a format). Returns the parse_libsvm row, from the Criteo
     keys chunk (the passes' files hold such rows), and the parse_criteo
     and parse_adfea rows, from the criteo and adfea chunks (the others'
-    numbers under "chunks")."""
+    numbers under "chunks"). Then a tile-edge chunk of each format
+    (edge_chunk), held byte for byte against the plain parser."""
     from wormhole_tpu_torch import native
     from wormhole_tpu_torch.data.parsers import parse_libsvm, parse_text
 
@@ -2172,16 +2192,31 @@ def check_parse(device, rows=PARSE_ROWS) -> dict:
         got, walls = _card_walls(lambda: parse_text(raw, fmt, device),
                                  device)
         buf = native.upload(raw, device)
+        split = device_split(lambda: kernel(buf), device)
+        ops = None if split is None else sum(k[1] for k in split)
         row = parse_chunk_row(name, lambda: kernel(buf), raw, got, want,
                               plain_s if timed else None, walls, device,
-                              f" ({fmt})")
+                              f" ({fmt}); device ops a call {ops}, by "
+                              f"kernel [name, a call, ms]: "
+                              f"{json.dumps(split)}")
+        row.update(device_ops_per_call=ops, device_split=split)
         key = "parse_adfea" if fmt == "adfea" else "parse_criteo"
         if key in out:
             out[key]["chunks"][name] = {
                 k: row[k] for k in ("ms", "device_ms", "host_us", "bound_ms",
-                                    "call_ms", "mb")}
+                                    "call_ms", "mb", "device_split")}
         else:
             out[key] = dict(row, chunks={})
+    for fmt in ("libsvm", "criteo", "criteo_test", "adfea"):
+        raw = edge_chunk(fmt)
+        want = parse_text(raw, fmt)
+        got = parse_text(raw, fmt, device)
+        same_arrays(f"[parse] {fmt}-edges", rowblock_arrays(got),
+                    rowblock_arrays(want))
+        log(f"[parse] {fmt}-edges: {len(raw) / 1e6:.3f} MB, {got.size} rows, "
+            f"{got.nnz} features, {len(TILE_EDGE_SHIFTS)} shifts of the "
+            f"tile-edge corpus around {PARSE_TILE}-byte tiles; RowBlocks "
+            f"equal byte for byte")
     return out
 
 

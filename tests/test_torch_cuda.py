@@ -19,6 +19,7 @@ kernels, the pack's sorts and uniques) gives the plain routes' bytes
 exactly.
 """
 
+import re
 import threading
 
 import numpy as np
@@ -27,6 +28,7 @@ import torch
 
 from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.parsers import parse_libsvm, parse_text
+from wormhole_tpu_torch.data.synth import tile_edge_text
 from wormhole_tpu_torch.ops import _cuda
 from wormhole_tpu_torch.ops import coo_kernels as ck
 from wormhole_tpu_torch.ops import fused_update as fu
@@ -945,29 +947,6 @@ LIBSVM_ERRORS = {
 }
 
 
-# The tile-edge corpus: csrc/parse.cu cuts a chunk into tiles (kTile
-# bytes on the card, smaller in tests/test_torch_parse.py's mirror). Each
-# piece below starts `shift` bytes before a tile edge (a comment line of
-# x's fills the gap), so that over the shifts every seam of it (a
-# comment line, "\r\n" and empty lines, a label, "k:v" tokens, bare keys,
-# blanks, a decimal longer than the mirror's halo, a last line with no
-# line break) crosses an edge.
-TILE_EDGE_PIECES = ("# a comment 1:2 3:4\n", "1 3:1.5 4\r\n", "\r\n\n",
-                    "  0\t7:2.25  8 9:1e-3\n",
-                    "1 10:" + "1" * 60 + "e-58 11:1\n", "#\n",
-                    "\n\r1 13\t \n", "-1 12:0.5")
-
-
-def tile_edge_text(tile: int, shift: int) -> str:
-    out = ""
-    for piece in TILE_EDGE_PIECES:
-        target = (len(out) // tile + 1) * tile - shift
-        while target - len(out) < 2:
-            target += tile
-        out += "#" + "x" * (target - len(out) - 2) + "\n" + piece
-    return out
-
-
 def sized_text(size: int, final_newline: bool) -> str:
     """A libsvm chunk of exactly `size` bytes: rows of three tokens, the
     last row padded with blanks to the size."""
@@ -1043,10 +1022,11 @@ def test_parse_libsvm_kernel_synthetic_chunk(cuda, values):
 @pytest.mark.parametrize("shift", [0, 1, 2, 3, 5, 8, 13, 21, 34, 64, 100,
                                    255, 256, 257, 300])
 def test_parse_libsvm_kernel_tile_edges(cuda, shift):
-    """The tile-edge corpus at the kernel's own tile (16,384 bytes; a
-    shift past 256 puts a token's start before an edge and its end past
-    the halo): the plain parser's bytes."""
-    text = tile_edge_text(16384, shift)
+    """The tile-edge corpus (data/synth.py tile_edge_text: each piece
+    starts `shift` bytes before a tile edge) at the kernel's own tile
+    (16,384 bytes; a shift past 256 puts a token's start before an edge
+    and its end past the halo): the plain parser's bytes."""
+    text = tile_edge_text("libsvm", 16384, shift)
     same_block(native.parse_libsvm_cuda(text, cuda), parse_libsvm(text))
 
 
@@ -1121,6 +1101,18 @@ ADFEA_ERRORS = {
     "two-colons": "a b 1 1:2:3\n",
     "misplaced-underscore": "a b 1 1__0:3\n",
 }
+
+
+def format_sized_text(fmt: str, size: int, final_newline: bool) -> str:
+    """A criteo or adfea chunk of exactly `size` bytes: kept rows, the
+    last padded with blanks to the size."""
+    line, head = (("a b 1 3:4\n", "a b 0") if fmt == "adfea"
+                  else ("1\t5\tab\n", "0"))
+    body = line * max(0, (size - 16) // len(line))
+    rest = size - len(body) - final_newline
+    if rest < len(head):
+        head = "0"
+    return body + head + " " * (rest - len(head)) + "\n" * final_newline
 
 
 def criteo_sweep_text(max_len: int = 300, seed: int = 0) -> str:
@@ -1208,6 +1200,144 @@ def test_parse_format_kernels_synthetic_chunk(cuda, fmt):
     assert got.size == 4096
     if fmt == "adfea":
         assert int(got.index.max()) >= 1 << 63
+
+
+FORMATS = ["criteo", "criteo_test", "adfea"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("shift", [0, 1, 2, 3, 5, 8, 13, 21, 34, 64, 100,
+                                   255, 256, 257, 300])
+def test_parse_format_kernels_tile_edges(cuda, fmt, shift):
+    """The criteo and adfea tile-edge corpora at the kernels' own tile
+    (16,384 bytes, a 256-byte halo; a shift past 256 puts a cell's start
+    before an edge and its end past the halo): the plain parser's
+    bytes."""
+    text = tile_edge_text(fmt, 16384, shift)
+    same_block(parse_text(text, fmt, cuda), parse_text(text, fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("size,final_newline", [(1, False)] + [
+    (size, nl) for size in (2, 100, 16383, 16384, 16385, 32767, 32768, 32769,
+                            5 * 16384 - 1, 5 * 16384, 5 * 16384 + 1)
+    for nl in (True, False)])
+def test_parse_format_kernels_chunk_sizes(cuda, fmt, size, final_newline):
+    """Chunks under one tile and around whole numbers of tiles."""
+    text = format_sized_text(fmt, size, final_newline)
+    assert len(text) == size
+    same_block(parse_text(text, fmt, cuda), parse_text(text, fmt))
+
+
+def _format_chunk(fmt: str) -> bytes:
+    """4,096 synthetic rows and the tile-edge corpus at shift 7."""
+    from wormhole_tpu_torch.data.synth import (synth_adfea_text,
+                                               synth_criteo_tsv)
+    rng = np.random.default_rng(9)
+    raw = (synth_adfea_text(rng, 4096) if fmt == "adfea"
+           else synth_criteo_tsv(rng, 4096))
+    return raw + tile_edge_text(fmt, 16384, 7).encode()
+
+
+def _format_kernel(fmt: str, buf):
+    if fmt == "adfea":
+        return native.parse_adfea_kernel(buf)
+    return native.parse_criteo_kernel(buf, fmt == "criteo")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_parse_format_kernels_same_bits_twice(cuda, fmt):
+    """Two launches over the same chunk write the same bits, stats
+    included; the stats keep their meaning (tokens: criteo's cells,
+    adfea's tokens; lines: criteo's line breaks + 1, adfea's lines with a
+    token; the offset of the first refused token ~0)."""
+    raw = _format_chunk(fmt)
+    buf = native.upload(raw, cuda)
+    a, b = _format_kernel(fmt, buf), _format_kernel(fmt, buf)
+    torch.cuda.synchronize()
+    rows, feats = int(a.stats[native._ROWS]), int(a.stats[native._FEATS])
+    for x, y in ((a.stats, b.stats), (a.label[:rows], b.label[:rows]),
+                 (a.offset[:rows + 1], b.offset[:rows + 1]),
+                 (a.index[:feats], b.index[:feats])):
+        _same_arrays(x.cpu().numpy(), y.cpu().numpy())
+    st = a.stats.cpu().numpy()
+    text = raw.decode()
+    lines = text.replace("\r", "\n").split("\n")
+    if fmt == "adfea":
+        assert st[native._TOKENS] == len(text.split())
+        assert st[native._LINES] == sum(bool(ln.split()) for ln in lines)
+    else:
+        assert st[native._TOKENS] == sum(ln.count("\t") + 1 for ln in lines)
+        assert st[native._LINES] == len(lines)
+    assert st.view(np.uint32)[native._BAD_AT] == 0xFFFFFFFF
+    assert st[native._BAD] == 0 and st.view(np.uint32)[native._ERR] == \
+        0xFFFFFFFF
+    same_block(native.finish_parse(a, raw), parse_text(raw, fmt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", FORMATS)
+def test_parse_format_kernels_no_sync_in_three_launches(cuda, fmt):
+    """No host sync in the wrapper (CUDA's sync debug mode raises on
+    one), and three device ops a call: the count, scan and emit kernels,
+    no memset and no library kernel."""
+    buf = native.upload(_format_chunk(fmt), cuda)
+    _format_kernel(fmt, buf)                     # builds and loads
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _format_kernel(fmt, buf)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            _format_kernel(fmt, buf)
+        torch.cuda.synchronize()
+    device_ops = [e.name for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert round(len(device_ops) / 10) == 3, device_ops
+    assert all(any(k in op for op in device_ops) for k in (
+        "formats_count_kernel", "formats_scan_kernel",
+        "formats_emit_kernel")), device_ops
+    assert all("formats_" in op for op in device_ops), device_ops
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt,name", [("criteo", n) for n in sorted(CRITEO_ERRORS)]
+                         + [("adfea", n) for n in sorted(ADFEA_ERRORS)])
+def test_parse_format_kernels_name_the_first_refused_token(cuda, fmt, name):
+    """The card names the first refused label or key by its offset, as
+    the old chains named it (criteo: its whole cell)."""
+    text = (CRITEO_ERRORS if fmt == "criteo" else ADFEA_ERRORS)[name]
+    beg, tok = FIRST_REFUSED[fmt, name]
+    with pytest.raises(ValueError, match=f"token {re.escape(repr(tok))} "
+                                         f"at byte {beg} "):
+        parse_text(text, fmt, cuda)
+
+
+# the first refused label or key of each error corpus entry: (offset,
+# token)
+FIRST_REFUSED = {
+    ("criteo", "word-label"): (0, "x"),
+    ("criteo", "empty-label"): (4, ""),
+    ("criteo", "spaces-label"): (0, " "),
+    ("criteo", "inner-space-label"): (0, "1 2"),
+    ("criteo", "lone-cr-splits-a-line"): (4, "x"),
+    ("criteo", "misplaced-underscore"): (0, "1__0"),
+    ("adfea", "word-label"): (4, "x"),
+    ("adfea", "bare-key-2^64"): (6, "18446744073709551616"),
+    ("adfea", "negative-bare-key"): (6, "-5"),
+    ("adfea", "word-fid"): (6, "x:1"),
+    ("adfea", "empty-fid"): (6, ":1"),
+    ("adfea", "empty-gid"): (6, "1:"),
+    ("adfea", "two-colons"): (6, "1:2:3"),
+    ("adfea", "misplaced-underscore"): (6, "1__0:3"),
+}
 
 
 @pytest.mark.cuda

@@ -10,9 +10,16 @@ package's, and the card parsers' rules on the CPU.
   route where it is built). Where the JAX package's two routes disagree
   (the lone CR, PEP 515 labels and ids, negative and wide fids), the port
   follows the Python parser.
-- parse_criteo_mirror and parse_adfea_mirror, csrc/formats.cu's stages in
-  numpy and Python (byte classes, scans, the per-cell hash, the grammar,
-  the 128-bit fid accumulator), give the plain parsers' bytes.
+- formats_mirror (parse_criteo_mirror, parse_adfea_mirror), csrc/
+  formats.cu's tiled design in Python at any tiling (each group's masks,
+  the warps' walks of the lines that start in their regions, criteo's
+  look-ahead for a line's keep, the scan of the tiles' counts, the
+  queued cells read from the tile or past its halo, the per-cell hash,
+  the grammar, the 128-bit fid accumulator), gives the plain parsers'
+  bytes on the corpora, on the tile-edge corpora at every shift and at
+  the card's tiling, around whole numbers of tiles and on hypothesis
+  lines at any offset; where the plain parser raises it raises, naming
+  the token as the card's wrapper does.
 - crb files written by either package are read by both; the same blocks
   give the same bytes. The convert app writes the JAX convert's files
   byte for byte, appends as it does, and MinibatchIter over crb emits the
@@ -28,6 +35,7 @@ The kernels themselves meet the plain parsers on the card
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -36,8 +44,10 @@ from hypothesis import strategies as st
 
 from conftest import synth_libsvm_text
 from test_torch_cuda import (ADFEA_EDGE, ADFEA_ERRORS, CRITEO_EDGE,
-                             CRITEO_ERRORS, criteo_sweep_text, same_block)
-from test_torch_parse import BAD, EXACT, digit_run_end, parse_float, parse_key
+                             CRITEO_ERRORS, FIRST_REFUSED, criteo_sweep_text,
+                             format_sized_text, same_block)
+from test_torch_parse import (BAD, CARD_HALO, CARD_TILE, CARD_WARPS, EXACT,
+                              FAST, digit_run_end, parse_float, parse_key)
 from wormhole_tpu.data import crb as j_crb
 from wormhole_tpu.data import parsers as j_parsers
 from wormhole_tpu.data.minibatch import MinibatchIter as JIter
@@ -46,7 +56,8 @@ from wormhole_tpu_torch.data import crb as t_crb
 from wormhole_tpu_torch.data import parsers as t_parsers
 from wormhole_tpu_torch.data.minibatch import MinibatchIter as TIter
 from wormhole_tpu_torch.data.rowblock import RowBlock
-from wormhole_tpu_torch.data.synth import synth_adfea_text, synth_criteo_tsv
+from wormhole_tpu_torch.data.synth import (synth_adfea_text, synth_criteo_tsv,
+                                           tile_edge_text)
 from wormhole_tpu_torch.ops import hashing as t_hashing
 from wormhole_tpu_torch.ops import coo_kernels as t_ck
 
@@ -253,120 +264,353 @@ def adfea_key_mirror(tok: bytes):
     return ((f[0] >> 10) | (f[1] << 54) & M64) | ((g[0] & 0x3FF) << 54)
 
 
-def _alphabet(raw: bytes, fmt: str) -> np.ndarray:
-    b = np.frombuffer(raw, np.uint8)
-    ok = ((b >= 0x20) & (b <= 0x7E)) | np.isin(b, list(b"\t\r\n"))
-    if not ok.all():
-        raise ValueError(f"{fmt} chunk: byte {np.flatnonzero(~ok)[0]} is "
-                         f"outside the alphabet")
-    return b
+# csrc/formats.cu's tiles: kTile bytes a CTA, kTile / warps bytes a
+# warp's region, kHalo bytes loaded past a tile. The mirror takes them
+# small by default (a 64-byte tile of two one-group regions, a 32-byte
+# halo), so that short texts cross many tile edges and long cells run past
+# the halo, or at the card's own (CARD_TILE, CARD_WARPS, CARD_HALO).
+_PAD = 10  # bytes outside the chunk read as line breaks
+_BREAKS, _SEPS = b"\r\n", b" \t\r\n"
+_M32 = 0xFFFFFFFF
 
 
-def parse_criteo_mirror(data, has_label=True):
-    """csrc/formats.cu's criteo stages in numpy and Python, step for step.
-    Returns (RowBlock, labels on the exact path); raises ValueError where
-    the wrapper raises."""
+def _ffs(x: int) -> int:
+    return (x & -x).bit_length()  # __ffs: 1 + the lowest set bit, 0 for 0
+
+
+def _top(x: int) -> int:
+    return x.bit_length() - 1     # 31 - __clz, -1 for 0
+
+
+def _bits(x: int):
+    while x:
+        low = x & -x
+        yield low.bit_length() - 1
+        x ^= low
+
+
+def _classify(b: np.ndarray, criteo: bool):
+    """formats.cu classify over whole groups of bytes: (nl, x, y) masks a
+    group (criteo: tabs and bytes that keep a line; adfea: separators)."""
+    def masks(flags):
+        return [int(v) for v in
+                np.packbits(flags, bitorder="little").view("<u4")]
+    nl = np.isin(b, list(_BREAKS))
+    if criteo:
+        x = b == 9
+        y = ~np.isin(b, list(b" \t\r\n"))
+    else:
+        x = np.isin(b, list(_SEPS))
+        y = np.zeros_like(x)
+    return masks(nl), masks(x), masks(y)
+
+
+class _FormatsTile:
+    """A tile as formats.cu's load_tile and mask_tile leave it in shared
+    memory: its bytes, the byte before it and the halo (line breaks
+    outside the chunk), each group's masks, and the region counts of the
+    count pass (criteo: cell separators and line breaks; adfea: token
+    starts) and its first byte outside the alphabet."""
+
+    def __init__(self, raw: bytes, t0: int, tile: int, warps: int,
+                 halo: int, criteo: bool):
+        n = len(raw)
+        self.t0, self.tile, self.halo, self.criteo = t0, tile, halo, criteo
+        self.region = tile // warps
+        self.ngroups = (tile + halo) // 32
+        pre = raw[t0 - 1] if t0 > 0 else _PAD
+        body = raw[t0:t0 + tile + halo]
+        self.buf = bytes([pre]) + body + bytes([_PAD]) * (
+            tile + halo - len(body))
+        self.nl, self.x, self.y = _classify(
+            np.frombuffer(self.buf[1:], np.uint8), criteo)
+        valid = [_M32 if n - (t0 + 32 * g) >= 32 else
+                 max(0, (1 << max(0, n - (t0 + 32 * g))) - 1)
+                 for g in range(tile // 32)]
+        if criteo:
+            self.a = sum(((self.x[g] | self.nl[g]) & v).bit_count()
+                         for g, v in enumerate(valid))
+            self.b = sum((self.nl[g] & v).bit_count()
+                         for g, v in enumerate(valid))
+        else:
+            before = int(self.buf[0] in _SEPS)
+            self.a = 0
+            for g, v in enumerate(valid):
+                x = self.x[g]
+                self.a += (~x & ((x << 1) | before) & v & _M32).bit_count()
+                before = x >> 31
+            self.b = 0
+        self.err = next((t0 + i for i in range(min(tile, n - t0))
+                         if not (0x20 <= raw[t0 + i] <= 0x7E
+                                 or raw[t0 + i] in b"\t\r\n")), None)
+
+    def group(self, raw: bytes, g: int):
+        """group_at: the masks of group g, from the tile inside it and its
+        halo, else from the chunk (line breaks past its end)."""
+        if g < self.ngroups:
+            return self.nl[g], self.x[g], self.y[g]
+        a = self.t0 + 32 * g
+        b = np.frombuffer(raw[a:a + 32].ljust(32, bytes([_PAD])), np.uint8)
+        return tuple(m[0] for m in _classify(b, self.criteo))
+
+    def kept_ahead(self, raw: bytes, g: int) -> bool:
+        """formats.cu kept_ahead: the first keeping byte or line break
+        after group g is a keeping byte."""
+        while True:
+            g += 1
+            nl, _, y = self.group(raw, g)
+            if y | nl:
+                return bool(y >> (_ffs(y | nl) - 1) & 1)
+
+    def cell(self, raw: bytes, pos: int) -> bytes:
+        """cell_end: the cell or token at chunk offset pos, its end from
+        the masks inside the halo, read on from the chunk past it."""
+        p = pos - self.t0
+        if p < self.tile + self.halo:
+            g = p >> 5
+            m = self.end_mask(g) & (_M32 << (p & 31)) & _M32
+            while m == 0 and g + 1 < self.ngroups:
+                g += 1
+                m = self.end_mask(g)
+            if m:
+                end = self.t0 + 32 * g + _ffs(m) - 1
+                return self.buf[1 + p:1 + end - self.t0]
+        end = max(pos, self.t0 + self.tile + self.halo)
+        ends = b"\t\r\n" if self.criteo else _SEPS
+        while end < len(raw) and raw[end] not in ends:
+            end += 1
+        return raw[pos:end]
+
+    def end_mask(self, g: int) -> int:
+        return self.nl[g] | self.x[g] if self.criteo else self.x[g]
+
+
+def _walk(t: _FormatsTile, raw: bytes, w: int, has_label: bool, rows: int,
+          feats: int, emit: list | None):
+    """formats.cu walk: warp w walks the lines that start in its region,
+    a group at a time, its last line on to its end. Each lane's line is
+    its last line start at or below it (owned where the start lies in the
+    region, or where the line ran on into the group and was owned); criteo
+    keeps a line whose first event (keeping byte or line break) is a
+    keeping byte (looking ahead past the group where it must), rows start
+    at kept lines' starts and features are nonempty cells of fields 0-38;
+    adfea's token 2 is the row's label, tokens 3 and on its features. A
+    group with no line start is taken in mask arithmetic where all its
+    cells or tokens have one role. With `emit` a list, appends ("offset",
+    row, feat), ("label0", row) and the queued ("label" | "feat", pos,
+    slot, kind) in the kernel's order. Returns (rows, feats, heads)."""
+    n = len(raw)
+    criteo = t.criteo
+    r0 = t.t0 + w * t.region
+    r1 = min(r0 + t.region, n)
+    g = w * t.region // 32
+    before = t.buf[32 * g]  # the byte before the region (buf[0] is t0 - 1)
+    nl_before, x_before = int(before in _BREAKS), int(
+        before == 9 if criteo else before in _SEPS)
+    in_line, keep, cnt, heads = False, False, 0, 0
+
+    def ballot(pred):
+        return sum(1 << lane for lane in range(32) if pred(lane))
+
+    while True:
+        base = t.t0 + 32 * g
+        if base >= n or (base >= r1 and not in_line):
+            break
+        nl, x, y = t.group(raw, g)
+        starts = ((nl << 1) | nl_before) & _M32
+        if criteo:  # nonempty cell starts
+            cells = (starts | (x << 1) | x_before) & ~(x | nl) & _M32
+        else:       # token starts
+            cells = ~x & ((x << 1) | x_before) & _M32
+        row_m = label_m = feat_m = 0
+        kind = [0] * 32
+
+        def lt(lane):
+            return (1 << lane) - 1
+
+        if starts == 0:  # the group lies on the line running on into it
+            if criteo:
+                kind = [cnt + (x & lt(l)).bit_count() - has_label
+                        for l in range(32)]
+                if in_line and keep and cells:
+                    if (cnt >= has_label
+                            and cnt + x.bit_count() < 39 + has_label):
+                        feat_m = cells
+                    else:
+                        feat_m = ballot(lambda l: cells >> l & 1
+                                        and 0 <= kind[l] < 39)
+                cnt += x.bit_count()
+            else:
+                if in_line and cells:
+                    if cnt >= 3:
+                        feat_m = cells
+                    else:
+                        idx = [cnt + (cells & lt(l)).bit_count()
+                               for l in range(32)]
+                        row_m = ballot(lambda l: cells >> l & 1
+                                       and idx[l] == 2)
+                        feat_m = ballot(lambda l: cells >> l & 1
+                                        and idx[l] >= 3)
+                        heads += ballot(lambda l: cells >> l & 1
+                                        and idx[l] == 0).bit_count()
+                cnt += cells.bit_count()
+        else:
+            hi = r1 - base
+            own = starts & (_M32 if hi >= 32 else 0 if hi <= 0
+                            else (1 << hi) - 1)
+            last = _top(starts)
+            line = [_top(starts & ((2 << l) - 1)) for l in range(32)]
+            owned = [own >> p & 1 if p >= 0 else in_line for p in line]
+            if criteo:
+                keeps = ahead = 0
+                for l in _bits(starts):
+                    ev = (y | nl) & (_M32 << l) & _M32
+                    if ev:
+                        keeps |= (y >> (_ffs(ev) - 1) & 1) << l
+                    else:
+                        ahead |= 1 << l
+                ahead &= own
+                if ahead and t.kept_ahead(raw, g):
+                    keeps |= ahead
+                kp = [keeps >> p & 1 if p >= 0 else keep for p in line]
+                kind = [((x & lt(l) & ~((1 << p) - 1)).bit_count() if p >= 0
+                         else cnt + (x & lt(l)).bit_count()) - has_label
+                        for l, p in enumerate(line)]
+                row_m = ballot(lambda l: owned[l] and kp[l]
+                               and starts >> l & 1)
+                feat_m = ballot(lambda l: owned[l] and kp[l]
+                                and cells >> l & 1 and 0 <= kind[l] < 39)
+                label_m = row_m if has_label else 0
+                in_line, keep = bool(own >> last & 1), bool(keeps >> last & 1)
+                cnt = (x & ~((1 << last) - 1) & _M32).bit_count()
+            else:
+                idx = [(cells & lt(l) & ~((1 << p) - 1)).bit_count()
+                       if p >= 0 else cnt + (cells & lt(l)).bit_count()
+                       for l, p in enumerate(line)]
+                row_m = ballot(lambda l: owned[l] and cells >> l & 1
+                               and idx[l] == 2)
+                feat_m = ballot(lambda l: owned[l] and cells >> l & 1
+                                and idx[l] >= 3)
+                heads += ballot(lambda l: owned[l] and cells >> l & 1
+                                and idx[l] == 0).bit_count()
+                in_line = bool(own >> last & 1)
+                cnt = (cells & ~((1 << last) - 1) & _M32).bit_count()
+        if not criteo:
+            label_m = row_m  # adfea's row is its label token
+        if nl >> 31:
+            in_line = False
+        nl_before, x_before = nl >> 31, x >> 31
+        if emit is not None:
+            for l in _bits(row_m | feat_m):
+                row = rows + (row_m & lt(l)).bit_count()
+                feat = feats + (feat_m & lt(l)).bit_count()
+                if row_m >> l & 1:
+                    emit.append(("offset", row, feat))
+                    if not label_m >> l & 1:
+                        emit.append(("label0", row))
+                if label_m >> l & 1:
+                    emit.append(("label", base + l, row, -1))
+                elif feat_m >> l & 1:  # criteo_test's field 0 heads a row
+                    emit.append(("feat", base + l, feat, kind[l]))
+        rows += row_m.bit_count()
+        feats += feat_m.bit_count()
+        g += 1
+    return rows, feats, heads
+
+
+def formats_mirror(data, fmt: str, tile: int = 64, warps: int = 2,
+                   halo: int = 32):
+    """csrc/formats.cu's design in Python, step for step at any tiling:
+    each tile's masks and region counts and each warp's walk counting its
+    rows and features (count pass), the tiles' sums scanned into carries
+    (scan), then each warp's walk from its carry (the tile's and the
+    warps' before it) writing the rows' offsets and queueing the labels
+    and features, each converted or hashed from its cell's bytes (emit).
+    Returns the RowBlock and the kernel's stats (tokens, lines, rows,
+    feats, exact); raises ValueError where the wrapper raises, naming the
+    refused token as native.py's _refused_span does."""
     raw = data.encode() if isinstance(data, str) else bytes(data)
-    b = _alphabet(raw, "criteo")
-    n = len(b)
-    # 0. separators; their scan numbers the cells (S = separators + 1)
-    sflag = np.isin(b, list(b"\t\r\n"))
-    sep_at = np.flatnonzero(sflag)
-    # 1. each cell's end and whether it ends its line; a line starts after
-    cend = np.append(sep_at, n)
-    eol = np.append(np.isin(b[sep_at], list(b"\r\n")), True)
-    head = np.concatenate([[True], eol[:-1]])
-    lno = np.cumsum(head)
-    S = len(cend)
-    cstart = np.concatenate([[0], cend[:-1] + 1])
-    # 2. each line's first cell; a line is kept if a cell holds a non-space
-    lfirst = np.flatnonzero(head)
-    nonspace = np.concatenate([[0], np.cumsum(b != ord(" "))])
-    filled = nonspace[cend] - nonspace[cstart] > 0
-    keep = np.zeros(int(lno[-1]), bool)
-    keep[lno[filled] - 1] = True
-    rowc = np.cumsum(keep)
-    # 3. features: nonempty field cells below 39 of kept lines
-    field = np.arange(S) - lfirst[lno - 1] - int(has_label)
-    isfeat = (keep[lno - 1] & (field >= 0) & (field < 39)
-              & (cend > cstart))
-    fcum = np.cumsum(isfeat)
-    # 4. values
-    R, F = int(rowc[-1]), int(fcum[-1])
+    n = len(raw)
+    assert tile % (32 * warps) == 0 and halo % 32 == 0
+    criteo, has_label = fmt != "adfea", fmt == "criteo"
+    tiles = [_FormatsTile(raw, t0, tile, warps, halo, criteo)
+             for t0 in range(0, n, tile)]
+    errs = [t.err for t in tiles if t.err is not None]
+    if errs:
+        raise ValueError(f"{fmt} chunk: byte {min(errs)} is outside the "
+                         f"alphabet")
+    # 1. count
+    wcounts = [[_walk(t, raw, w, has_label, 0, 0, None)
+                for w in range(warps)] for t in tiles]
+    # 2. scan
+    carry, rows, feats = [], 0, 0
+    for wc in wcounts:
+        carry.append((rows, feats))
+        rows += sum(c[0] for c in wc)
+        feats += sum(c[1] for c in wc)
+    R, F = rows, feats
+    tokens = sum(t.a for t in tiles) + criteo
+    lines = (sum(t.b for t in tiles) + 1 if criteo
+             else sum(c[2] for wc in wcounts for c in wc))
+    # 3. emit
     label = np.zeros(R, np.uint32)
     offset = np.zeros(R + 1, np.int64)
     index = np.zeros(F, np.uint64)
     offset[R] = F
-    n_exact = 0
-    for k in range(S):
-        cell = raw[cstart[k]:cend[k]]
-        line = lno[k] - 1
-        if head[k] and keep[line]:
-            row = rowc[line] - 1
-            offset[row] = fcum[k] - isfeat[k]
-            if has_label:
-                conv, _, bits = parse_float(cell.strip(b" "))
-                if conv == BAD:
-                    raise ValueError(f"criteo chunk: token {cell!r}")
-                label[row] = bits
-                n_exact += conv == EXACT
-        if isfeat[k]:
-            index[fcum[k] - 1] = (cityhash_mirror(cell) >> 10) | (
-                int(field[k]) << 54)
-    return RowBlock(label=label.view(np.float32), offset=offset,
-                    index=index, value=None), n_exact
+    n_exact, bad = 0, []
+    for t, wc, (rows, feats) in zip(tiles, wcounts, carry):
+        for w in range(warps):
+            before = wc[:w]
+            ops = []
+            _walk(t, raw, w, has_label, rows + sum(c[0] for c in before),
+                  feats + sum(c[1] for c in before), ops)
+            for op in ops:
+                if op[0] == "offset":
+                    offset[op[1]] = op[2]
+                elif op[0] == "label0":
+                    label[op[1]] = 0
+                else:  # converted 32 at a time on the card
+                    _, pos, slot, kind = op
+                    cell = t.cell(raw, pos)
+                    if op[0] == "label" and criteo:
+                        conv, _, bits = parse_float(cell.strip(b" "))
+                        label[slot] = bits or 0
+                    elif op[0] == "label":
+                        conv, v, _ = parse_float(cell)
+                        label[slot] = 0x3F800000 if conv != BAD and v > 0 \
+                            else 0
+                    elif criteo:
+                        conv = FAST
+                        index[slot] = (cityhash_mirror(cell) >> 10) | (
+                            kind << 54)
+                    else:
+                        key = adfea_key_mirror(cell)
+                        conv = BAD if key is None else FAST
+                        index[slot] = key or 0
+                    if conv == BAD:
+                        bad.append(pos)
+                    n_exact += conv == EXACT
+    if bad:
+        beg = end = min(bad)
+        while end < n and raw[end] not in (b"\t\r\n" if criteo else _SEPS):
+            end += 1
+        raise ValueError(f"{fmt} chunk: token {raw[beg:end].decode()!r} at "
+                         f"byte {beg} ({len(bad)} such tokens)")
+    stats = dict(tokens=tokens, lines=lines, rows=R, feats=F, exact=n_exact)
+    return RowBlock(label=label.view(np.float32), offset=offset, index=index,
+                    value=None), stats
 
 
-def parse_adfea_mirror(data):
-    """csrc/formats.cu's adfea stages (parse_common.cuh's tokens, then
-    lines, features, values) in numpy and Python."""
-    raw = data.encode() if isinstance(data, str) else bytes(data)
-    b = _alphabet(raw, "adfea")
-    n = len(b)
-    sep = np.isin(b, list(b" \t\r\n"))
-    nl = np.isin(b, list(b"\r\n"))
-    tflag = ~sep & np.concatenate([[True], sep[:-1]]) if n else sep
-    start = np.flatnonzero(tflag)
-    T = len(start)
-    sep_at = np.append(np.flatnonzero(sep), n)
-    end = sep_at[np.searchsorted(sep_at, start)]
-    nl_upto = np.concatenate([[0], np.cumsum(nl)])
-    prev_end = np.concatenate([[0], end[:-1]])
-    head = np.ones(T, bool)
-    head[1:] = nl_upto[start[1:]] > nl_upto[prev_end[1:]]
-    lno = np.cumsum(head)
+def parse_criteo_mirror(data, has_label=True, **tiling):
+    """formats_mirror of criteo (has_label) or criteo_test: (RowBlock,
+    labels on the exact path)."""
+    blk, stats = formats_mirror(data, "criteo" if has_label else
+                                "criteo_test", **tiling)
+    return blk, stats["exact"]
 
-    def h(t):
-        return 0 <= t < T and head[t]
 
-    keep = np.zeros(int(lno[-1]) if T else 0, bool)
-    isfeat = np.zeros(T, bool)
-    for t in range(T):
-        if head[t]:
-            keep[lno[t] - 1] = t + 2 < T and not h(t + 1) and not h(t + 2)
-        isfeat[t] = t >= 3 and not (h(t) or h(t - 1) or h(t - 2))
-    rowc, fcum = np.cumsum(keep), np.cumsum(isfeat)
-    R = int(rowc[-1]) if len(rowc) else 0
-    F = int(fcum[-1]) if T else 0
-    label = np.zeros(R, np.float32)
-    offset = np.zeros(R + 1, np.int64)
-    index = np.zeros(F, np.uint64)
-    offset[R] = F
-    for t in range(T):
-        tok = raw[start[t]:end[t]]
-        if t >= 2 and h(t - 2) and not h(t - 1) and not h(t):
-            row = rowc[lno[t] - 1] - 1
-            offset[row] = fcum[t]
-            conv, v, _ = parse_float(tok)
-            if conv == BAD:
-                raise ValueError(f"adfea chunk: token {tok!r}")
-            label[row] = 1.0 if v > 0 else 0.0
-        elif isfeat[t]:
-            key = adfea_key_mirror(tok)
-            if key is None:
-                raise ValueError(f"adfea chunk: token {tok!r}")
-            index[fcum[t] - 1] = key
-    return RowBlock(label=label, offset=offset, index=index, value=None)
+def parse_adfea_mirror(data, **tiling):
+    return formats_mirror(data, "adfea", **tiling)[0]
 
 
 MIRROR = {"criteo": lambda t: parse_criteo_mirror(t, True)[0],
@@ -518,6 +762,160 @@ def test_adfea_routes_agree_on_generated_lines(text):
     want = outcome(J_PLAIN["adfea"], text)
     same_outcome(outcome(PLAIN["adfea"], text), want)
     same_outcome(outcome(MIRROR["adfea"], text), want)
+
+
+# ------------------------------------- the tiled design, at tile edges
+FORMATS = ["criteo", "criteo_test", "adfea"]
+_TILINGS = [(64, 2, 32), (128, 2, 32), (256, 4, 64)]
+
+
+def _mirror_matches(fmt, text, **tiling):
+    got, stats = formats_mirror(text, fmt, **tiling)
+    want = PLAIN[fmt](text)
+    same_block(got, want)
+    return got, stats
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("tiling", _TILINGS,
+                         ids=lambda t: "-".join(map(str, t)))
+@pytest.mark.parametrize("shift", range(0, 66))
+def test_mirror_tile_edge_corpus(fmt, tiling, shift):
+    """Every seam of the criteo or adfea tile-edge corpus across a tile
+    edge (empty, blank-only and late-kept lines, "\\r\\n", cells and
+    tokens longer than the halo, an exact-path label past it, a line
+    longer than a tile, no final line break): the plain parser's bytes at
+    the mirror's tile sizes, one exact-path label each."""
+    tile, warps, halo = tiling
+    text = tile_edge_text(fmt, tile, shift % tile)
+    _, stats = _mirror_matches(fmt, text, tile=tile, warps=warps, halo=halo)
+    assert stats["exact"] == (fmt != "criteo_test")
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("shift", [0, 1, 31, 32, 255, 256, 257])
+def test_mirror_tile_edge_corpus_at_the_card_tile(fmt, shift):
+    """The corpus at the kernels' own tiling (16,384-byte tiles of 16
+    warps, a 256-byte halo): its long line spans two tiles."""
+    text = tile_edge_text(fmt, CARD_TILE, shift)
+    _mirror_matches(fmt, text, tile=CARD_TILE, warps=CARD_WARPS,
+                    halo=CARD_HALO)
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("final_newline", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 5])
+@pytest.mark.parametrize("delta", [-1, 0, 1])
+def test_mirror_chunks_of_whole_tiles(fmt, k, delta, final_newline):
+    """Chunks of exactly k tiles and k tiles +- 1 byte."""
+    text = format_sized_text(fmt, 64 * k + delta, final_newline)
+    assert len(text) == 64 * k + delta
+    got, _ = _mirror_matches(fmt, text)
+    assert got.size == text.count("\n") + (not final_newline)
+
+
+def _case_text(case: str, fmt: str, tile: int, at: int) -> str:
+    """A text whose `case` lies at byte `at` of the second tile."""
+    lead = tile + at
+    fill = (("a b 0" + " " * (lead - 6)) if fmt == "adfea"
+            else "0\t" + "x" * (lead - 3)) + "\n"
+    label = "a b 1" if fmt == "adfea" else "1"
+    sep = " " if fmt == "adfea" else "\t"
+    body = {
+        # the line before the edge, and its cells and tokens past it
+        "line-longer-than-a-tile": label + sep + sep.join(
+            f"{k}:{k}" for k in range(3 * tile // 4)) + "\n",
+        # one cell or token past the halo (the halo is half the tile)
+        "cell-longer-than-the-halo": label + sep + "7" * tile + ":3" + sep
+        + "5:6\n",
+        "crlf-across-the-edge": label + sep + "3:4\r\n" + label + "\n",
+        "blank-only-line": "  \t  " * (tile // 4) + "\n" + label + "\n",
+        "kept-byte-in-the-next-tile": (
+            ("a b " + " " * tile + "1 2:3") if fmt == "adfea"
+            else " " * tile + "1") + "\n" + label + "\n",
+    }[case]
+    return fill + body
+
+
+@pytest.mark.parametrize("fmt", FORMATS)
+@pytest.mark.parametrize("case", ["line-longer-than-a-tile",
+                                  "cell-longer-than-the-halo",
+                                  "crlf-across-the-edge", "blank-only-line",
+                                  "kept-byte-in-the-next-tile"])
+def test_mirror_the_five_cases(fmt, case):
+    """The cases the design must hold, each placed at every byte from 8
+    before to 8 after a tile edge (64-byte tiles, a 32-byte halo)."""
+    for at in range(-8, 9):
+        text = _case_text(case, fmt, 64, at)
+        _mirror_matches(fmt, text)
+        _mirror_matches(fmt, text, tile=128, warps=4, halo=32)
+
+
+@pytest.mark.parametrize("fmt,name", sorted(FIRST_REFUSED))
+def test_mirror_names_the_first_refused_token(fmt, name):
+    """The refused label or key the card's wrapper names (its offset from
+    the kernel's stats, the token to the next separator; criteo: the
+    whole cell), for each error corpus entry."""
+    text = (CRITEO_ERRORS if fmt == "criteo" else ADFEA_ERRORS)[name]
+    beg, tok = FIRST_REFUSED[fmt, name]
+    with pytest.raises(ValueError, match=f"token {re.escape(repr(tok))} "
+                                         f"at byte {beg} "):
+        formats_mirror(text, fmt)
+    assert text.encode()[beg:beg + len(tok)] == tok.encode()
+
+
+@pytest.mark.parametrize("fmt,name", CORPUS)
+def test_mirror_stats_keep_their_meaning(fmt, name):
+    """The kernels' stats: tokens (criteo's cells, separators + 1;
+    adfea's tokens) and lines (criteo's line breaks + 1; adfea's lines
+    with a token), rows and features."""
+    text = corpus_text(fmt, name)
+    try:
+        blk, stats = formats_mirror(text, fmt)
+    except ValueError:
+        return
+    lines = text.replace("\r", "\n").split("\n")
+    if fmt == "adfea":
+        assert stats["tokens"] == len(text.split())
+        assert stats["lines"] == sum(bool(ln.split()) for ln in lines)
+    else:
+        assert stats["tokens"] == sum(ln.count("\t") + 1 for ln in lines)
+        assert stats["lines"] == len(lines)
+    assert (stats["rows"], stats["feats"]) == (blk.size, blk.nnz)
+
+
+def test_mirror_cityhash_sweep_at_the_card_tile():
+    """criteo-sweep's cells of every length to 301 bytes, some across
+    the halo's end at the card's tiling, some past a small halo."""
+    text = criteo_sweep_text()
+    want = t_parsers.parse_criteo(text, has_label=False)
+    for tiling in (dict(tile=CARD_TILE, warps=CARD_WARPS, halo=CARD_HALO),
+                   dict(tile=256, warps=2, halo=32)):
+        got, _ = parse_criteo_mirror(text, has_label=False, **tiling)
+        same_block(got, want)
+
+
+_LEAD = {"criteo": lambda k: "0\t" + "x" * k + "\n",
+         "criteo_test": lambda k: "0\t" + "x" * k + "\n",
+         "adfea": lambda k: "a b 0" + " " * k + "\n"}
+
+
+@settings(max_examples=150, deadline=None)
+@given(text=criteo_text(), has_label=st.booleans(), lead=st.integers(0, 70))
+def test_criteo_mirror_on_generated_lines_at_any_offset(text, has_label,
+                                                        lead):
+    """hypothesis lines after a kept line of `lead` more bytes, so that
+    their seams land anywhere in a 64-byte tile."""
+    fmt = "criteo" if has_label else "criteo_test"
+    text = _LEAD[fmt](lead) + text
+    same_outcome(outcome(MIRROR[fmt], text), outcome(PLAIN[fmt], text))
+
+
+@settings(max_examples=150, deadline=None)
+@given(text=adfea_text(), lead=st.integers(0, 70))
+def test_adfea_mirror_on_generated_lines_at_any_offset(text, lead):
+    text = _LEAD["adfea"](lead) + text
+    same_outcome(outcome(MIRROR["adfea"], text), outcome(PLAIN["adfea"], text))
 
 
 @pytest.mark.parametrize("dev", [None, "cpu"])

@@ -28,11 +28,12 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from test_torch_cuda import (LIBSVM_EDGE, LIBSVM_EDGE_EXACT, LIBSVM_ERRORS,
-                             same_block, sized_text, tile_edge_text)
+                             same_block, sized_text)
 from wormhole_tpu.data import parsers as j_parsers
 from wormhole_tpu_torch.data import parsers as t_parsers
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
 from wormhole_tpu_torch.data.rowblock import RowBlock
+from wormhole_tpu_torch.data.synth import tile_edge_text
 
 # ------------------------------------- csrc/parse.cu's rules, mirrored
 BAD, FAST, EXACT = 0, 1, 2
@@ -849,7 +850,7 @@ def test_mirror_tile_edge_corpus(shift, tiling):
     halo, no final line break) across a tile edge: the plain parser's
     bytes, at the mirror's tile sizes."""
     tile, warps, halo = tiling
-    text = tile_edge_text(tile, shift % tile)
+    text = tile_edge_text("libsvm", tile, shift % tile)
     got, n_exact = parse_libsvm_mirror(text, tile, warps, halo)
     same_block(got, t_parsers.parse_libsvm(text))
     assert n_exact == 1
@@ -886,7 +887,8 @@ def test_mirror_at_the_card_tile(kind):
 def test_mirror_scan_groups_tiles_in_any_runs():
     """The scan composes the tiles' maps in runs of any length (the
     composition is associative): 1, 3, 4 and 1024 threads agree."""
-    text = tile_edge_text(64, 7) + "\n" + LIBSVM_EDGE["comments-blank"]
+    text = (tile_edge_text("libsvm", 64, 7) + "\n"
+            + LIBSVM_EDGE["comments-blank"])
     want = t_parsers.parse_libsvm(text)
     for threads in (1, 3, 4, 1024):
         same_block(parse_libsvm_mirror(text, threads=threads)[0], want)

@@ -88,10 +88,6 @@ constexpr int kPre = 16;                        // bytes loaded before it
 constexpr int kGroups = (kTile + kHalo) / 32;   // groups classified
 constexpr int kQueue = 64;                      // a warp's tokens to convert
 constexpr int kScanThreads = 1024;
-// libsvm's own stats[] slot past parse_common.cuh's: the offset of the
-// first token the plain parser refuses (unsigned; ~0 = none)
-constexpr int kBadAt = kStats;
-constexpr int kLibsvmStats = kStats + 1;
 
 // the line state at a point of the chunk
 constexpr int kNoHead = 0;   // no token yet since the last line break
@@ -614,14 +610,14 @@ int wh_parse_libsvm_scratch(int64_t n, void* bytes, void* slots) {
   *static_cast<int64_t*>(bytes) =
       tiles_for(n) * ((kTileWarps + 1) * sizeof(Agg) + sizeof(unsigned int) +
                       3 * sizeof(int));
-  *static_cast<int64_t*>(slots) = kLibsvmStats;
+  *static_cast<int64_t*>(slots) = kStats;
   return 0;
 }
 
 // The parse of a chunk of n bytes (0 < n < 2^30) on the stream, three
 // launches. With tmax = (n + 1) / 2: label (f32 bits), index (uint64)
 // and value (f32 bits) hold tmax entries, offset (int64) tmax + 1; stats
-// kLibsvmStats int32s; scratch wh_parse_libsvm_scratch's bytes.
+// kStats int32s; scratch wh_parse_libsvm_scratch's bytes.
 int wh_parse_libsvm(const void* buf, int64_t n, void* label, void* offset,
                     void* index, void* value, void* stats, void* scratch,
                     void* stream) {

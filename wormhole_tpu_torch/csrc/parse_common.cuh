@@ -39,16 +39,17 @@
 
 namespace {
 
-// stats[] slots (int32) of every parse chain
+// stats[] slots (int32) of every parse kernel
 constexpr int kErr = 0;    // first byte outside the alphabet (unsigned; ~0 = none)
 constexpr int kNe1 = 1;    // libsvm: 1 if some "k:v" value != 1.0
 constexpr int kBad = 2;    // tokens the plain parser refuses
 constexpr int kTokens = 3;  // tokens (criteo: cells)
-constexpr int kLines = 4;
+constexpr int kLines = 4;   // lines with a token (criteo: line breaks + 1)
 constexpr int kRows = 5;
 constexpr int kFeats = 6;
 constexpr int kExact = 7;  // decimals converted by the exact path
-constexpr int kStats = 8;
+constexpr int kBadAt = 8;  // first refused token's offset (unsigned; ~0 = none)
+constexpr int kStats = 9;
 
 // ------------------------------------------------------------- numbers
 __constant__ double kPow10[23] = {

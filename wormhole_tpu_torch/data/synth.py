@@ -1,7 +1,9 @@
 """Synthetic workloads of the repo bench: Criteo-shaped minibatches, and
 HIGGS-shaped dense rows for the GBDT learner (synth_higgs, below); and
 text in the Criteo TSV and adfea formats (synth_criteo_tsv,
-synth_adfea_text) for the parsers.
+synth_adfea_text) for the parsers; and the tile-edge corpora of the
+card's tiled parsers (tile_edge_text), whose seams cross a tile edge at
+any shift.
 
 Rows carry 39 features (13 integer + 26 categorical, criteo_parser.h:
 55-82) drawn Zipf(1.2) within each field over per-field cardinalities
@@ -134,3 +136,74 @@ def synth_adfea_text(rng, rows: int) -> bytes:
             toks.append(str(int(fid[r, 0])))
         lines.append(" ".join(toks))
     return ("\n".join(lines) + "\n").encode()
+
+
+# The tile-edge corpora of the card's tiled parsers (csrc/parse.cu for
+# libsvm, csrc/formats.cu for criteo, criteo_test and adfea), which cut a
+# chunk into tiles (16,384 bytes on the card, smaller in the tests' Python
+# mirrors). Each piece starts `shift` bytes before a tile edge, after a
+# filler line, so that over the shifts every seam of it crosses an edge.
+# libsvm (filler: a comment line of x's): comment lines, "\r\n" and empty
+# lines, a label, "k:v" tokens, bare keys, blanks, a decimal longer than
+# the mirrors' halo, a last line with no line break.
+LIBSVM_EDGE_PIECES = ("# a comment 1:2 3:4\n", "1 3:1.5 4\r\n", "\r\n\n",
+                      "  0\t7:2.25  8 9:1e-3\n",
+                      "1 10:" + "1" * 60 + "e-58 11:1\n", "#\n",
+                      "\n\r1 13\t \n", "-1 12:0.5")
+
+
+def _criteo_edge_pieces(tile: int) -> tuple:
+    """criteo (filler: a kept line, "0\\t" and a field of x's): empty and
+    blank-only cells and lines, "\\r\\n" and empty lines, a line whose only
+    kept byte lies 70 bytes on, a cell longer than the halo, a label on
+    the exact path longer than it, a line longer than a tile (`tile` + 64
+    bytes or more) with fields past 39, no final line break."""
+    wide = -(-(tile + 64) // 42)
+    return ("1\t5\t\t3\tab12cd34\t\t9f0e1d2c\n", "0\t7\t\t x y \t\r\n",
+            "\r\n\n", "  \t \t  \n", " " * 70 + "1\n",
+            "1\t" + "c" * 300 + "\td\n",
+            "1.5" + "0" * 300 + "1\t2\n",
+            "1\t" + "\t".join(f"{k:02d}" + "w" * wide for k in range(42))
+            + "\n", "0\t1\r\n", "\t\t\n", "1\t2\t3")
+
+
+def _adfea_edge_pieces(tile: int) -> tuple:
+    """adfea (filler: a kept line, a label and blanks): short and empty
+    lines, tabs, spaces and "\\r\\n", a label 70 bytes on, a token longer
+    than the halo, a label on the exact path longer than it, a line longer
+    than a tile, a blank line, no final line break."""
+    wide = -(-(tile + 64) // 12)
+    return ("0 3 1 5:3 7:1 9\n", "1 2\n\n1\n",
+            "\t0  2\t1\t 3:4 \t5:6 \r\n", "a b " + " " * 70 + "1 5:6\n",
+            "a b 1 " + "1" * 300 + ":3 7\n",
+            "a b 1.5" + "0" * 300 + "1 2:3\n",
+            "a b 0 " + " ".join(f"{k}:{k * 97 % 1024}" for k in
+                                range(1, wide)) + "\n",
+            "x y -1 4:5 \r\n", "  \t \n", "x y 1 7:8")
+
+
+def tile_edge_text(fmt: str, tile: int, shift: int) -> str:
+    """The tile-edge corpus of `fmt` (libsvm, criteo, criteo_test or
+    adfea) at a tile size and shift."""
+    if fmt == "libsvm":
+        pieces, least = LIBSVM_EDGE_PIECES, 2
+
+        def filler(k):
+            return "#" + "x" * (k - 2) + "\n"
+    elif fmt == "adfea":
+        pieces, least = _adfea_edge_pieces(tile), 6
+
+        def filler(k):
+            return "a b 0" + " " * (k - 6) + "\n"
+    else:
+        pieces, least = _criteo_edge_pieces(tile), 3
+
+        def filler(k):
+            return "0\t" + "x" * (k - 3) + "\n"
+    out = ""
+    for piece in pieces:
+        target = (len(out) // tile + 1) * tile - shift
+        while target - len(out) < least:
+            target += tile
+        out += filler(target - len(out)) + piece
+    return out

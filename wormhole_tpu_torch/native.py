@@ -12,8 +12,8 @@ the uniques its pack takes from numpy). It is not a copy of that C++:
 - on CUDA the parse is written by hand for the card: csrc/parse.cu for
   libsvm (``parse_libsvm_kernel``: three launches over tiles of the
   chunk, no library call), csrc/formats.cu for criteo and adfea
-  (``parse_criteo_kernel``, ``parse_adfea_kernel``: kernel chains with
-  scans between them, CityHash64 on the card); each converts every
+  (``parse_criteo_kernel``, ``parse_adfea_kernel``: the same three
+  launches over tiles, CityHash64 on the card); each converts every
   token itself. The sorts and uniques are
   ``torch.sort(stable=True)`` and ``torch.unique`` on the card (the
   native core's sort.cc is host C++, not a TPU kernel).
@@ -53,8 +53,8 @@ from wormhole_tpu_torch.ops import _cuda
 
 _KEY_LIMIT = 1 << 63
 _MAX_CHUNK = 1 << 30          # bytes a parse call takes (csrc/parse.cu)
-# the parse kernels' stats[] slots; libsvm's has one more, the offset of
-# its first refused token
+# the parse kernels' stats[] slots, the last the offset of the first
+# refused token
 _ERR, _NE1, _BAD, _TOKENS, _LINES, _ROWS, _FEATS, EXACT, _BAD_AT = range(9)
 
 
@@ -67,34 +67,19 @@ def as_device(device) -> torch.device:
 @dataclasses.dataclass
 class ParsedChunk:
     """A parse's device arrays (csrc/parse.cu for libsvm, csrc/formats.cu
-    for criteo, criteo_test and adfea), sized by bounds from the byte
-    count; ``stats`` holds the counts that cut them and ``stats[EXACT]``
-    the decimals converted by the exact path; ``scratch`` holds the
-    arrays that place a refused token (libsvm: none, its stats do)."""
+    for criteo, criteo_test and adfea), views of one workspace sized by
+    bounds from the byte count; ``stats`` holds the counts that cut them,
+    ``stats[EXACT]`` the decimals converted by the exact path and
+    ``stats[_BAD_AT]`` the offset of the first refused token."""
 
     fmt: str
-    stats: torch.Tensor    # (8,) int32; libsvm (9,)
+    stats: torch.Tensor    # (9,) int32
     label: torch.Tensor    # (tmax,) f32
     offset: torch.Tensor   # (tmax + 1,) int64
     index: torch.Tensor    # (tmax,) int64, uint64 bits
     value: torch.Tensor | None  # (tmax,) f32; libsvm only
-    scratch: dict
 
 
-# Each chain's scratch, in its C entry point's order: (name, dtype, size
-# in bytes (n) or in tokens or cells (t)).
-_CRITEO_SCRATCH = (("spos", torch.int32, "n"), ("sflag", torch.uint8, "n"),
-                   ("cend", torch.int32, "t"), ("head", torch.uint8, "t"),
-                   ("lno", torch.int32, "t"),
-                   ("lfirst", torch.int32, "t"), ("keep", torch.uint8, "t"),
-                   ("rowc", torch.int32, "t"), ("isfeat", torch.uint8, "t"),
-                   ("fcum", torch.int32, "t"), ("bad", torch.uint8, "t"))
-_ADFEA_SCRATCH = (("tpos", torch.int32, "n"), ("tflag", torch.uint8, "n"),
-                  ("start", torch.int32, "t"), ("len", torch.int32, "t"),
-                  ("head", torch.uint8, "t"), ("lno", torch.int32, "t"),
-                  ("keep", torch.uint8, "t"), ("rowc", torch.int32, "t"),
-                  ("isfeat", torch.uint8, "t"), ("fcum", torch.int32, "t"),
-                  ("bad", torch.uint8, "t"))
 # what a refused token is not, by format
 _REFUSED = {
     "libsvm": "a label or value float() reads, nor a key int() reads in "
@@ -122,34 +107,6 @@ def check_chunk(buf: torch.Tensor, what: str) -> int:
     return n
 
 
-def _run_chain(buf, fmt: str, lib: str, entry: str, lead: tuple, spec,
-               tokens, stages) -> ParsedChunk:
-    """Allocate a chain's arrays for buf (`tokens(n)` entries where the
-    spec says t), then run `stages` on the current stream with no host
-    sync: a stage number launches entry(stage, *lead, buf, n, scratch...,
-    label, offset, index, stats, stream), a (src, dst) pair scans src
-    into dst (torch.cumsum)."""
-    n = check_chunk(buf, f"parse_{fmt}_kernel")
-    tmax = tokens(n)
-    dev = buf.device
-    s = {name: torch.empty(n if size == "n" else tmax, dtype=dt, device=dev)
-         for name, dt, size in spec}
-    label = torch.empty(tmax, dtype=torch.float32, device=dev)
-    offset = torch.empty(tmax + 1, dtype=torch.int64, device=dev)
-    index = torch.empty(tmax, dtype=torch.int64, device=dev)
-    stats = torch.empty(8, dtype=torch.int32, device=dev)
-    fn, st = getattr(_cuda.lib(lib), entry), _cuda.stream(buf)
-    ptrs = [buf.data_ptr(), n] + [s[name].data_ptr() for name, _, _ in
-                                  spec] + [t.data_ptr() for t in
-                                           (label, offset, index, stats)]
-    for k in stages:
-        if isinstance(k, tuple):
-            torch.cumsum(s[k[0]], 0, dtype=torch.int32, out=s[k[1]])
-        else:
-            _cuda.check(lib, fn(k, *lead, *ptrs, st), f"{entry} stage {k}")
-    return ParsedChunk(fmt, stats, label, offset, index, None, s)
-
-
 def _carve(ws: torch.Tensor, at: int, count: int, dtype) -> torch.Tensor:
     """count entries of dtype from byte `at` of a uint8 workspace."""
     return ws[at:at + count * dtype.itemsize].view(dtype)
@@ -159,63 +116,71 @@ def _align16(x: int) -> int:
     return (x + 15) & ~15
 
 
+def _parse_kernel(buf: torch.Tensor, fmt: str, lib_name: str, sizer: str,
+                  entry: str, lead: tuple = (),
+                  values: bool = False) -> ParsedChunk:
+    """One workspace for a parse kernel over buf (offset, index, label,
+    value where `values`, stats, scratch; each from a 16-byte edge), then
+    entry(*lead, buf, n, label, offset, index, [value,] stats, scratch,
+    stream) on the current stream, with no host sync."""
+    what = f"parse_{fmt.removesuffix('_test')}_kernel"
+    n = check_chunk(buf, what)
+    lib = _cuda.lib(lib_name)
+    nbytes, nslots = ctypes.c_int64(0), ctypes.c_int64(0)
+    _cuda.check(lib_name, getattr(lib, sizer)(
+        n, ctypes.addressof(nbytes), ctypes.addressof(nslots)), sizer)
+    tmax = (n + 1) // 2
+    sizes = (8 * (tmax + 1), 8 * tmax, 4 * tmax, 4 * tmax * values,
+             4 * nslots.value, nbytes.value)
+    at = [0]
+    for size in sizes:
+        at.append(at[-1] + _align16(size))
+    ws = torch.empty(at[-1], dtype=torch.uint8, device=buf.device)
+    base = ws.data_ptr()
+    ptrs = [base + at[2], base + at[0], base + at[1]] + (
+        [base + at[3]] if values else [])
+    _cuda.check(lib_name, getattr(lib, entry)(
+        *lead, buf.data_ptr(), n, *ptrs, base + at[4], base + at[5],
+        _cuda.stream(buf)), entry)
+    return ParsedChunk(fmt, _carve(ws, at[4], nslots.value, torch.int32),
+                       _carve(ws, at[2], tmax, torch.float32),
+                       _carve(ws, at[0], tmax + 1, torch.int64),
+                       _carve(ws, at[1], tmax, torch.int64),
+                       _carve(ws, at[3], tmax, torch.float32) if values
+                       else None)
+
+
 def parse_libsvm_kernel(buf: torch.Tensor) -> ParsedChunk:
     """Run csrc/parse.cu over a chunk's bytes on the card: three launches
     (a count and an emit pass over tiles of the chunk, a scan between
     them), on the current stream, with no host sync. Its arrays are views
     of one workspace. buf: (n,) uint8 CUDA tensor, 0 < n < 2^30."""
-    n = check_chunk(buf, "parse_libsvm_kernel")
-    lib = _cuda.lib("parse")
-    nbytes, nslots = ctypes.c_int64(0), ctypes.c_int64(0)
-    _cuda.check("parse", lib.wh_parse_libsvm_scratch(
-        n, ctypes.addressof(nbytes), ctypes.addressof(nslots)),
-        "wh_parse_libsvm_scratch")
-    tmax = (n + 1) // 2
-    # offset, index, label, value, stats, scratch, each from a 16-byte edge
-    sizes = (8 * (tmax + 1), 8 * tmax, 4 * tmax, 4 * tmax, 4 * nslots.value,
-             nbytes.value)
-    at = [0]
-    for size in sizes:
-        at.append(at[-1] + _align16(size))
-    ws = torch.empty(at[-1], dtype=torch.uint8, device=buf.device)
-    offset = _carve(ws, at[0], tmax + 1, torch.int64)
-    index = _carve(ws, at[1], tmax, torch.int64)
-    label = _carve(ws, at[2], tmax, torch.float32)
-    value = _carve(ws, at[3], tmax, torch.float32)
-    stats = _carve(ws, at[4], nslots.value, torch.int32)
-    base = ws.data_ptr()
-    _cuda.check("parse", lib.wh_parse_libsvm(
-        buf.data_ptr(), n, base + at[2], base + at[0], base + at[1],
-        base + at[3], base + at[4], base + at[5], _cuda.stream(buf)),
-        "wh_parse_libsvm")
+    p = _parse_kernel(buf, "libsvm", "parse", "wh_parse_libsvm_scratch",
+                      "wh_parse_libsvm", values=True)
     _cuda.count("parse_libsvm")
-    return ParsedChunk("libsvm", stats, label, offset, index, value, {})
+    return p
 
 
 def parse_criteo_kernel(buf: torch.Tensor,
                         has_label: bool = True) -> ParsedChunk:
-    """Run csrc/formats.cu's criteo chain over a chunk's bytes on the
-    card: five kernels with torch.cumsum scans between them, on the
-    current stream, with no host sync. buf: (n,) uint8 CUDA tensor,
-    0 < n < 2^30. has_label False is criteo_test."""
-    p = _run_chain(buf, "criteo" if has_label else "criteo_test", "formats",
-                   "wh_parse_criteo", (int(has_label),), _CRITEO_SCRATCH,
-                   lambda n: n + 1,
-                   (0, ("sflag", "spos"), 1, ("head", "lno"), 2,
-                    ("keep", "rowc"), 3, ("isfeat", "fcum"), 4))
+    """Run csrc/formats.cu's criteo parse over a chunk's bytes on the
+    card: three launches (a count and an emit pass over tiles of the
+    chunk, a scan between them), on the current stream, with no host
+    sync. Its arrays are views of one workspace. buf: (n,) uint8 CUDA
+    tensor, 0 < n < 2^30. has_label False is criteo_test."""
+    p = _parse_kernel(buf, "criteo" if has_label else "criteo_test",
+                      "formats", "wh_formats_scratch", "wh_parse_criteo",
+                      (int(has_label),))
     _cuda.count("parse_criteo")
     return p
 
 
 def parse_adfea_kernel(buf: torch.Tensor) -> ParsedChunk:
-    """Run csrc/formats.cu's adfea chain over a chunk's bytes on the card:
-    four kernels with torch.cumsum scans between them, on the current
-    stream, with no host sync. buf: (n,) uint8 CUDA tensor, 0 < n <
-    2^30."""
-    p = _run_chain(buf, "adfea", "formats", "wh_parse_adfea", (),
-                   _ADFEA_SCRATCH, lambda n: (n + 1) // 2,
-                   (0, ("tflag", "tpos"), 1, ("head", "lno"), 2,
-                    ("keep", "rowc"), ("isfeat", "fcum"), 3))
+    """Run csrc/formats.cu's adfea parse over a chunk's bytes on the card,
+    as parse_criteo_kernel runs criteo's. buf: (n,) uint8 CUDA tensor,
+    0 < n < 2^30."""
+    p = _parse_kernel(buf, "adfea", "formats", "wh_formats_scratch",
+                      "wh_parse_adfea")
     _cuda.count("parse_adfea")
     return p
 
@@ -230,19 +195,13 @@ def upload(raw: bytes, device) -> torch.Tensor:
 def _refused_span(p: ParsedChunk, st: np.ndarray,
                   raw: bytes) -> tuple[int, int]:
     """Byte range of the first refused token (libsvm, adfea) or cell
-    (criteo)."""
-    if p.fmt == "libsvm":
-        beg = int(st.view(np.uint32)[_BAD_AT])
-        end = beg
-        while end < len(raw) and raw[end] not in b" \t\r\n":
-            end += 1
-        return beg, end
-    s = p.scratch
-    k = int(torch.nonzero(s["bad"][:int(st[_TOKENS])])[0])
-    if p.fmt in ("criteo", "criteo_test"):
-        return (int(s["cend"][k - 1]) + 1 if k else 0), int(s["cend"][k])
-    beg = int(s["start"][k])
-    return beg, beg + int(s["len"][k])
+    (criteo): from its offset in the stats to the next separator."""
+    beg = int(st.view(np.uint32)[_BAD_AT])
+    ends = b"\t\r\n" if p.fmt in ("criteo", "criteo_test") else b" \t\r\n"
+    end = beg
+    while end < len(raw) and raw[end] not in ends:
+        end += 1
+    return beg, end
 
 
 def finish_parse(p: ParsedChunk, raw: bytes) -> RowBlock:

@@ -71,8 +71,9 @@ _SIGNATURES = {
         "wh_parse_libsvm": [_P, _I64] + [_P] * 7,
     },
     "formats": {
-        "wh_parse_criteo": [_I, _I, _P, _I64] + [_P] * 16,
-        "wh_parse_adfea": [_I, _P, _I64] + [_P] * 16,
+        "wh_formats_scratch": [_I64, _P, _P],
+        "wh_parse_criteo": [_I, _P, _I64] + [_P] * 6,
+        "wh_parse_adfea": [_P, _I64] + [_P] * 6,
     },
 }
 _ERROR_STRING = {"coo_kernels": "wh_coo_error_string",
