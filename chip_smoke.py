@@ -10,10 +10,12 @@
 
 Drives the port (wormhole_tpu_torch) through its main paths at the
 bench's full width: three minibatch learners and the two BSP batch
-learners, the linear and GBDT learners on a device mesh of four ranks,
-linear and DiFacto workers training one shared model through the
-launcher's scheduler and PS servers, and GBDT and L-BFGS workers summing
-their statistics over the launcher's BSP allreduce ring. Two run over 65,536-row minibatches of 39
+learners, the linear, DiFacto and GBDT learners and k-means and L-BFGS
+on a device mesh of four ranks, linear and DiFacto workers training one
+shared model through the launcher's scheduler and PS servers, GBDT and
+L-BFGS workers summing their statistics over the launcher's BSP
+allreduce ring, and all five learners' workers as the ranks of one
+process group (the global mesh). Two run over 65,536-row minibatches of 39
 Criteo-shaped features: linear FTRL logistic regression, and the DiFacto
 factorization machine (dim 8, w over 2^22 buckets, V over 2^20 rows,
 threshold 2; the reference's learn/difacto/guide/criteo.conf, as bench.py
@@ -143,7 +145,18 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    two data ranks; a 4x1 mesh runs GBDT at the HIGGS shape, 500,000 rows
    a rank (mesh_level_hist = level_hist + all_reduce over the data axis):
    its trees against one device's (a split may differ only at a near
-   tie), its leaves within 1e-5 of f64 sums. Each rank holds the
+   tie), its leaves within 1e-5 of f64 sums; a 2x2 mesh runs DiFacto at
+   the criteo.conf width (w 2^22, V 2^20 x 8, threshold 2; kind dmesh:
+   W1 and W2 on each rank's w cell, the V cell's sums over the axes) for
+   the same train steps, an eval and a predict against one device's
+   kernel=xla run (progress within 1e-3, tables at rtol 2e-3 / atol
+   2e-5, each model shard equal bit for bit on its two data ranks); and
+   the four ranks run k-means at the [kmeans] MNIST-784 shape (k 10, 4
+   iterations; the cost within 1e-4 of one device's from the same
+   centroids, the centroids within 1e-5 plus what two rows moved at a
+   near tie shift them: the densify's float atomics) and L-BFGS linear
+   at the agaricus shape (its first 8 iterations within rtol 1e-4 of one
+   device's) through the apps' global bodies. Each rank holds the
    wrappers against their plain twins on its cell or rows (every level
    of a round for the histogram), times its own kernel while the other
    ranks wait at a barrier, and times the all_reduce; the parent holds
@@ -233,11 +246,34 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    bench_bsp's numbers (bench.py:551-611): the wall, bsp.allreduce_s
    mean and p99, bsp.checkpoint_s mean and the bytes a checkpoint, the
    counts of collectives and checkpoints, a kill launch's recovery
-   overhead, and GBDT's ms a round. [bsp] takes ~110 s of command time,
-   the whole script ~665 s.
+   overhead, and GBDT's ms a round. [bsp] takes ~110 s of command time;
+15. the global mesh ([global], after [bsp]): `python -m
+   wormhole_tpu_torch.launcher.dmlc_tpu -n 2 -s 0 --node-timeout 30 --
+   python -m wormhole_tpu_torch.apps.APP ... global_mesh=1 device=cuda`,
+   each launch in a session of its own under a 240 s timeout, its group
+   killed after it; the two workers share the card over gloo. Linear
+   FTRL at 2^22 over the [e2e] file (65,536-row global minibatches,
+   32,768 a rank), 1 pass with a 65,536-row val file, model_out and a
+   predict to per-rank files, then a warm start from the saved model;
+   DiFacto at its width over the same file; GBDT at the HIGGS widths
+   (two 40,960-row files, a 16,384-row eval file, depth 6, 4 rounds);
+   k-means at the MNIST shape (4 iterations); L-BFGS linear at the
+   agaricus shape as two files. Each is held against one device in this
+   process on the same global batches (the ranks' blocks joined in rank
+   order): val logloss and AUC within 1e-3, linear's w at rtol 1e-4 /
+   atol 1e-6 and its predictions at rtol 1e-4 / atol 1e-5, DiFacto's
+   tables at rtol 2e-3 / atol 2e-5, GBDT's edges byte for byte and the
+   [mesh] bar on its trees, k-means and L-BFGS at [mesh]'s bars. Every
+   worker prints its kernel launches ([global-worker]): each must have
+   launched its path's kernels and parse_libsvm on cuda, and the
+   scheduler must report no CUDA context. Per launch: the wall, ms a
+   step, round or iteration, each worker's all_reduce calls and ms (gloo
+   over one card: host-staged, not a multi-GPU number), and examples/s
+   against one device.
 
-The [ps] and [bsp] workers are child processes: their launches are not
-in the kernels line's counts, and each launch checks its workers' own.
+The [ps], [bsp] and [global] workers are child processes: their
+launches are not in the kernels line's counts, and each launch checks
+its workers' own.
 The launches of parse_libsvm over the apps, the passes, the k-means run,
 the L-BFGS apps and [cache] make its launch count; parse_criteo's are
 the Criteo passes', the convert's and the one-reader check's text side,
@@ -245,7 +281,8 @@ parse_adfea's the adfea pass's; coo_spmv_t's count
 includes the k-means run's and app's and [cache]'s, and its row carries
 the k-means shape's numbers ("kmeans"); every kernel's count includes
 [cache]'s. The rows mesh_coo_spmv, mesh_coo_spmv_t and mesh_level_hist
-carry the [mesh] ranks' launches (summed, and per rank), the slowest
+carry the [mesh] ranks' launches (summed, and per rank; W1 and W2 the
+linear and DiFacto meshes'), the slowest
 rank's kernel times, the bound of the largest cell, and the all_reduce's
 ms (gloo over one card: host-staged, not a multi-GPU number).
 
@@ -258,6 +295,7 @@ package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import importlib.util
 import json
 import math
@@ -268,6 +306,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 
@@ -3491,6 +3530,8 @@ def run_turns(other: str) -> int:
 MESH_RANKS = 4       # ranks of [mesh]: a 2x2 mesh (linear), a 4x1 (GBDT)
 MESH_SEED = 3        # the linear batches', as run_learners draws them
 MESH_TIMEOUT_S = 600  # the ranks' wall; the kernels are built before
+MESH_KM_ITERS = 4    # Lloyd iterations of the 4x1 k-means run
+MESH_LBFGS_ITERS = 30  # L-BFGS iterations of the 4x1 run (as [bsp]'s)
 
 
 def mesh_linear_config(minibatch: int, num_buckets: int):
@@ -3753,10 +3794,108 @@ def mesh_rank_gbdt(device, spec: dict, workdir: str, out: dict,
     out["mesh_level_hist"] = row
 
 
+def mesh_rank_difacto(device, spec: dict, out: dict, arrays: dict) -> None:
+    """A rank of the 2x2 DiFacto mesh at the criteo.conf width (the dmesh
+    kind: W1 and W2 on its w cell, the V cell's sums over the axes): the
+    main path (train steps, one eval, one predict through the learner's
+    entry points), its launches, its host-clock ms a step, its shards."""
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.parallel.mesh import make_mesh
+
+    steps = spec["steps"]
+    mesh = make_mesh(2, 2, device=device, backend="gloo")
+    blks = [to_rowblock(s, i, v, y) for s, i, v, y, _ in mesh_batches(spec)]
+    lrn = DifactoLearner(difacto_config(
+        "pallas", spec["buckets"], spec["v_buckets"],
+        minibatch=spec["minibatch"]), mesh=mesh)
+    if lrn.prepare_batch(blks[0])[0] != "dmesh" or not lrn._mesh_kernels:
+        raise AssertionError("[mesh] the 2x2 DiFacto learner is not on the "
+                             "dmesh kind with its kernels")
+    _cuda.reset_launches()
+    progs, step_s = [], []
+    for b in blks[:steps]:
+        t = time.perf_counter()
+        progs.append(lrn.train_batch(b))
+        step_s.append(time.perf_counter() - t)
+    ev = lrn.eval_batch(blks[steps])
+    pred = lrn.predict_batch(blks[steps + 1])
+    sync(device)
+    counts = dict(_cuda.LAUNCHES)
+    for k in ("mesh_coo_spmv", "mesh_coo_spmv_t", "coo_spmv", "coo_spmv_t"):
+        if device.type == "cuda" and counts[k] == 0:
+            raise AssertionError(f"[mesh] difacto rank launched no {k}")
+    out["difacto"] = {"launches": counts, "progs": progs, "eval": ev,
+                      "ms_per_step": statistics.median(step_s[1:] or step_s)
+                      * 1e3}
+    arrays["fm_pred"] = pred
+    arrays.update({f"fm_shard_{k}": v.cpu().numpy()
+                   for k, v in lrn.ckpt_store.state.items()})
+
+
+def mesh_rank_batch(device, spec: dict, workdir: str, out: dict) -> None:
+    """The batch learners on the 4x1 group, through the apps' global
+    bodies (the route torch.distributed.run takes): k-means at the
+    [kmeans] MNIST-784 shape, L-BFGS linear at the agaricus shape; their
+    launches, output and host-clock ms."""
+    import contextlib
+    import io
+    import re
+    import types
+
+    import torch.distributed as dist
+
+    from wormhole_tpu_torch.apps import kmeans, lbfgs_linear
+    from wormhole_tpu_torch.ops import _cuda
+
+    env = types.SimpleNamespace(rank=dist.get_rank(),
+                                num_workers=dist.get_world_size())
+    runs = (("kmeans", ("coo_spmv_t", "parse_libsvm"),
+             lambda: kmeans._global_worker_body(kmeans.KmeansConfig(
+                 train_data=spec["km_path"], num_clusters=KM_K,
+                 max_iter=spec["km_iters"], minibatch=spec["km_minibatch"],
+                 nnz_per_row=KM_NNZ, num_parts_per_file=MESH_RANKS,
+                 model_out=os.path.join(workdir, "km-centroids.txt")),
+                 env, None, device)),
+            ("lbfgs", ("parse_libsvm",),
+             lambda: lbfgs_linear._global_worker_body(
+                 lbfgs_linear.LbfgsLinearConfig(
+                     data=spec["agaricus"], reg_L2=0.1,
+                     max_lbfgs_iter=spec["iters"],
+                     num_parts_per_file=MESH_RANKS), env, None, device)))
+    for name, want, run in runs:
+        text = io.StringIO()
+        _cuda.reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            run()
+        sync(device)
+        wall = time.perf_counter() - t
+        counts = dict(_cuda.LAUNCHES)
+        for k in want:
+            if device.type == "cuda" and counts[k] == 0:
+                raise AssertionError(f"[mesh] {name} rank launched no {k}")
+        got = text.getvalue()
+        rec = {"launches": counts, "wall_s": wall}
+        if name == "kmeans" and env.rank == 0:
+            rec["cost"] = float(re.search(
+                r"final cosine objective: ([0-9.]+)", got).group(1))
+            rec["iter_ms"] = json.loads(re.search(
+                r"\[kmeans-global\] iter ms: (\[.*\])", got).group(1))
+        if name == "lbfgs" and env.rank == 0:
+            rec["objv"] = [float(l.split("objv ")[1].split()[0])
+                           for l in got.splitlines()
+                           if l.startswith("lbfgs ") and "objv " in l]
+            rec["ms_per_iter"] = float(re.search(
+                r"ms_per_iter ([0-9.]+)", got).group(1))
+        out[name] = rec
+
+
 def mesh_rank(rank: int, world: int, workdir: str) -> int:
     """One rank of the [mesh] phase (chip_smoke.py --mesh-rank R W DIR):
     joins the gloo group of the ranks through a file in DIR, runs the
-    linear 2x2 and the GBDT 4x1 meshes, writes rank-R.json / .npz."""
+    linear and DiFacto 2x2 meshes, the GBDT 4x1 mesh and k-means and
+    L-BFGS on the 4 ranks, writes rank-R.json / .npz."""
     import torch
     import torch.distributed as dist
 
@@ -3769,6 +3908,11 @@ def mesh_rank(rank: int, world: int, workdir: str) -> int:
     try:
         mesh_rank_linear(device, spec, out, arrays)
         mesh_rank_gbdt(device, spec, workdir, out, arrays)
+        mesh_rank_difacto(device, spec, out, arrays)
+        # W1 and W2's launches: the linear and the DiFacto main paths'
+        for name in ("mesh_coo_spmv", "mesh_coo_spmv_t"):
+            out[name]["launches"] += out["difacto"]["launches"][name]
+        mesh_rank_batch(device, spec, workdir, out)
     finally:
         dist.destroy_process_group()
     np.savez(os.path.join(workdir, f"rank-{rank}.npz"), **arrays)
@@ -3886,19 +4030,35 @@ def mesh_nccl_check(device, spec: dict, workdir: str) -> dict:
 def run_mesh(device, higgs, data_dir: str, minibatch=MINIBATCH,
              dense_buckets=DENSE_BUCKETS, steps=TRAIN_STEPS,
              depth=GBDT_DEPTH, rounds=GBDT_ROUNDS, max_bin=GBDT_BINS,
-             timeout=MESH_TIMEOUT_S) -> dict:
+             timeout=MESH_TIMEOUT_S, v_buckets=V_BUCKETS, km_path=None,
+             km_minibatch=KM_MINIBATCH, km_iters=MESH_KM_ITERS,
+             agaricus_rows=AGARICUS_ROWS, iters=MESH_LBFGS_ITERS) -> dict:
     """[mesh]: the device mesh on the one card (see the module docstring).
     Returns the W rows of the kernels line and the ranks' launches."""
     import torch
 
+    from wormhole_tpu_torch.apps import kmeans as km_app
+    from wormhole_tpu_torch.apps import lbfgs_linear
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
     from wormhole_tpu_torch.models.linear import LinearLearner
     from wormhole_tpu_torch.ops import coo_kernels as ck
+    from wormhole_tpu_torch.parallel import multihost as mh
 
     workdir = os.path.join(data_dir, "mesh")
     os.makedirs(workdir)
+    if km_path is None:
+        km_path = os.path.join(workdir, "mnist.libsvm")
+        write_mnist(km_path, KM_FILE_BATCHES * km_minibatch)
+    aga = os.path.join(workdir, "agaricus.libsvm")
+    with open(aga, "w") as f:
+        f.write(agaricus_text(agaricus_rows, seed=81))
     spec = {"device": str(device), "minibatch": minibatch,
             "buckets": dense_buckets, "steps": steps, "depth": depth,
-            "rounds": rounds, "max_bin": max_bin}
+            "rounds": rounds, "max_bin": max_bin, "v_buckets": v_buckets,
+            "km_path": km_path, "km_minibatch": km_minibatch,
+            "km_iters": km_iters, "agaricus": aga, "iters": iters}
     with open(os.path.join(workdir, "spec.json"), "w") as f:
         json.dump(spec, f)
     edges, binned_np, y, _, _ = higgs
@@ -3944,6 +4104,15 @@ def run_mesh(device, higgs, data_dir: str, minibatch=MINIBATCH,
         one = gbdt_learner(device, "mxu", edges, binned_np.shape[1], depth,
                            rounds, max_bin)
         one_last = one.fit_prepared(train, [("train", train)], verbose=False)
+        # DiFacto on one device: kernel=xla (the dmesh kind's math), from
+        # the same seeded tables
+        fm = DifactoLearner(difacto_config("xla", dense_buckets, v_buckets,
+                                           minibatch=minibatch),
+                            device=device)
+        fm_ref = ([fm.train_batch(b) for b in blks[:steps]],
+                  fm.eval_batch(blks[steps]), fm.predict_batch(blks[steps + 1]),
+                  {k: v.clone() for k, v in fm.ckpt_store.state.items()})
+        del fm
     sync(device)
 
     t = time.perf_counter()
@@ -4043,6 +4212,82 @@ def run_mesh(device, higgs, data_dir: str, minibatch=MINIBATCH,
         f"{json.dumps(last)} vs {json.dumps(one_last['train'])}; launches a "
         f"rank {[nonzero(j['gbdt']['launches']) for j in js]}")
 
+    # difacto: every rank reports the global batch's progress; the data
+    # ranks' copies of a model shard are equal bit for bit; against one
+    # device (kernel=xla) at DiFacto's card bar
+    for r in range(1, MESH_RANKS):
+        if js[r]["difacto"]["progs"] != js[0]["difacto"]["progs"] or \
+                js[r]["difacto"]["eval"] != js[0]["difacto"]["eval"] or \
+                not np.array_equal(ar[r]["fm_pred"], ar[0]["fm_pred"]):
+            raise AssertionError(f"[mesh] difacto rank {r}'s progress "
+                                 f"differs")
+    pk, ek, yk, tk = fm_ref
+    for k in tk:
+        for m in (0, 1):
+            if ar[m][f"fm_shard_{k}"].tobytes() != \
+                    ar[m + 2][f"fm_shard_{k}"].tobytes():
+                raise AssertionError(f"[mesh] difacto table {k} shard {m}: "
+                                     f"the two data ranks' copies differ")
+    for a, b in zip(js[0]["difacto"]["progs"] + [js[0]["difacto"]["eval"]],
+                    pk + [ek]):
+        for k in ("logloss", "auc"):
+            if abs(a[k] / a["nex"] - b[k] / b["nex"]) > 1e-3:
+                raise AssertionError(f"[mesh] difacto {k}: {a} vs one "
+                                     f"device {b}")
+    np.testing.assert_allclose(ar[0]["fm_pred"], yk, rtol=1e-4, atol=1e-5)
+    fm_full = {k: torch.from_numpy(np.concatenate(
+        [ar[0][f"fm_shard_{k}"], ar[1][f"fm_shard_{k}"]])).to(device)
+        for k in tk}
+    fm_err, fm_share = tables_close("[mesh] difacto 2x2 vs one device",
+                                    fm_full, tk, 2e-3, 2e-5)
+    log(f"[mesh] difacto 2x2 (w {dense_buckets}, V {v_buckets} x {FM_DIM}, "
+        f"threshold 2, {minibatch} rows a batch) vs one device kernel=xla "
+        f"over {steps} steps, an eval and a predict: progress within 1e-3, "
+        f"tables max abs err {fm_err:.3g} ({fm_share:.3f} of rtol 2e-3 / "
+        f"atol 2e-5), each model shard equal bit for bit on its two data "
+        f"ranks; ms a step a rank "
+        f"{[round(j['difacto']['ms_per_step'], 3) for j in js]}; launches "
+        f"a rank {[nonzero(j['difacto']['launches']) for j in js]}")
+
+    # k-means and L-BFGS on the 4 ranks against one device
+    with uncounted():
+        env0 = types.SimpleNamespace(rank=0, num_workers=MESH_RANKS)
+        local = (b for f, k in mh.rank_parts(km_path, MESH_RANKS, env0)
+                 for b in MinibatchIter(f, k, MESH_RANKS,
+                                        minibatch_size=km_minibatch
+                                        // MESH_RANKS, device=device))
+        km = KmeansLearner(KmeansConfig(
+            train_data=km_path, num_clusters=KM_K, max_iter=km_iters,
+            minibatch=km_minibatch, nnz_per_row=KM_NNZ), device=device)
+        km.centroids = km._put(km_app.init_rows(local, KM_K, km.cfg.dim, 0))
+        km_cost = km.run(verbose=False)
+        lb_one, _ = drive_lbfgs_app(lbfgs_linear, [
+            f"data={aga}", "reg_L2=0.1", f"max_lbfgs_iter={iters}"], device)
+        km_rank = js[0]["kmeans"]
+        km_held = kmeans_hold("[mesh] kmeans", km_rank["cost"], np.loadtxt(
+            os.path.join(workdir, "km-centroids.txt")), km, km_cost)
+    lb_rel = bsp_objv_hold("lbfgs 4x1 vs one device", js[0]["lbfgs"]["objv"],
+                           lb_one, iters, phase="[mesh]")
+    for name, want in (("kmeans", ("coo_spmv_t", "parse_libsvm")),
+                       ("lbfgs", ("parse_libsvm",))):
+        for r, j in enumerate(js):
+            if device.type == "cuda" and not all(
+                    j[name]["launches"][k] for k in want):
+                raise AssertionError(f"[mesh] {name} rank {r} launched "
+                                     f"{nonzero(j[name]['launches'])}")
+    batch = {"kmeans": {**km_held, "iter_ms": km_rank["iter_ms"],
+                        "wall_s": [j["kmeans"]["wall_s"] for j in js]},
+             "lbfgs": {"objective": js[0]["lbfgs"]["objv"][-1],
+                       "one_device": lb_one[-1], "vs_one_rel": lb_rel,
+                       "iterations": len(js[0]["lbfgs"]["objv"]) - 1,
+                       "ms_per_iter": js[0]["lbfgs"]["ms_per_iter"],
+                       "wall_s": [j["lbfgs"]["wall_s"] for j in js]}}
+    log(f"[mesh] k-means {MESH_RANKS}x1 at the MNIST-784 shape (k {KM_K}, "
+        f"{km_minibatch} rows a global step) and L-BFGS linear "
+        f"{MESH_RANKS}x1 at the agaricus shape vs one device: "
+        f"{json.dumps(batch)}; launches a rank "
+        f"{[{n: nonzero(j[n]['launches']) for n in ('kmeans', 'lbfgs')} for j in js]}")
+
     nccl = None
     if device.type == "cuda":
         nccl = mesh_nccl_check(device, spec, workdir)
@@ -4061,7 +4306,8 @@ def run_mesh(device, higgs, data_dir: str, minibatch=MINIBATCH,
             "collective_ms": nccl["allreduce_g_ms"]}
     for name, row in rows.items():
         log(f"[mesh] {name}: {json.dumps(row)}")
-    return {"rows": rows, "linear_z_n": diffs, "gbdt_differing": differing}
+    return {"rows": rows, "linear_z_n": diffs, "gbdt_differing": differing,
+            "difacto_max_abs_err": fm_err, "batch": batch}
 
 
 # ------------------------------------------------------------- [serve]
@@ -4771,7 +5017,7 @@ BSP_KNOBS = ("WH_FAULT_SPEC", "WH_OBS_DIR", "WH_WIRE", "WH_SNAPSHOT_DIR",
 
 def bsp_launch(tag: str, app: str, args: list, device, workdir: str,
                fault: str = "", kernels=(),
-               timeout=BSP_LAUNCH_TIMEOUT_S) -> dict:
+               timeout=BSP_LAUNCH_TIMEOUT_S, mode: str = "bsp") -> dict:
     """One BSP launch as a user runs it: python -m
     wormhole_tpu_torch.launcher.dmlc_tpu -n 3 -s 0 --node-timeout 30
     --max-worker-restarts 1 -- python -m wormhole_tpu_torch.apps.APP ...
@@ -4781,18 +5027,23 @@ def bsp_launch(tag: str, app: str, args: list, device, workdir: str,
     [bsp-worker] line (on the card: having launched each of `kernels` on
     cuda), the scheduler opened no CUDA context, and a `fault` launch
     respawned its worker. Returns the output, wall, report and the
-    workers' records."""
+    workers' records. With mode="global" it is a global-mesh launch
+    instead ([global]): -n 2, no restarts, global_mesh=1, the workers'
+    [global-worker] lines, no run report."""
     import re
     import signal
 
     import torch
 
+    glob_mode = mode == "global"
+    ranks = GLOBAL_RANKS if glob_mode else BSP_RANKS
     obs = os.path.join(workdir, f"obs-{tag.replace(' ', '-')}")
     argv = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
-            "-n", str(BSP_RANKS), "-s", "0", "--node-timeout",
-            str(BSP_NODE_TIMEOUT_S), "--max-worker-restarts", "1", "--",
+            "-n", str(ranks), "-s", "0", "--node-timeout",
+            str(BSP_NODE_TIMEOUT_S),
+            *([] if glob_mode else ["--max-worker-restarts", "1"]), "--",
             sys.executable, "-m", f"wormhole_tpu_torch.apps.{app}", *args,
-            "bsp=1", f"device={device}"]
+            "global_mesh=1" if glob_mode else "bsp=1", f"device={device}"]
     full = {k: v for k, v in os.environ.items()
             if k not in PS_KNOBS + BSP_KNOBS}
     full.update(PYTHONPATH=ROOT, WH_OBS_DIR=obs)
@@ -4807,7 +5058,7 @@ def bsp_launch(tag: str, app: str, args: list, device, workdir: str,
     except subprocess.TimeoutExpired:
         os.killpg(p.pid, signal.SIGKILL)
         out, _ = p.communicate()
-        raise AssertionError(f"[bsp] {tag}: launch timed out after "
+        raise AssertionError(f"[{mode}] {tag}: launch timed out after "
                              f"{timeout}s; its group was killed\n"
                              f"{out[-3000:]}")
     finally:
@@ -4815,18 +5066,19 @@ def bsp_launch(tag: str, app: str, args: list, device, workdir: str,
             os.killpg(p.pid, signal.SIGKILL)
     wall = time.perf_counter() - t
     if p.returncode != 0:
-        raise AssertionError(f"[bsp] {tag}: launch exited {p.returncode}\n"
-                             f"{out[-4000:]}")
-    workers = [json.loads(m)
-               for m in re.findall(r"\[bsp-worker\] (\{.*\})", out)]
+        raise AssertionError(f"[{mode}] {tag}: launch exited "
+                             f"{p.returncode}\n{out[-4000:]}")
+    workers = [json.loads(m) for m in re.findall(
+        rf"\[{mode}-worker\] (\{{.*\}})", out)]
     ctx = re.findall(r"\[scheduler\] cuda context: (.+)", out)
-    if sorted(w["rank"] for w in workers) != list(range(BSP_RANKS)) or \
+    if sorted(w["rank"] for w in workers) != list(range(ranks)) or \
             len(ctx) != 1:
-        raise AssertionError(f"[bsp] {tag}: [bsp-worker] lines of ranks "
-                             f"{[w['rank'] for w in workers]}, {len(ctx)} "
-                             f"cuda-context lines\n{out[-3000:]}")
+        raise AssertionError(f"[{mode}] {tag}: [{mode}-worker] lines of "
+                             f"ranks {[w['rank'] for w in workers]}, "
+                             f"{len(ctx)} cuda-context lines\n"
+                             f"{out[-3000:]}")
     if not ctx[0].startswith("none"):
-        raise AssertionError(f"[bsp] {tag}: the scheduler opened a CUDA "
+        raise AssertionError(f"[{mode}] {tag}: the scheduler opened a CUDA "
                              f"context")
     if fault and "respawning with restore epoch 1" not in out:
         raise AssertionError(f"[bsp] {tag}: no respawn\n{out[-3000:]}")
@@ -4836,13 +5088,16 @@ def bsp_launch(tag: str, app: str, args: list, device, workdir: str,
                        if not w["kernel_launches"].get(k)]
             if missing or not w["device"].startswith("cuda"):
                 raise AssertionError(
-                    f"[bsp] {tag}: worker {w['rank']} on {w['device']} "
+                    f"[{mode}] {tag}: worker {w['rank']} on {w['device']} "
                     f"launched no {missing}")
-    with open(os.path.join(obs, "run_report.json")) as f:
-        report = json.load(f)
+    report = None
+    if not glob_mode:
+        with open(os.path.join(obs, "run_report.json")) as f:
+            report = json.load(f)
     objv = [float(x) for x in re.findall(
         r"\[worker-0\] lbfgs (?:init|iter \d+): objv ([-0-9.e+]+)", out)]
-    m = re.search(r"\[worker-0\] \[gbdt-bsp\] round ms: (\[.*\])", out)
+    m = re.search(rf"\[worker-0\] \[gbdt-{mode}\] round ms: (\[.*\])",
+                  out)
     return {"out": out, "wall_s": wall, "report": report,
             "workers": workers, "objv": objv,
             "round_ms": json.loads(m.group(1)) if m else None}
@@ -4909,17 +5164,18 @@ def bsp_trees_hold(tag: str, got, want, ds, rounds: int) -> dict:
                                  for k in got.trees)}
 
 
-def bsp_objv_hold(tag: str, got: list, want: list, iters: int) -> float:
+def bsp_objv_hold(tag: str, got: list, want: list, iters: int,
+                  phase: str = "[bsp]") -> float:
     """An L-BFGS history that never rises and stays within rtol
     BSP_LBFGS_RTOL of `want` over the first 8 iterations (the bar of
     tests/test_torch_lbfgs.py). Returns the largest relative gap."""
     n = min(9, len(want))
     if len(got) < n or any(b > a for a, b in zip(got, got[1:])):
-        raise AssertionError(f"[bsp] {tag}: objective {got}")
+        raise AssertionError(f"{phase} {tag}: objective {got}")
     rel = float(np.max(np.abs(np.subtract(got[:n], want[:n]))
                        / np.abs(want[:n])))
     if not rel <= BSP_LBFGS_RTOL:
-        raise AssertionError(f"[bsp] {tag}: objective {got[:n]} vs "
+        raise AssertionError(f"{phase} {tag}: objective {got[:n]} vs "
                              f"{want[:n]} (rtol {rel:.3g})")
     return rel
 
@@ -5044,6 +5300,330 @@ def run_bsp(device, smi: str, workdir: str, rows=BSP_GBDT_ROWS,
                                            if k.startswith(tag + " ")
                                            or k == tag}))
     return out
+
+
+# ------------------------------------------------------------- [global]
+GLOBAL_RANKS = 2          # -n of the [global] launches (one card: gloo)
+GLOBAL_KM_ITERS = 4
+GLOBAL_PASSES = 1
+LINEAR_GLOBAL_KERNELS = ("mesh_coo_spmv", "mesh_coo_spmv_t", "coo_spmv",
+                         "coo_spmv_t", "parse_libsvm")
+
+
+def global_blocks(pattern: str, nparts: int, local_rows: int, device,
+                  seed: int = 0) -> list:
+    """The global batches the [global] ranks step through: step s joins
+    each rank's s-th block (its rows of a global batch) in rank order,
+    as one RowBlock (apps/_runner.py _global_train)."""
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.data.rowblock import RowBlock
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    per = [[b for f, k in mh.rank_parts(pattern, nparts,
+                                        types.SimpleNamespace(
+                                            rank=r, num_workers=GLOBAL_RANKS))
+            for b in MinibatchIter(f, k, nparts, minibatch_size=local_rows,
+                                   seed=seed, device=device)]
+           for r in range(GLOBAL_RANKS)]
+    out = []
+    for st in range(max(len(p) for p in per)):
+        bl = [p[st] for p in per if st < len(p)]
+        offs, base = [np.zeros(1, np.int64)], 0
+        for b in bl:
+            offs.append(b.offset[1:].astype(np.int64) + base)
+            base += int(b.offset[-1])
+        out.append(RowBlock(
+            label=np.concatenate([b.label for b in bl]),
+            offset=np.concatenate(offs),
+            index=np.concatenate([b.index for b in bl]),
+            value=np.concatenate([b.values_or_ones() for b in bl]),
+            weight=None))
+    return out
+
+
+def global_one_device(lrn, train: list, val: list, passes: int) -> dict:
+    """One device stepped over the launch's global batches: each pass the
+    train batches, then the val batches; the last val pass's means and
+    the train steps' host-clock examples/s."""
+    rows, t = 0, time.perf_counter()
+    for _ in range(passes):
+        for b in train:
+            lrn.train_batch(b)
+            rows += b.size
+        tot = {}
+        for b in val:
+            for k, v in lrn.eval_batch(b).items():
+                tot[k] = tot.get(k, 0.0) + v
+    wall = time.perf_counter() - t
+    n = max(tot["nex"], 1.0)
+    return {"logloss": tot["logloss"] / n, "auc": tot["auc"] / n,
+            "examples_per_s": rows / max(wall, 1e-9)}
+
+
+def global_passes(rec: dict) -> dict:
+    """The launch's rank-0 lines: each pass's ms a step and examples/s,
+    its final val metrics, its workers' all_reduce calls and ms."""
+    import re
+
+    out = {}
+    for tag, ms, eps in re.findall(
+            r"\[global-mesh\] (train pass \d+|val pass \d+): .*?"
+            r"ms_per_step=([0-9.]+) examples_per_s=([0-9.]+)", rec["out"]):
+        out[tag] = {"ms_per_step": float(ms), "examples_per_s": float(eps)}
+    m = re.search(r"final val: logloss=([0-9.]+) auc=([0-9.]+)", rec["out"])
+    if m:
+        out["val"] = {"logloss": float(m.group(1)), "auc": float(m.group(2))}
+    out["allreduce"] = {w["rank"]: {"calls": w["allreduce_calls"],
+                                    "ms": w["allreduce_ms"]}
+                        for w in rec["workers"]}
+    out["wall_s"] = rec["wall_s"]
+    return out
+
+
+def kmeans_hold(tag: str, got_cost: float, got_centroids: np.ndarray,
+                km, km_cost: float) -> dict:
+    """A k-means run on several ranks against one device (`km`, run from
+    the same initial centroids): the cost within 1e-4; the centroids
+    within atol 1e-5 plus what two rows assigned to another cluster at a
+    near tie move them by (2 / the smallest cluster's count: the rows
+    are unit vectors). The card's densify sums a bucket's values with
+    float atomics, so two runs' sums differ in their last bits and a row
+    at a near tie may land in the other cluster."""
+    import torch
+
+    counts = torch.zeros(km.cfg.num_clusters, device=km.centroids.device)
+    for pk, mask in km._batches_packed():
+        counts += km._assign_packed(km.centroids, *pk, mask)[1]
+    floor = 2.0 / max(float(counts.min()), 1.0)
+    err = float(np.abs(got_centroids - km.centroids.cpu().numpy()).max())
+    if abs(got_cost - km_cost) > 1e-4 or err > 1e-5 + floor:
+        raise AssertionError(f"{tag}: cost {got_cost} vs one device "
+                             f"{km_cost}, centroids {err} apart (bar "
+                             f"{1e-5 + floor:.3g})")
+    return {"cost": got_cost, "one_device": km_cost,
+            "centroid_max_abs_err": err, "centroid_bar": 1e-5 + floor}
+
+
+def global_hold(tag: str, got: dict, want: dict, bar: float) -> None:
+    for k in ("logloss", "auc"):
+        if abs(got["val"][k] - want[k]) > bar:
+            raise AssertionError(f"[global] {tag} val {k} {got['val'][k]} "
+                                 f"vs one device {want[k]} (bar {bar})")
+
+
+def run_global(device, smi: str, workdir: str, e2e_file: str,
+               km_path: str, minibatch=MINIBATCH, num_buckets=DENSE_BUCKETS,
+               v_buckets=V_BUCKETS, val_rows=MINIBATCH,
+               gbdt_rows=BSP_GBDT_ROWS, gbdt_eval_rows=BSP_GBDT_EVAL_ROWS,
+               depth=GBDT_DEPTH, max_bin=GBDT_BINS, rounds=BSP_GBDT_ROUNDS,
+               km_minibatch=KM_MINIBATCH, km_iters=GLOBAL_KM_ITERS,
+               agaricus_rows=AGARICUS_ROWS, iters=BSP_LBFGS_ITERS,
+               apps=("linear", "difacto", "gbdt", "kmeans", "lbfgs")
+               ) -> dict:
+    """[global]: the five apps on the global mesh through the launcher
+    (see the module docstring). Each launch's workers run on `device`;
+    each is held against one device in this process on the same global
+    batches. `apps` picks some of the launches."""
+    import re
+
+    import torch
+
+    from wormhole_tpu_torch.apps import kmeans as km_app
+    from wormhole_tpu_torch.apps import lbfgs_linear
+    from wormhole_tpu_torch.models.difacto import DifactoLearner
+    from wormhole_tpu_torch.models.gbdt import GbdtConfig, GbdtLearner
+    from wormhole_tpu_torch.models.kmeans import KmeansConfig, KmeansLearner
+    from wormhole_tpu_torch.models.linear import LinearLearner
+    from wormhole_tpu_torch.utils import checkpoint as ckpt
+
+    d = os.path.join(workdir, "global")
+    os.makedirs(d)
+    val = os.path.join(d, "val.libsvm")
+    write_libsvm(val, num_buckets, val_rows, seed=64)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()  # the workers' contexts share the card
+    local = minibatch // GLOBAL_RANKS
+    out = {}
+    lin_cfg = mesh_linear_config(minibatch, num_buckets)
+    lin = {"train_data": e2e_file, "val_data": val,
+           "minibatch": minibatch, "num_buckets": num_buckets,
+           "nnz_per_row": NNZ_PER_ROW, "algo": "ftrl", "lr_eta": 0.1,
+           "lambda_l1": 1.0, "kernel": "pallas", "kernel_dtype": "f32",
+           "num_parts_per_file": GLOBAL_RANKS,
+           "max_data_pass": GLOBAL_PASSES}
+
+    # linear FTRL at 2^22: train + predict, then a warm start
+    if "linear" in apps:
+        conf = write_ps_conf(os.path.join(d, "linear.conf"), dict(
+            lin, model_out=os.path.join(d, "lin"),
+            predict_out=os.path.join(d, "pred")))
+        rec = bsp_launch("linear", "linear", [conf], device, d,
+                         kernels=LINEAR_GLOBAL_KERNELS, mode="global")
+        out["linear"] = global_passes(rec)
+        with uncounted():
+            train_b = global_blocks(e2e_file, GLOBAL_RANKS, local, device)
+            val_b = global_blocks(val, GLOBAL_RANKS, local, device)
+            one = LinearLearner(dataclasses.replace(lin_cfg, kernel="pallas"),
+                                device=device)
+            ref = global_one_device(one, train_b, val_b, GLOBAL_PASSES)
+            saved = ckpt.load_parts(os.path.join(d, "lin"))
+            err, share = tables_close(
+                "[global] linear vs one device",
+                {"w": torch.from_numpy(saved["w"]).to(device)},
+                {"w": one.store.state["w"]}, 1e-4, 1e-6)
+            global_hold("linear", out["linear"], ref, 1e-3)
+            pred_err = 0.0
+            for r in range(GLOBAL_RANKS):
+                f = os.path.join(d, f"pred_rank-{r}_part-0")
+                got = np.loadtxt(f, ndmin=1)
+                want = np.concatenate([one.predict_batch(b) for b in
+                                       global_blocks_rank(val, r, local, device)])
+                np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+                pred_err = max(pred_err, float(np.abs(got - want).max()))
+        out["linear"].update(one_device=ref, w_max_abs_err=err,
+                             w_share_of_bar=share, pred_max_abs_err=pred_err)
+        conf = write_ps_conf(os.path.join(d, "warm.conf"), dict(
+            lin, model_in=os.path.join(d, "lin")))
+        rec = bsp_launch("linear warm", "linear", [conf], device, d,
+                         kernels=LINEAR_GLOBAL_KERNELS, mode="global")
+        out["linear warm"] = global_passes(rec)
+        with uncounted():
+            ref2 = global_one_device(one, train_b, val_b, GLOBAL_PASSES)
+        global_hold("linear warm", out["linear warm"], ref2, 1e-3)
+        out["linear warm"]["one_device"] = ref2
+        del one, train_b
+        log(f"[global] linear: {json.dumps(out['linear'])}; warm start: "
+            f"{json.dumps(out['linear warm'])}")
+
+    # DiFacto at its width over the same file
+    if "difacto" in apps:
+        fm = dict(lin, v_buckets=v_buckets, dim=FM_DIM, threshold=2)
+        conf = write_ps_conf(os.path.join(d, "difacto.conf"), dict(
+            fm, model_out=os.path.join(d, "fm")))
+        rec = bsp_launch("difacto", "difacto", [conf], device, d,
+                         kernels=LINEAR_GLOBAL_KERNELS, mode="global")
+        out["difacto"] = global_passes(rec)
+        with uncounted():
+            train_b = global_blocks(e2e_file, GLOBAL_RANKS, local, device)
+            val_b = global_blocks(val, GLOBAL_RANKS, local, device)
+            one = DifactoLearner(difacto_config("xla", num_buckets, v_buckets,
+                                                minibatch=minibatch),
+                                 device=device)
+            ref = global_one_device(one, train_b, val_b, GLOBAL_PASSES)
+            saved = ckpt.load_parts(os.path.join(d, "fm"))
+            err, share = tables_close(
+                "[global] difacto vs one device",
+                {k: torch.from_numpy(v).to(device) for k, v in saved.items()},
+                one.ckpt_store.state, 2e-3, 2e-5)
+        global_hold("difacto", out["difacto"], ref, 1e-3)
+        out["difacto"].update(one_device=ref, tables_max_abs_err=err,
+                              tables_share_of_bar=share)
+        del one, train_b, val_b
+        log(f"[global] difacto: {json.dumps(out['difacto'])}")
+
+    # GBDT at the HIGGS widths: two files, one a rank, and an eval file
+    if "gbdt" in apps:
+        for r in range(GLOBAL_RANKS):
+            write_higgs_libsvm(os.path.join(d, f"gb-{r}.libsvm"), gbdt_rows,
+                               HIGGS_DIM, seed=95 + r)
+        write_higgs_libsvm(os.path.join(d, "gb-eval.libsvm"), gbdt_eval_rows,
+                           HIGGS_DIM, seed=97)
+        pattern = os.path.join(d, "gb-[0-9].*")
+        model = os.path.join(d, "gbdt.npz")
+        rec = bsp_launch("gbdt", "gbdt", [
+            f"train_data={pattern}",
+            f"eval_data={os.path.join(d, 'gb-eval.libsvm')}",
+            f"max_depth={depth}", f"max_bin={max_bin}", f"num_round={rounds}",
+            "num_parts_per_file=1", f"model_out={model}"], device, d,
+            kernels=("mesh_level_hist", *GBDT_KERNELS, "parse_libsvm"),
+            mode="global")
+        with uncounted():
+            one = GbdtLearner(GbdtConfig(train_data=pattern, max_depth=depth,
+                                         max_bin=max_bin, num_round=rounds),
+                              device=device)
+            train = one.load_dataset(pattern, fit_bins=True)
+            t = time.perf_counter()
+            one.fit_prepared(train, [], verbose=False)
+            one_s = time.perf_counter() - t
+            got = bsp_model(model, device)
+        if not (got.edges.dtype == one.edges.dtype
+                and np.array_equal(got.edges, one.edges)):
+            raise AssertionError("[global] gbdt: the edges differ from one "
+                                 "device's on the union of the files")
+        out["gbdt"] = {"wall_s": rec["wall_s"], "round_ms": rec["round_ms"],
+                       "one_device_round_ms": one_s * 1e3 / rounds,
+                       "allreduce": global_passes(rec)["allreduce"],
+                       "vs_one_device": bsp_trees_hold(
+                           "global gbdt vs one device", got, one, train,
+                           rounds)}
+        del one, train, got
+        log(f"[global] gbdt: {json.dumps(out['gbdt'])}")
+
+    # k-means at the MNIST shape
+    if "kmeans" in apps:
+        cents = os.path.join(d, "centroids.txt")
+        rec = bsp_launch("kmeans", "kmeans", [
+            f"data={km_path}", f"num_clusters={KM_K}", f"max_iter={km_iters}",
+            f"minibatch={km_minibatch}", f"nnz_per_row={KM_NNZ}",
+            f"num_parts_per_file={GLOBAL_RANKS}", f"model_out={cents}"],
+            device, d, kernels=("coo_spmv_t", "parse_libsvm"), mode="global")
+        cost = float(re.search(r"final cosine objective: ([0-9.]+)",
+                               rec["out"]).group(1))
+        iter_ms = json.loads(re.search(r"\[kmeans-global\] iter ms: (\[.*\])",
+                                       rec["out"]).group(1))
+        with uncounted():
+            km = KmeansLearner(KmeansConfig(
+                train_data=km_path, num_clusters=KM_K, max_iter=km_iters,
+                minibatch=km_minibatch, nnz_per_row=KM_NNZ), device=device)
+            km.centroids = km._put(km_app.init_rows(global_blocks_rank(
+                km_path, 0, km_minibatch // GLOBAL_RANKS, device), KM_K,
+                km.cfg.dim, 0))
+            t = time.perf_counter()
+            km_cost = km.run(verbose=False)
+            km_s = time.perf_counter() - t
+            held = kmeans_hold("[global] kmeans", cost, np.loadtxt(cents), km,
+                               km_cost)
+        out["kmeans"] = {"wall_s": rec["wall_s"], **held, "iter_ms": iter_ms,
+                         "one_device_iter_ms": km_s * 1e3 / km_iters,
+                         "allreduce": global_passes(rec)["allreduce"]}
+        log(f"[global] kmeans: {json.dumps(out['kmeans'])}")
+
+    # L-BFGS linear at the agaricus shape, as two files
+    if "lbfgs" in apps:
+        text = agaricus_text(agaricus_rows, seed=81).splitlines(keepends=True)
+        half = len(text) // 2
+        for r, part in enumerate((text[:half], text[half:])):
+            with open(os.path.join(d, f"aga-{r}.libsvm"), "w") as f:
+                f.writelines(part)
+        aga = os.path.join(d, "aga-.*")
+        args = [f"data={aga}", "reg_L2=0.1", f"max_lbfgs_iter={iters}"]
+        rec = bsp_launch("lbfgs", "lbfgs_linear", args, device, d,
+                         kernels=("parse_libsvm",), mode="global")
+        with uncounted():
+            single, _ = drive_lbfgs_app(lbfgs_linear, args, device)
+        ms_iter = float(re.search(r"ms_per_iter ([0-9.]+)", rec["out"]).group(1))
+        out["lbfgs"] = {"wall_s": rec["wall_s"], "iterations": len(rec["objv"])
+                        - 1, "objective": rec["objv"][-1],
+                        "one_device": single[-1], "ms_per_iter": ms_iter,
+                        "vs_one_rel": bsp_objv_hold("lbfgs vs one device",
+                                                    rec["objv"], single, iters,
+                                                    phase="[global]"),
+                        "allreduce": global_passes(rec)["allreduce"]}
+        log(f"[global] lbfgs: {json.dumps(out['lbfgs'])}")
+    out["kernel_launches"] = "checked per launch, per worker (child processes)"
+    return out
+
+
+def global_blocks_rank(pattern: str, rank: int, local_rows: int,
+                       device) -> list:
+    """Rank `rank`'s local blocks of a [global] launch, in its order."""
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    env = types.SimpleNamespace(rank=rank, num_workers=GLOBAL_RANKS)
+    return [b for f, k in mh.rank_parts(pattern, GLOBAL_RANKS, env)
+            for b in MinibatchIter(f, k, GLOBAL_RANKS,
+                                   minibatch_size=local_rows, device=device)]
 
 
 def data_phases(device, smi: str, data_dir: str, knums: dict,
@@ -5186,6 +5766,14 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
     log(f"[bsp] {smi}: " + json.dumps(bsp))
     log(f"[phase] bsp {time.perf_counter() - t:.1f}s")
 
+    # the global mesh: the five apps' workers are child processes too;
+    # each launch checks their own counts
+    t = time.perf_counter()
+    glob = run_global(device, smi, data_dir, files[DENSE_BUCKETS], km_path)
+    log(f"[global] {smi} (gloo on one card: the all_reduce is "
+        f"host-staged, not a multi-GPU number): " + json.dumps(glob))
+    log(f"[phase] global {time.perf_counter() - t:.1f}s")
+
 
 
 def main(argv=None) -> int:
@@ -5280,7 +5868,8 @@ def main(argv=None) -> int:
         # to 0 just before and read just after; a W row's launches are
         # theirs
         t = time.perf_counter()
-        mesh = run_mesh(device, higgs, data_dir)
+        mesh = run_mesh(device, higgs, data_dir,
+                        km_path=os.path.join(data_dir, "mnist.libsvm"))
         for name, row in mesh["rows"].items():
             knums[name] = dict(row, wrapper=MESH_WRAPPERS[name])
             launches[name] = row["launches"]

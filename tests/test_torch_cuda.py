@@ -1838,3 +1838,128 @@ def test_difacto_count_mirror_after_a_sparse_pull(cuda):
         c0.close()
         c1.close()
         node.stop()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.cuda
+def test_init_from_env_starts_a_one_rank_nccl_group(cuda):
+    """The global mesh's rendezvous on the card: one worker with a card
+    of its own joins an NCCL group at tcp://WH_COORD_URI, sums on the
+    card, and leaves the group at its exit barrier."""
+    import torch.distributed as dist
+
+    from wormhole_tpu_torch.parallel import multihost as mh
+    from wormhole_tpu_torch.runtime.tracker import NodeEnv
+
+    env = NodeEnv(role=None, rank=0, num_workers=1, num_servers=0,
+                  scheduler_uri="", coord_uri=f"127.0.0.1:{_free_port()}")
+    backend, dev = mh.init_from_env(env, "cuda", timeout=60)
+    try:
+        assert (backend, dist.get_backend()) == ("nccl", "nccl")
+        assert dev == torch.device("cuda", 0)
+        x = torch.arange(4.0, device=dev)
+        dist.all_reduce(x)
+        assert x.tolist() == [0.0, 1.0, 2.0, 3.0]
+        assert mh.global_scalar_sum(5) == 5 and mh.global_scalar_max(-2) == -2
+    finally:
+        mh.exit_barrier(None, 1)
+    assert not dist.is_initialized()
+
+
+@pytest.mark.cuda
+def test_global_linear_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    """dmlc_tpu -n 2 -s 0 ... global_mesh=1 device=cuda on one card: the
+    two workers share it over gloo, each launches W1 / W2 (the pull and
+    push kernels) and the parse kernel; against one device stepped over
+    the same global batches (the ranks' blocks in rank order): final val
+    logloss and AUC within 1e-3, w at rtol 1e-4 / atol 1e-6."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.data.rowblock import RowBlock
+    from wormhole_tpu_torch.data.synth import synth_criteo_batch
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.parallel import multihost as mh
+    from wormhole_tpu_torch.utils.checkpoint import load_parts
+
+    def write_libsvm(path, rows, seed):
+        rng = np.random.default_rng(seed)
+        _, idx, _, label, _ = synth_criteo_batch(rng, rows, 2 * ck.TILE)
+        keys = idx.reshape(rows, -1)
+        with open(path, "w") as f:
+            f.write("".join(f"{int(y)} " + " ".join(map(str, k)) + "\n"
+                            for y, k in zip(label, keys)))
+
+    for i in range(2):
+        write_libsvm(tmp_path / f"train-{i}.libsvm", 640, seed=i)
+    write_libsvm(tmp_path / "val.libsvm", 512, seed=9)
+    body = dict(algo="ftrl", lambda_l1=1.0, minibatch=256,
+                num_buckets=2 * ck.TILE, nnz_per_row=64, max_data_pass=2,
+                num_parts_per_file=2, kernel_dtype="f32")
+    conf = tmp_path / "gm.conf"
+    conf.write_text("".join(f"{k} = {v}\n" for k, v in dict(
+        body, train_data=f'"{tmp_path}/train-.*"',
+        val_data=f'"{tmp_path}/val.libsvm"', model_out=tmp_path / "m"
+    ).items()))
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="0")
+    p = subprocess.run(
+        [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu", "-n",
+         "2", "-s", "0", "--node-timeout", "30", "--", sys.executable, "-m",
+         "wormhole_tpu_torch.apps.linear", str(conf), "global_mesh=1",
+         "device=cuda"], capture_output=True, text=True, env=env, cwd=root,
+        timeout=300, start_new_session=True)
+    out = p.stdout + p.stderr
+    assert p.returncode == 0, out[-4000:]
+    workers = [json.loads(m) for m in re.findall(
+        r"\[global-worker\] (\{.*\})", out)]
+    assert sorted(w["rank"] for w in workers) == [0, 1], out[-3000:]
+    for w in workers:
+        assert (w["backend"], w["device"]) == ("gloo", "cuda:0"), w
+        for k in ("mesh_coo_spmv", "mesh_coo_spmv_t", "coo_spmv",
+                  "coo_spmv_t", "parse_libsvm"):
+            assert w["kernel_launches"].get(k), (k, w)
+    assert "[scheduler] cuda context: none" in out
+
+    def steps(pattern, seed):
+        per = [[b for f, k in mh.rank_parts(pattern, 2, type(
+            "E", (), {"rank": r, "num_workers": 2}))
+            for b in MinibatchIter(f, k, 2, minibatch_size=128, seed=seed,
+                                   device="cpu")] for r in range(2)]
+        for s in range(max(len(x) for x in per)):
+            bl = [x[s] for x in per if s < len(x)]
+            offs, base = [np.zeros(1, np.int64)], 0
+            for b in bl:
+                offs.append(b.offset[1:].astype(np.int64) + base)
+                base += int(b.offset[-1])
+            yield RowBlock(label=np.concatenate([b.label for b in bl]),
+                           offset=np.concatenate(offs),
+                           index=np.concatenate([b.index for b in bl]),
+                           value=np.concatenate([b.values_or_ones()
+                                                 for b in bl]),
+                           weight=None)
+
+    one = LinearLearner(LinearConfig(**body), device=cuda)
+    for dp in range(2):
+        for blk in steps(f"{tmp_path}/train-.*", dp):
+            one.train_batch(blk)
+        tot = {}
+        for blk in steps(f"{tmp_path}/val.libsvm", dp):
+            for k, v in one.eval_batch(blk).items():
+                tot[k] = tot.get(k, 0.0) + v
+    m = re.search(r"final val: logloss=([0-9.]+) auc=([0-9.]+)", out)
+    assert abs(float(m.group(1)) - tot["logloss"] / tot["nex"]) < 1e-3
+    assert abs(float(m.group(2)) - tot["auc"] / tot["nex"]) < 1e-3
+    np.testing.assert_allclose(load_parts(str(tmp_path / "m"))["w"],
+                               one.store.state["w"].cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)

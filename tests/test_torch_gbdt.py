@@ -629,12 +629,17 @@ def test_app_reads_a_conf_file(sparse_files, tmp_path, capsys):
 @pytest.mark.parametrize("key", ["global_mesh", "bsp"])
 def test_app_refuses_multi_process_modes(sparse_files, key, monkeypatch,
                                          tmp_path):
-    """global_mesh=1 waits for its slice (item 5.4); a bsp=1 worker
-    refuses what the JAX app's refuses: a warm start and task=pred."""
+    """global_mesh=1 without a launcher role runs in one process, as the
+    JAX app does (its maybe_run_global returns None without a role); a
+    bsp=1 worker refuses what the JAX app's refuses: a warm start and
+    task=pred."""
     tr, _ = sparse_files
     if key == "global_mesh":
-        with pytest.raises(NotImplementedError, match="item 5.4"):
-            t_app.main([f"train_data={tr}", f"{key}=1", "device=cpu"])
+        out = tmp_path / "gm.npz"
+        assert t_app.main([f"train_data={tr}", f"{key}=1", "device=cpu",
+                           "num_round=1", "max_depth=2",
+                           f"model_out={out}"]) == 0
+        assert out.exists()
         return
     with bsp_worker_role(monkeypatch):
         with pytest.raises(NotImplementedError, match="model_in"):

@@ -229,10 +229,20 @@ def test_app_runs_on_cpu_like_jax(tmp_path, capsys):
     np.testing.assert_allclose(outs["port"], outs["jax"], atol=1e-5)
 
 
-def test_app_global_mesh_raises(tmp_path):
+def test_app_global_mesh_raises(tmp_path, capsys):
+    """global_mesh=1 without a launcher role runs in one process, as the
+    JAX app does (it no longer raises): the same centroids as without
+    the key."""
     path, _, _ = _cluster_data(tmp_path, n=30, seed=1)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        t_app.main([f"data={path}", "global_mesh=1", "device=cpu"])
+    outs = []
+    for extra in (["global_mesh=1"], []):
+        out = tmp_path / f"c{len(outs)}.txt"
+        assert t_app.main([f"data={path}", "num_clusters=3", "max_iter=2",
+                           "minibatch=256", f"model_out={out}",
+                           "device=cpu", *extra]) == 0
+        outs.append(np.loadtxt(out))
+    assert "final cosine objective" in capsys.readouterr().out
+    np.testing.assert_array_equal(outs[0], outs[1])
 
 
 def test_config_keys_match_jax():

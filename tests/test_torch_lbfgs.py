@@ -306,5 +306,12 @@ def test_what_waits_raises(what, lin_file, tmp_path):
             t_app.main([f"data={lin_file}", "task=pred",
                         f"model_in={model}", "device=cpu"])
         return
-    with pytest.raises(NotImplementedError, match="item 5.4"):
-        t_app.main([f"data={lin_file}", "global_mesh=1", "device=cpu"])
+    # global_mesh=1 without a launcher role runs in one process, as the
+    # JAX app does: the model of the run without the key
+    models = []
+    for extra in (["global_mesh=1"], []):
+        out = str(tmp_path / f"m{len(models)}.npz")
+        assert t_app.main([f"data={lin_file}", "max_lbfgs_iter=3",
+                           f"model_out={out}", "device=cpu", *extra]) == 0
+        models.append(np.load(out)["w"])
+    np.testing.assert_array_equal(models[0], models[1])

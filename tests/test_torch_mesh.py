@@ -38,7 +38,7 @@ from wormhole_tpu.models.linear import LinearLearner as JLLearner
 from wormhole_tpu.ops import coo_kernels as jck
 from wormhole_tpu.parallel.mesh import make_mesh as j_make_mesh
 from wormhole_tpu.utils import checkpoint as j_ckpt
-from wormhole_tpu_torch.apps import difacto as t_difacto_app
+from wormhole_tpu_torch.apps import lbfgs_fm as t_lbfgs_fm_app
 from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
 from wormhole_tpu_torch.ops import coo_kernels as ck
 from wormhole_tpu_torch.parallel import collectives
@@ -352,16 +352,27 @@ def test_make_mesh_backend_rules(tmp_path):
         dist.destroy_process_group()
 
 
-def test_xla_kind_on_a_mesh_raises():
+def test_xla_kind_on_a_mesh_raises(linear_run):
+    """kernel=xla on the 2x2 mesh runs the same cells through the plain
+    twins (it no longer raises) and equals the kernel route's run on the
+    same batches (both f32: the cells' sums in another order, rtol 1e-5
+    / atol 1e-6); kernel=pallas still refuses buckets that do not split
+    into whole tiles."""
+    o = linear_run["outs"][0]
+    for k in ("w", "z", "n"):
+        np.testing.assert_allclose(o[f"xla_table_{k}"], o[f"table_{k}"],
+                                   rtol=1e-5, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(o["xla_prog_logloss"], o["prog_logloss"],
+                               rtol=1e-5)
     mesh = tmesh.Mesh(2, 2, torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LinearLearner(LinearConfig(**dict(LIN, kernel="xla")), mesh=mesh)
     with pytest.raises(ValueError, match="num_buckets % 131072"):
         LinearLearner(LinearConfig(**dict(LIN, num_buckets=ck.TILE)),
                       mesh=mesh)
 
 
 def test_apps_without_a_mesh_refuse_ranks(monkeypatch, tmp_path):
+    """lbfgs_fm takes no ranks of torch.distributed.run: the JAX app has
+    no mesh or global body."""
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="several ranks"):
-        t_difacto_app.main([f"train_data={tmp_path / 'x'}", "device=cpu"])
+    with pytest.raises(NotImplementedError, match="takes no ranks"):
+        t_lbfgs_fm_app.main([f"data={tmp_path / 'x'}", "device=cpu"])

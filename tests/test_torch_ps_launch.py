@@ -238,10 +238,17 @@ def test_other_apps_refuse_launcher_roles(data, tmp_path):
 
 
 def test_hot_plane_and_global_mesh_raise(data, tmp_path):
+    """WH_PS_PLANE=hot still raises (ROADMAP item 5.5). global_mesh=1 now
+    launches cleanly: with -s 1 the server idles and the one worker
+    trains as a group of one rank."""
     conf = _conf(tmp_path / "h.conf", LINEAR,
                  train_data=f"{data}/one.libsvm", num_parts_per_file=1)
-    for extra, env, msg in ((["global_mesh=1"], {}, "item 5.4"),
-                            ([], {"WH_PS_PLANE": "hot"}, "item 5.5")):
+    out = launch("wormhole_tpu_torch", 1, 1, "linear", conf, "device=cpu",
+                 "global_mesh=1")
+    assert "[global-mesh] rank 0 of 1: backend gloo, device cpu" in out
+    assert "[global-mesh] train pass 0" in out
+    assert "[global server 0] cuda context: none" in out
+    for extra, env, msg in (([], {"WH_PS_PLANE": "hot"}, "item 5.5"),):
         cmd = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
                "-n", "1", "-s", "1", "--", sys.executable, "-m",
                "wormhole_tpu_torch.apps.linear", str(conf), "device=cpu",

@@ -15,6 +15,9 @@ the suite. Imports only numpy, torch and the port.
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import io
 import json
 import os
 import subprocess
@@ -119,6 +122,13 @@ def job_linear(mesh, workdir: Path) -> dict:
     progs = [lrn.train_batch(blk) for blk in MinibatchIter(
         spec["path"], minibatch_size=cfg.minibatch, device="cpu")]
     out = {f"prog_{k}": np.array([p[k] for p in progs]) for k in progs[0]}
+    # kernel=xla: the same cells through the plain twins
+    xla = LinearLearner(dataclasses.replace(cfg, kernel="xla"), mesh=mesh)
+    assert xla._mesh_coo and not xla.use_pallas
+    xprogs = [xla.train_batch(blk) for blk in MinibatchIter(
+        spec["path"], minibatch_size=cfg.minibatch, device="cpu")]
+    out["xla_prog_logloss"] = np.array([p["logloss"] for p in xprogs])
+    out.update({f"xla_table_{k}": v for k, v in xla.store.to_numpy().items()})
     out.update({f"table_{k}": v for k, v in lrn.store.to_numpy().items()})
     out.update({f"shard_{k}": v.numpy().copy()
                 for k, v in lrn.store.state.items()})
@@ -167,20 +177,137 @@ def job_gbdt(mesh, workdir: Path) -> dict:
     return out
 
 
-JOBS = {"spmv": job_spmv, "linear": job_linear, "gbdt": job_gbdt}
+def job_difacto(mesh, workdir: Path) -> dict:
+    """DiFacto on this rank's cells: started from the test's tables
+    (the JAX learner's), trained on the test's batches (every rank reads
+    all of them, as the solver's mesh does); the whole tables, this
+    rank's shards, each batch's progress, an eval and a predict."""
+    from wormhole_tpu_torch import interop
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.models.difacto import DifactoConfig, \
+        DifactoLearner
+
+    spec = json.loads((workdir / "difacto.json").read_text())
+    lrn = DifactoLearner(DifactoConfig(**spec["cfg"]), mesh=mesh)
+    assert lrn._mesh_layout and not lrn._use_fm_pallas
+    interop.load_difacto_state(lrn, dict(np.load(workdir / "init.npz")))
+    mb = spec["cfg"]["minibatch"]
+    progs = []
+    for ep in range(spec["passes"]):
+        progs += [lrn.train_batch(blk) for blk in MinibatchIter(
+            spec["path"], minibatch_size=mb, seed=ep, device="cpu")]
+    out = {f"prog_{k}": np.array([p[k] for p in progs]) for k in progs[0]}
+    out.update({f"table_{k}": v
+                for k, v in lrn.ckpt_store.to_numpy().items()})
+    out.update({f"shard_{k}": v.numpy().copy()
+                for k, v in lrn.ckpt_store.state.items()})
+    blk = next(iter(MinibatchIter(spec["path"], minibatch_size=mb,
+                                  device="cpu")))
+    out["predict"] = lrn.predict_batch(blk)
+    out.update({f"eval_{k}": v for k, v in lrn.eval_batch(blk).items()})
+    out["nnz"] = lrn.nnz()
+    out["admitted"] = lrn.num_admitted()
+    # kernel=xla: the same steps with the w cell unsorted, through W1 and
+    # W2's plain twins
+    xla = DifactoLearner(DifactoConfig(**dict(spec["cfg"], kernel="xla")),
+                         mesh=mesh)
+    assert xla._mesh_layout and not xla._mesh_kernels
+    interop.load_difacto_state(xla, dict(np.load(workdir / "init.npz")))
+    for ep in range(spec["passes"]):
+        for b in MinibatchIter(spec["path"], minibatch_size=mb, seed=ep,
+                               device="cpu"):
+            xla.train_batch(b)
+    out.update({f"xla_table_{k}": v
+                for k, v in xla.ckpt_store.to_numpy().items()})
+    return out
+
+
+def job_group(mesh, workdir: Path) -> dict:
+    """The process-group apps' bodies on this rank (the route of
+    torch.distributed.run): k-means and L-BFGS linear over the group, the
+    models written by rank 0; and multihost's collectives on values made
+    from the rank."""
+    import types
+
+    import torch
+
+    from wormhole_tpu_torch.apps import kmeans, lbfgs_linear
+    from wormhole_tpu_torch.data.rowblock import RowBlock, to_device_batch
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    spec = json.loads((workdir / "group.json").read_text())
+    env = types.SimpleNamespace(rank=mesh.rank, num_workers=mesh.size)
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        km = kmeans.KmeansConfig(**spec["kmeans"])
+        kmeans._global_worker_body(km, env, None, "cpu", verbose=False)
+        lb = lbfgs_linear.LbfgsLinearConfig(**spec["lbfgs"])
+        lbfgs_linear._global_worker_body(lb, env, None, "cpu")
+    r = mesh.rank
+    blk = RowBlock(label=np.ones(3, np.float32),
+                   offset=np.array([0, 1, 3, 4]),
+                   index=np.array([5, 6, 7, 8], np.uint64),
+                   value=np.full(4, r + 1.0, np.float32), weight=None)
+    db = to_device_batch(blk, 4, 8, 16)
+    seg, idx, val, label, mask = mh.global_coo_batch(db, r, 4)
+    lrn = LinearLearner(LinearConfig(num_buckets=16, minibatch=4 * mesh.size,
+                                     kernel="xla"), mesh=mesh)
+    whole = {"w": np.arange(16, dtype=np.float32), "z": np.ones(16,
+             np.float32), "n": np.full(16, 2.0, np.float32)}
+    mh.load_replicated(lrn.store, whole)
+    try:
+        mh.load_replicated(lrn.store, {"V": np.zeros(16, np.float32)})
+        refused = 0
+    except ValueError:
+        refused = 1
+    comm = collectives.GroupComm()
+    return {
+        "printed": np.array(printed.getvalue()),
+        "sum": mh.global_scalar_sum(10 * (r + 1)),
+        "max": mh.global_scalar_max(-5 + r),
+        "seg": seg, "idx": idx, "val": val, "label": label, "mask": mask,
+        "w": mh.fetch_replicated(lrn.store.state["w"]),
+        "rows": mh.fetch_local_rows(torch.arange(8.0), 2, 5),
+        "refused": refused,
+        "comm_sum": comm.allreduce(np.array([r, 1.5], np.float32)),
+        "comm_max": comm.allreduce(np.float32(r), op="max")}
+
+
+def job_init(mesh, workdir: Path) -> dict:
+    """multihost.init_from_env joined this group at a tcp:// address; the
+    group's backend and this rank's device."""
+    import torch.distributed as dist
+
+    return {"backend": np.array(dist.get_backend()),
+            "device": np.array(str(mesh.device)),
+            "world": dist.get_world_size(), "rank": dist.get_rank()}
+
+
+JOBS = {"spmv": job_spmv, "linear": job_linear, "gbdt": job_gbdt,
+        "difacto": job_difacto, "group": job_group, "init": job_init}
 
 
 def main(argv) -> int:
     import torch.distributed as dist
 
+    from wormhole_tpu_torch.parallel import multihost as mh
     from wormhole_tpu_torch.parallel.mesh import make_mesh
+    from wormhole_tpu_torch.runtime.tracker import NodeEnv
 
     job, rank, world, workdir = argv[0], int(argv[1]), int(argv[2]), \
         Path(argv[3])
     shape = json.loads((workdir / f"{job}.mesh").read_text())
-    dist.init_process_group(
-        "gloo", init_method=f"file://{workdir / (job + '.rendezvous')}",
-        world_size=world, rank=rank)
+    if job == "init":  # the global mesh's rendezvous, as a worker joins it
+        env = NodeEnv(role=None, rank=rank, num_workers=world,
+                      num_servers=0, scheduler_uri="",
+                      coord_uri=(workdir / "coord").read_text().strip())
+        mh.init_from_env(env, "cpu", timeout=60)
+    else:
+        dist.init_process_group(
+            "gloo", init_method=f"file://{workdir / (job + '.rendezvous')}",
+            world_size=world, rank=rank)
     try:
         mesh = make_mesh(*shape, device="cpu")
         out = JOBS[job](mesh, workdir)

@@ -15,9 +15,10 @@ does:
 
 - no role: one process drives the whole solver on one device, or, under
   `torch.distributed.run` (WORLD_SIZE, RANK and LOCAL_RANK in the
-  environment), an app that runs on a mesh (linear, gbdt) is one rank:
-  it joins the process group (NCCL on `cuda:LOCAL_RANK`, gloo with
-  `device=cpu`) and builds its mesh over all the ranks;
+  environment), an app that runs on several ranks (linear, difacto, gbdt,
+  kmeans, lbfgs_linear) is one rank: it joins the process group (NCCL on
+  `cuda:LOCAL_RANK`, gloo with `device=cpu`) and builds its mesh over
+  all the ranks;
 - scheduler: the control plane (runtime/tracker.py) — per-pass workload
   rounds, merged progress rows, model load and save commands to the
   server group, the shutdown drain and the run report;
@@ -30,6 +31,16 @@ does:
   parts come from the scheduler's RemotePool and whose tables sync with
   the server group through a SyncedStore, every `max_delay` minibatches
   and at every part's end.
+
+With global_mesh=1 (`maybe_run_global`, every app) the `-n` workers join
+ONE process group instead
+(parallel/multihost.py: NCCL when each has a card of its own, gloo when
+they share one or run on the CPU) and train one model in lockstep on a
+(num_workers x 1) mesh: each feeds minibatch / num_workers rows a step
+from its stable slice of the file parts, a drained rank feeds empty
+blocks, and a pass ends when a step's all-reduced example count is 0;
+rank 0 alone prints and saves. The scheduler is liveness only, servers
+idle.
 
 The batch apps (gbdt, lbfgs_linear, lbfgs_fm) dispatch with bsp=1
 through `maybe_run_bsp` instead: the scheduler is rendezvous and
@@ -70,12 +81,13 @@ from wormhole_tpu_torch.utils import checkpoint as ckpt
 def parse_cli(cls, argv, ranks: bool = False):
     """(config, device) from `[conf] key=value ...`. Raises under a
     `torch.distributed.run` launch of several ranks unless the app runs
-    on a mesh (`ranks`); the PS launcher's roles set WH_ROLE and WH_RANK,
+    on several ranks (`ranks`; lbfgs_fm does not, as the JAX app has no
+    mesh or global body); the PS launcher's roles set WH_ROLE and WH_RANK,
     not WORLD_SIZE, and pass."""
     if not ranks and int(os.environ.get("WORLD_SIZE", "1")) > 1:
         raise NotImplementedError(
-            f"{cls.__name__} runs on one device; several ranks wait for its "
-            f"multi-GPU slice (ROADMAP.md Queue A)")
+            f"{cls.__name__} runs in one process (or as a launcher role); "
+            f"it takes no ranks of torch.distributed.run")
     conf = None
     rest = list(argv)
     if rest and "=" not in rest[0]:
@@ -145,9 +157,10 @@ def run_minibatch_app(cfg, make_learner, device="cuda",
 
         return run_serve_role(cfg, env)
     if getattr(cfg, "global_mesh", False):
-        raise NotImplementedError(
-            "global_mesh=1 (one mesh over every worker's devices) is not "
-            "ported: ROADMAP.md Queue A item 5.4")
+        # one process group over every worker (parallel/multihost.py)
+        return maybe_run_global(
+            cfg, lambda cfg, env, client, dev: _global_train(
+                cfg, env, make_learner, dev, verbose, client), device)
     # every role checks the plane, so a launch that asks for one the
     # port lacks fails at once, not at the scheduler's liveness timeout
     _pick_plane(env)
@@ -156,6 +169,228 @@ def run_minibatch_app(cfg, make_learner, device="cuda",
     if env.role.value == "server":
         return _run_server(cfg, env)
     return _run_worker(cfg, env, make_learner, device, verbose)
+
+
+def maybe_run_global(cfg, worker_body, device="cuda"):
+    """Role dispatch of global_mesh=1 under the launcher: returns what
+    the role returned when this process has a launcher role, else None
+    (the caller runs its single-process path, as the JAX app does). Each
+    worker joins the group inside multihost.worker_session and is called
+    as worker_body(cfg, env, client, device); the scheduler runs liveness
+    only and servers idle (no PS data plane: the collectives carry the
+    model), both before any tensor exists."""
+    if not getattr(cfg, "global_mesh", False):
+        return None
+    env = node_env()
+    if env.role is None:
+        return None
+    if env.role.value == "scheduler":
+        _run_scheduler_global(env)
+        return 0
+    if env.role.value == "server":
+        print(f"[global server {env.rank}] cuda context: "
+              f"{_cuda_context()}", flush=True)
+        return 0
+    return _run_worker_global(env, device, lambda client, dev: worker_body(
+        cfg, env, client, dev))
+
+
+def _run_worker_global(env, device, body):
+    """A global-mesh worker: `body(client, device)` inside the worker
+    session (register, pings, the group; torn down on every exit path),
+    then at a clean exit one `[global-worker]` line: rank, device,
+    backend, this process's kernel launches and its all_reduce calls and
+    host-clock ms (parallel/collectives.py STATS)."""
+    import torch.distributed as dist
+
+    from wormhole_tpu_torch.parallel import collectives
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    with mh.worker_session(env, device) as (client, dev):
+        backend = dist.get_backend()
+        out = body(client, dev)
+    kc = sys.modules.get("wormhole_tpu_torch.ops._cuda")
+    print("[global-worker] " + json.dumps({
+        "rank": env.rank, "device": str(dev), "backend": backend,
+        "kernel_launches": ({k: v for k, v in kc.LAUNCHES.items() if v}
+                            if kc is not None else {}),
+        "allreduce_calls": collectives.STATS["allreduce_calls"],
+        "allreduce_ms": round(collectives.STATS["allreduce_s"] * 1e3, 3)}),
+        flush=True)
+    return out
+
+
+def _run_scheduler_global(env) -> dict:
+    """Global-mesh scheduler: liveness only (the workers synchronise each
+    other through their collectives), so the launcher stays informed and
+    worker deaths are reported. Returns once all `-n` workers registered
+    and left (a fast worker's bye must not end it while a peer has yet to
+    register); raises when none registers within the start-up deadline
+    (the group's rendezvous likely failed). Opens no CUDA context."""
+    sched = Scheduler.from_env(env)
+    sched.serve()
+    startup_deadline = time.monotonic() + max(60.0, sched.node_timeout * 4)
+    try:
+        while True:
+            time.sleep(0.2)
+            if sched.workers_drained(env.num_workers):
+                break
+            # a respawned scheduler (journal replay) already saw workers
+            # in a previous incarnation
+            seen_any = sched.incarnation > 0 or sched.workers_ever_seen()
+            if not seen_any and time.monotonic() > startup_deadline:
+                raise RuntimeError(
+                    "no worker registered within the startup deadline — "
+                    "the process group's rendezvous likely failed")
+        print(f"[scheduler] cuda context: {_cuda_context()}", flush=True)
+        return {}
+    finally:
+        sched.stop()
+
+
+def _global_train(cfg, env, make_learner, device, verbose, client) -> dict:
+    """Lockstep training on the global mesh (the JAX package's
+    _global_train): each rank feeds minibatch / num_workers rows a step
+    from its stable slice of the file parts (`rank_parts`), a drained
+    rank feeds `empty_rowblock()`, and a pass ends only when a step's
+    all-reduced example count is 0, a decision the same on every rank.
+    Every rank draws the same random stream (each learner's generators
+    are seeded alike and drawn once a step). Rank 0 alone prints and
+    writes model_out (a single file: the tables are whole on every rank);
+    predict_out gets `{predict_out}_rank-R_part-J` files."""
+    import torch.distributed as dist
+
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.parallel import multihost as mh
+    from wormhole_tpu_torch.parallel.mesh import make_mesh
+
+    nproc, rank = env.num_workers, env.rank
+    if cfg.minibatch % nproc:
+        raise ValueError(f"minibatch {cfg.minibatch} must divide over "
+                         f"{nproc} workers")
+    local_rows = cfg.minibatch // nproc
+    mesh = make_mesh(nproc, 1, device=device, backend=dist.get_backend())
+    learner = make_learner(cfg, device, mesh=mesh)
+    train_fn, eval_fn = learner.global_step_protocol()
+    empty = mh.empty_rowblock()
+
+    def run_pass(pattern, train: bool, seed: int):
+        prog_tot: dict = {}
+        steps, t0 = 0, time.perf_counter()
+
+        def batches():
+            for f, k in mh.rank_parts(pattern, cfg.num_parts_per_file, env):
+                yield from MinibatchIter(
+                    f, k, cfg.num_parts_per_file, cfg.data_format,
+                    minibatch_size=local_rows,
+                    shuf_buf=(cfg.rand_shuffle * local_rows if train else 0),
+                    neg_sampling=(cfg.neg_sampling if train else 1.0),
+                    seed=seed, device=learner.device)
+
+        it = batches()
+        while True:
+            blk = next(it, None)
+            blk = blk if blk is not None else empty
+            prog = train_fn(blk) if train else eval_fn(blk)
+            # nex is the global batch's (gathered over the ranks): zero
+            # means every rank drained, the same decision on every rank
+            if prog["nex"] == 0:
+                break
+            steps += 1
+            for k, v in prog.items():
+                prog_tot[k] = prog_tot.get(k, 0.0) + v
+        wall = time.perf_counter() - t0
+        prog_tot["steps"], prog_tot["wall_s"] = steps, wall
+        return prog_tot
+
+    def line(tag, p):
+        n = max(p.get("nex", 0.0), 1.0)
+        return (f"[global-mesh] {tag}: nex={int(p.get('nex', 0.0))} "
+                f"logloss={p.get('logloss', 0.0) / n:.6f} steps="
+                f"{p['steps']} ms_per_step="
+                f"{p['wall_s'] * 1e3 / max(p['steps'], 1):.3f} examples_per_s="
+                f"{p.get('nex', 0.0) / max(p['wall_s'], 1e-9):.1f}")
+
+    result = {}
+    if cfg.model_in:
+        mh.load_replicated(_store(learner), ckpt.load_parts(
+            cfg.model_in, cfg.load_iter if cfg.load_iter >= 0 else None))
+    for dp in range(cfg.max_data_pass):
+        result["train"] = tr = run_pass(cfg.train_data, True, dp)
+        if rank == 0 and verbose:
+            print(line(f"train pass {dp}", tr), flush=True)
+        if cfg.val_data:
+            result["val"] = vl = run_pass(cfg.val_data, False, dp)
+            if rank == 0 and verbose:
+                print(line(f"val pass {dp}", vl), flush=True)
+    if "val" in result and rank == 0 and verbose:
+        vl = result["val"]
+        n = max(vl.get("nex", 0.0), 1.0)
+        print(f"final val: logloss={vl.get('logloss', 0.0) / n:.6f} "
+              f"auc={vl.get('auc', 0.0) / n:.6f} "
+              f"acc={vl.get('acc', 0.0) / n:.6f}", flush=True)
+    if cfg.model_out:
+        # every rank takes part (the save's barriers); rank 0 writes
+        ckpt.save_model(_store(learner), cfg.model_out)
+        if rank == 0 and verbose:
+            print(f"model saved: {cfg.model_out}", flush=True)
+    if getattr(cfg, "predict_out", None):
+        _global_predict(cfg, env, learner, empty, verbose)
+    return result
+
+
+def _global_predict(cfg, env, learner, empty, verbose) -> None:
+    """Lockstep predict on the global mesh (PredictStream parity,
+    iter_solver.h:140-156, and the reference's per-part output files):
+    each rank streams its stable part slice through the collective
+    forward, a drained rank feeding empty blocks until the global live-row
+    count is 0, and writes the margins of its own rows to
+    `{predict_out}_rank-R_part-J` (the PS mode's per-rank naming)."""
+    import numpy as np
+
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    rank = env.rank
+    local_rows = cfg.minibatch // env.num_workers
+    pred_fn = learner.global_predict_protocol()
+    parts = mh.rank_parts(cfg.val_data or cfg.train_data,
+                          cfg.num_parts_per_file, env)
+    os.makedirs(os.path.dirname(cfg.predict_out) or ".", exist_ok=True)
+    prob = bool(getattr(cfg, "prob_predict", False))
+
+    def path(j):
+        return f"{cfg.predict_out}_rank-{rank}_part-{j}"
+
+    for j in range(len(parts)):  # zero-row parts still get their file
+        open(path(j), "w").close()
+
+    def blocks():
+        for j, (f, k) in enumerate(parts):
+            for blk in MinibatchIter(f, k, cfg.num_parts_per_file,
+                                     cfg.data_format,
+                                     minibatch_size=local_rows,
+                                     device=learner.device):
+                yield j, blk
+
+    it = blocks()
+    while True:
+        got = next(it, None)
+        blk = got[1] if got is not None else empty
+        margins, nex = pred_fn(blk)
+        if nex == 0:
+            break  # every rank drained (a collective fact)
+        if got is None or blk.size == 0:
+            continue
+        local = mh.fetch_local_rows(margins, rank * local_rows,
+                                    rank * local_rows + blk.size)
+        if prob:
+            local = 1.0 / (1.0 + np.exp(-local))
+        with open(path(got[0]), "a") as fh:
+            for m in local:
+                fh.write(f"{m:.6g}\n")
+    if verbose and rank == 0:
+        print(f"predict written: {cfg.predict_out}_rank-*", flush=True)
 
 
 def maybe_run_bsp(cfg, worker_body, device="cuda"):

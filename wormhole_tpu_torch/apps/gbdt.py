@@ -1,9 +1,13 @@
 """xgboost.dmlc: histogram GBDT (the reference builds the xgboost CLI over
 rabit; conf surface of mushroom.hadoop.conf), on one device; under
-torch.distributed.run with the rows sharded over the launch's ranks; or,
+torch.distributed.run with the rows sharded over the launch's ranks;
 with bsp=1 under the launcher, one rank a worker process whose level
 histograms sum over the BSP allreduce ring (runtime/allreduce.py), a
-killed worker respawned and replaying what it missed.
+killed worker respawned and replaying what it missed; or with
+global_mesh=1 under the launcher, the workers the ranks of one process
+group, each holding its own rows, the level histograms summed by
+mesh_level_hist over the group. global_mesh=1 without a launcher role
+runs in one process, as the JAX app does.
 
   python -m wormhole_tpu_torch.apps.gbdt mushroom.conf num_round=10 device=cuda
   python -m torch.distributed.run --nproc-per-node 4 \
@@ -11,6 +15,8 @@ killed worker respawned and replaying what it missed.
   python -m wormhole_tpu_torch.launcher.dmlc_tpu -n 3 -s 0 \
       --max-worker-restarts 1 -- \
       python -m wormhole_tpu_torch.apps.gbdt mushroom.conf bsp=1
+  python -m wormhole_tpu_torch.launcher.dmlc_tpu -n 2 -s 0 -- \
+      python -m wormhole_tpu_torch.apps.gbdt mushroom.conf global_mesh=1
 """
 
 from __future__ import annotations
@@ -19,8 +25,10 @@ import sys
 import time
 
 import numpy as np
+import torch
 
-from wormhole_tpu_torch.apps._runner import (maybe_run_bsp, parse_cli,
+from wormhole_tpu_torch.apps._runner import (maybe_run_bsp,
+                                              maybe_run_global, parse_cli,
                                               ranks_of_launch, refuse_roles)
 from wormhole_tpu_torch.models.gbdt import GbdtConfig, GbdtLearner
 from wormhole_tpu_torch.parallel.mesh import make_mesh
@@ -164,18 +172,128 @@ def _bsp_worker_body(cfg, env, client, comm, device) -> int:
     return 0
 
 
+def _global_worker_body(cfg, env, client, device) -> int:
+    """GBDT on the global mesh (the JAX package's global body; the
+    reference runs the xgboost CLI over rabit with dsplit=row,
+    mushroom.hadoop.conf:36): each rank keeps its own rows, padded to the
+    largest rank's count with rows of mask 0, on a (num_workers x 1)
+    mesh; the level histograms sum over the group (mesh_level_hist, the
+    last level's totals in fixed point), and every rank grows the same
+    trees in lockstep. The quantile edges come from one reservoir a rank
+    (_SKETCH_ROWS // num_workers rows) merged by rank 0 through the
+    scheduler's blobs; with every row of each rank in its reservoir they
+    are one device's on the union of the files."""
+    import torch.distributed as dist
+
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.models.gbdt import (_SKETCH_ROWS, BinnedDataset,
+                                                Reservoir, _densify,
+                                                _densify_sample, bin_matrix,
+                                                quantile_edges)
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    if cfg.model_in:
+        raise NotImplementedError(
+            "model_in warm start is not supported in global_mesh mode (nor "
+            "in the JAX package's); warm-start single-process")
+    if cfg.task != "train":
+        raise ValueError(f"global_mesh=1 runs task=train, not {cfg.task!r}")
+    rank, nproc = env.rank, env.num_workers
+    lrn = GbdtLearner(cfg, mesh=make_mesh(nproc, 1, device=device,
+                                          backend=dist.get_backend()))
+
+    def my_blocks(pattern):
+        for f, k in mh.rank_parts(pattern, cfg.num_parts_per_file, env):
+            yield from MinibatchIter(f, k, cfg.num_parts_per_file,
+                                     cfg.data_format,
+                                     minibatch_size=cfg.minibatch,
+                                     device=lrn.device)
+
+    res = Reservoir(_SKETCH_ROWS // max(nproc, 1), cfg.seed + rank)
+    for blk in my_blocks(cfg.train_data):
+        res.add_block(blk)
+    if cfg.dim == 0:
+        cfg.dim = max(mh.global_scalar_max(res.max_feat) + 1, 1)
+    sidx = (np.concatenate([r[0] for r in res.sample])
+            if res.sample else np.zeros(0, np.uint64))
+    sval = (np.concatenate([r[1] for r in res.sample])
+            if res.sample else np.zeros(0, np.float32))
+    soff = np.zeros(len(res.sample) + 1, np.int64)
+    np.cumsum([len(r[0]) for r in res.sample], out=soff[1:])
+    client.blob_put(f"gbdt_sketch_{rank}", {
+        "idx": sidx.astype(np.uint64), "val": sval, "off": soff})
+    if rank == 0:
+        rows = []
+        for r in range(nproc):
+            p = client.blob_get(f"gbdt_sketch_{r}", timeout=120)
+            rows.extend((p["idx"][lo:hi], p["val"][lo:hi])
+                        for lo, hi in zip(p["off"], p["off"][1:]))
+        client.blob_put("gbdt_edges", quantile_edges(
+            _densify_sample(rows, cfg.dim), cfg.max_bin))
+        for r in range(nproc):
+            client.call(op="blob_del", key=f"gbdt_sketch_{r}")
+    lrn.edges = client.blob_get("gbdt_edges", timeout=120)
+
+    def load_global(pattern) -> BinnedDataset:
+        """This rank's rows binned on its device, padded to the largest
+        rank's row count (every rank then gathers the same shapes)."""
+        chunks, labels = [], []
+        for blk in my_blocks(pattern):
+            chunks.append(bin_matrix(_densify(blk, cfg.dim), lrn.edges))
+            labels.append(blk.label.astype(np.float32))
+        n = sum(c.shape[0] for c in chunks)
+        n_pad = max(mh.global_scalar_max(n), 1)
+        binned = np.zeros((n_pad, cfg.dim), np.uint8)
+        label = np.zeros(n_pad, np.float32)
+        mask = np.zeros(n_pad, np.float32)
+        if n:
+            binned[:n] = np.concatenate(chunks)
+            label[:n] = np.concatenate(labels)
+            mask[:n] = 1.0
+        ds = lrn._dataset(binned, label, shard=False)
+        ds.mask.copy_(torch.from_numpy(mask))
+        ds.num_real = mh.global_scalar_sum(n)
+        ds.sharded = True
+        return ds
+
+    train = load_global(cfg.train_data)
+    evals = []
+    if cfg.eval_data:
+        evals.append((cfg.eval_name, load_global(cfg.eval_data)))
+    if cfg.eval_train:
+        evals.append(("train", train))
+    round_ms, t_round = [], [time.perf_counter()]
+
+    def on_round(r):
+        now = time.perf_counter()
+        round_ms.append(round((now - t_round[0]) * 1e3, 3))
+        t_round[0] = now
+
+    # fit_prepared saves model_out on rank 0 alone (a mesh's save)
+    last = lrn.fit_prepared(train, evals, verbose=(rank == 0),
+                            on_round=on_round)
+    if rank == 0:
+        for name, m in last.items():
+            print("final " + name + ": "
+                  + " ".join(f"{k}={v:.6f}" for k, v in m.items()),
+                  flush=True)
+        if cfg.model_out:
+            print(f"saved model to {cfg.model_out}", flush=True)
+        # host-clock ms of each round, its collectives included
+        print(f"[gbdt-global] round ms: {round_ms}", flush=True)
+    return 0
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     cfg, device = parse_cli(GbdtConfig, argv, ranks=True)
     rc = maybe_run_bsp(cfg, _bsp_worker_body, device)
+    if rc is None:
+        rc = maybe_run_global(cfg, _global_worker_body, device)
     if rc is not None:
         return rc
-    if cfg.global_mesh:
-        raise NotImplementedError(
-            "global_mesh=1 (one mesh over several hosts) waits for the "
-            "port's multi-host slice, ROADMAP.md Queue A item 5.4; launch "
-            "the ranks of one host with torch.distributed.run")
-    refuse_roles("gbdt", "run with bsp=1, or without the launcher")
+    refuse_roles("gbdt", "run with bsp=1, or without the launcher "
+                 "(global_mesh=1 runs under it too)")
     with ranks_of_launch(device) as device:
         return _run(cfg, GbdtLearner(cfg, mesh=make_mesh(device=device)))
 

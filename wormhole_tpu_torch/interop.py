@@ -92,11 +92,14 @@ def difacto_state_from_numpy(arrays: dict, cfg: difacto.DifactoConfig,
 
 
 def load_difacto_state(learner, arrays: dict) -> None:
-    """Copy the JAX DifactoLearner's tables into a port DifactoLearner's,
-    in place, after the same checks, and resync its count mirror."""
+    """Copy the JAX DifactoLearner's tables into a port DifactoLearner's
+    (on a mesh, this rank's shard of each), in place, after the same
+    checks, and resync its count mirror."""
     state = difacto_state_from_numpy(arrays, learner.cfg, learner.device)
     for name, t in state.items():
-        learner.ckpt_store.state[name].copy_(t)
+        sub = learner.store if name in learner.store.state else \
+            learner.vstore
+        sub.state[name].copy_(t[sub.lo:sub.hi])
     learner.refresh_count_mirror()
 
 

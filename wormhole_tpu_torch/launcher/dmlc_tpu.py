@@ -23,8 +23,9 @@ Mapping the reference's launch dimensions onto the port:
 - several hosts: `--hosts a,b,c` runs the scheduler locally and spawns
   the role processes across the hosts round-robin through `--ssh-cmd`
   (plain ssh by default). This came with the copy and is untested here.
-  `--coord-port` / WH_COORD_URI feed only the global mesh, which the
-  port does not have yet (ROADMAP.md Queue A item 5.4).
+  `--coord-port` / WH_COORD_URI feed only the global mesh
+  (global_mesh=1): the workers' process group meets there
+  (parallel/multihost.py).
 
 Usage:
   python -m wormhole_tpu_torch.launcher.dmlc_tpu -n 4 -s 2 -- \
@@ -131,8 +132,8 @@ def launch(num_workers: int, num_servers: int, cmd: list[str],
     `<ssh_cmd> <host> 'cd <remote_cwd> && env <contract> <cmd>'` — the
     same WH_* env contract either way, with the scheduler URI bound on a
     launch-host address the remote nodes can dial. The global mesh's
-    coordinator address (WH_COORD_URI, ROADMAP.md item 5.4) names
-    hosts[0] (worker 0's host) at `coord_port`.
+    coordinator address (WH_COORD_URI, where the workers' process group
+    meets) names hosts[0] (worker 0's host) at `coord_port`.
 
     With `max_server_restarts > 0` the launcher becomes the ps plane's
     supervisor (the ps-lite node-manager role): a server process that
@@ -210,8 +211,8 @@ def launch(num_workers: int, num_servers: int, cmd: list[str],
     # final report carry the same tag (obs/trace.py reads WH_RUN_ID)
     run_id = os.environ.get("WH_RUN_ID") or f"wh-{int(time.time())}-{os.getpid()}"
     obs_dir = os.environ.get("WH_OBS_DIR")
-    # the global mesh's rendezvous address (exported for its slice,
-    # ROADMAP.md item 5.4); worker 0 would bind it on first use. With
+    # the global mesh's rendezvous address: worker 0's process-group
+    # store binds it (parallel/multihost.py init_from_env). With
     # hosts, worker 0 lives on hosts[0]; coord_port must be free THERE,
     # so it is explicit (the launcher can only probe local ports).
     if multi:
@@ -585,8 +586,8 @@ def main(argv=None) -> int:
                          "outbound interface)")
     ap.add_argument("--coord-port", type=int, default=0,
                     help="the global mesh's coordinator port on the "
-                         "first host (exported as WH_COORD_URI; the port "
-                         "has no global mesh yet: ROADMAP.md item 5.4)")
+                         "first host (exported as WH_COORD_URI, where the "
+                         "workers' process group meets)")
     ap.add_argument("--plane", choices=("auto", "tcp", "hot"),
                     default=None,
                     help="parameter-plane selection for the spawned "

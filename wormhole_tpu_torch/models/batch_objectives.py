@@ -1,5 +1,7 @@
 """Batch objectives for the L-BFGS solver: linear and FM, on one device
-(one rank of a BSP ring holds its own rows' batches, load_batches_bsp).
+(one rank of a BSP ring holds its own rows' batches, load_batches_bsp; a
+rank of a process group its share of every global batch,
+load_batches_global).
 
 Parity targets:
 - learn/lbfgs-linear (lbfgs.cc, linear.h): logistic regression with the
@@ -103,6 +105,51 @@ def load_batches_bsp(pattern: str, env, client, fmt: str = "libsvm",
                 for r in range(env.num_workers)]
         client.blob_put(key, np.int64(max(dims)))
     return batches, int(client.blob_get(key, timeout=120)) + 1
+
+
+def load_batches_global(pattern: str, env, fmt: str = "libsvm",
+                        minibatch: int = 4096, nnz_per_row: int = 64,
+                        num_parts_per_file: int = 1, device=None):
+    """The process-group variant of load_batches (the global mesh's, or
+    torch.distributed.run's; the group must be up): each rank reads its
+    rank slice of the file parts (the reference RowBlockIter(rank, world)
+    split, lbfgs.cc:229-234) in minibatch / num_workers rows a batch, the
+    rows it contributes to each global batch, and pads with masked empty
+    batches to the global batch count, so every rank evaluates the same
+    number of batches in lockstep. num_feature is the global max id + 1
+    (global_scalar_max, the Allreduce<Max> of lbfgs.cc:107-113)."""
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.parallel import multihost as mh
+
+    nproc = env.num_workers
+    if minibatch % nproc:
+        raise ValueError(f"minibatch {minibatch} must divide over {nproc} "
+                         f"ranks")
+    local_rows = minibatch // nproc
+    dev = resolve_device(device)
+    put = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    local, max_id = [], -1
+    for f, k in mh.rank_parts(pattern, num_parts_per_file, env):
+        for blk in MinibatchIter(f, k, num_parts_per_file, fmt,
+                                 minibatch_size=local_rows, device=dev):
+            if blk.nnz:
+                max_id = max(max_id, int(blk.index.max()))
+            local.append(blk)
+    if max_id >= _MAX_ID:
+        raise ValueError(f"feature id {max_id}: the batch objectives take "
+                         f"ids below 2^31 - 1")
+    n_batches = mh.global_scalar_max(len(local))
+    num_feature = mh.global_scalar_max(max_id) + 1
+    empty = mh.empty_rowblock()
+    out = []
+    for i in range(n_batches):
+        db = to_device_batch(local[i] if i < len(local) else empty,
+                             local_rows, local_rows * nnz_per_row, _MAX_ID)
+        # local row ids: a rank evaluates its own rows of each global
+        # batch, and the solver sums the ranks' losses and gradients
+        out.append((put(db.seg), put(db.idx), put(db.val), put(db.label),
+                    put(db.row_mask)))
+    return out, num_feature
 
 
 def _dual(margin, label, mask):

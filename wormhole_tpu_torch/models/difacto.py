@@ -1,4 +1,5 @@
-"""DiFacto: the asynchronous factorization machine, on one device.
+"""DiFacto: the asynchronous factorization machine, on one device or a
+(data x model) mesh of ranks.
 
 Parity target: the reference's difacto.dmlc app (learn/difacto:
 async_sgd.h, loss.h, config.proto; doc/learn/difacto.rst) and the JAX
@@ -26,7 +27,23 @@ A step runs one of two prepared-batch kinds:
   row_tile_gather read w and V at those slots, the forward is one row
   gather from the unified compact table U = [V row | w], coo_spmv_t and
   scatter_update (with `cnt` as its additive table) push and update w,
-  and fm_push_contrib and v_scatter_update push and update V.
+  and fm_push_contrib and v_scatter_update push and update V;
+- ``dmesh`` on a mesh (parallel/mesh.py; the JAX package's sharded XLA
+  step): w, z, n and cnt are range-sharded over the model axis, V and nV
+  over the `v_buckets` rows, as KVStore shards linear's tables. Rank
+  (d, m) packs two cells of the global batch's data shard d: the w cell
+  (its model shard's buckets, mesh_coo_spmv's cell) and the V cell (the
+  nonzeros whose V row is its model shard's). The count push is summed
+  over the data axis before the forward, so admission reads the global
+  batch's counts; the admission of each nonzero of the data shard is
+  summed over the model axis (its bucket may live on any shard). xw goes
+  through W1 (mesh_coo_spmv) and gw through W2 (mesh_coo_spmv_t), the
+  hand kernels, or their plain twins with kernel=xla; xv and the x2 term
+  (torch ops on the V cell) sum over the model axis, gV and the V rows'
+  touches over the data axis; FTRL and AdaGrad run on each rank's
+  shards. The compact kernels stay single-device, as the JAX package
+  turns Pallas off on a mesh. On the global mesh (`global_step_protocol`)
+  each rank's data shard is its own rows.
 """
 
 from __future__ import annotations
@@ -42,15 +59,19 @@ import torch
 from wormhole_tpu_torch import native
 from wormhole_tpu_torch.data.rowblock import DeviceBatch, RowBlock, to_device_batch
 from wormhole_tpu_torch.device import resolve_device
-from wormhole_tpu_torch.models.linear import (LinearConfig, _loss_dual,
-                                              _progress, _to_floats, _update)
+from wormhole_tpu_torch.models.linear import (GlobalMeshSteps, LinearConfig,
+                                              _loss_dual, _progress,
+                                              _to_floats, _update)
 from wormhole_tpu_torch.ops import coo_kernels as ck
 from wormhole_tpu_torch.ops.fused_update import (row_tile_gather,
                                                  scatter_update,
                                                  v_scatter_update)
 from wormhole_tpu_torch.ops.localizer import localize
 from wormhole_tpu_torch.ops.spmv import row_squares, spmm, spmv, spmv_t
+from wormhole_tpu_torch.parallel import collectives
 from wormhole_tpu_torch.parallel.kvstore import KVStore, TableSpec, quantize_push
+from wormhole_tpu_torch.parallel.mesh import (DATA_AXIS, MODEL_AXIS, Mesh,
+                                              batch_range, single_device_mesh)
 
 _log = logging.getLogger(__name__)
 
@@ -125,6 +146,7 @@ class _CombinedStore:
 
     def __init__(self, *stores):
         self.stores = stores
+        self.mesh = stores[0].mesh
 
     def to_numpy(self):
         out = {}
@@ -191,13 +213,15 @@ class _CombinedStore:
         return self._sub(name).nnz(name)
 
 
-class DifactoLearner:
-    """FM train/eval/predict steps over one device's w and V tables."""
+class DifactoLearner(GlobalMeshSteps):
+    """FM train/eval/predict steps over one device's w and V tables, or
+    over this rank's shards of them on a mesh."""
 
     #: bump when prepare_batch's output changes for identical input
     _PACK_VERSION = 1
 
-    def __init__(self, cfg: DifactoConfig, device=None, seed: int = 0):
+    def __init__(self, cfg: DifactoConfig, device=None, seed: int = 0,
+                 mesh: Mesh = None):
         if not 0 < cfg.vb <= cfg.num_buckets:
             raise ValueError(f"v_buckets must be in (0, num_buckets]; got "
                              f"{cfg.vb}")
@@ -207,15 +231,28 @@ class DifactoLearner:
         if cfg.kernel not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown kernel {cfg.kernel!r}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and \
+                torch.device(device).type != mesh.device.type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device}")
+        self.mesh = mesh if mesh is not None else single_device_mesh(device)
+        self.device = resolve_device(self.mesh.device)
+        D, M = self.mesh.num_data, self.mesh.num_model
+        # a mesh larger than 1x1, or one rank of a process group (a global
+        # mesh of one worker): the dmesh kind
+        self._mesh_layout = (D > 1 or M > 1
+                             or self.mesh.device_mesh is not None)
+        # the mesh the tables shard over (None: whole on one device)
+        self._shard_mesh = self.mesh if self._mesh_layout else None
         specs = _tables_for(cfg)
         self.store = KVStore(cfg.num_buckets,
                              {k: v for k, v in specs.items() if v.tail == ()},
-                             self.device, seed=seed)
+                             self.device, seed=seed, mesh=self._shard_mesh)
         # the V tables have their own (smaller) bucket space
         self.vstore = KVStore(cfg.vb,
                               {k: v for k, v in specs.items() if v.tail != ()},
-                              self.device, seed=seed + 1)
+                              self.device, seed=seed + 1,
+                              mesh=self._shard_mesh)
         self.ckpt_store = _CombinedStore(self.store, self.vstore)
         self.ckpt_store.on_load = self.refresh_count_mirror
         self.ckpt_store.on_sparse_pull = self._on_sparse_pull
@@ -241,9 +278,24 @@ class DifactoLearner:
                      and (cfg.vb * dim) % ck.TILE == 0
                      and cfg.num_buckets % ck.TILE == 0
                      and cfg.vb * dim < 2**31)
-        self._use_fm_pallas = cfg.kernel == "pallas" or (
-            cfg.kernel == "auto" and self.device.type == "cuda"
-            and shapes_ok)
+        self._use_fm_pallas = not self._mesh_layout and (
+            cfg.kernel == "pallas" or (cfg.kernel == "auto"
+                                       and self.device.type == "cuda"
+                                       and shapes_ok))
+        # the mesh's W1 and W2: the hand kernels unless kernel=xla or the
+        # cells do not split into whole tiles and lane groups
+        cells_ok = (cfg.num_buckets % (M * ck.TILE) == 0
+                    and cfg.minibatch % (D * ck.LANES) == 0)
+        self._mesh_kernels = self._mesh_layout and (
+            cfg.kernel == "pallas" or (cfg.kernel == "auto" and cells_ok))
+        if self._mesh_kernels and not cells_ok:
+            raise ValueError(
+                f"the mesh's COO kernels need num_buckets % {M * ck.TILE} "
+                f"== 0 and minibatch % {D * ck.LANES} == 0")
+        if self._mesh_layout and cfg.vb % M:
+            raise ValueError(f"v_buckets {cfg.vb} must divide over {M} "
+                             f"model shards")
+        self._shard_cap = ck.mesh_capacity(cfg.row_capacity, D, M)
         if self._use_fm_pallas and not shapes_ok:
             raise ValueError(
                 "the compacted FM path needs l1_shrk off, minibatch % "
@@ -274,17 +326,28 @@ class DifactoLearner:
     # -- xla kind ------------------------------------------------------------
     def _grad_filters(self, gV, mask):
         """The V-gradient knobs of reference loss.h:145-155, then the push
-        filter."""
+        filter. On a mesh gV is this rank's V shard and mask this data
+        shard's rows: the batch's row count sums over the data axis, the
+        dropout draws the whole table's mask (every rank the same stream)
+        and keeps its rows, and the int8 filter's scale is the whole
+        table's."""
         cfg = self.cfg
+        mesh = self._mesh_layout
         if cfg.grad_normalization:
-            gV = gV / torch.clamp(torch.sum(mask), min=1.0)
+            n = torch.sum(mask).reshape(1)
+            if mesh:
+                collectives.allreduce_sum(n, self.mesh, DATA_AXIS)
+            gV = gV / torch.clamp(n[0], min=1.0)
         if cfg.grad_clipping > 0:
             gV = torch.clamp(gV, -cfg.grad_clipping, cfg.grad_clipping)
         if cfg.dropout > 0:
-            keep = torch.rand(gV.shape, generator=self._gen,
+            shape = (cfg.vb, cfg.dim) if mesh else gV.shape
+            keep = torch.rand(shape, generator=self._gen,
                               device=gV.device) < 1.0 - cfg.dropout
+            if mesh:
+                keep = keep[self.vstore.lo:self.vstore.hi]
             gV = gV * keep
-        return quantize_push(gV, cfg.fixed_bytes)
+        return quantize_push(gV, cfg.fixed_bytes, self._shard_mesh)
 
     def _train_step_xla(self, seg, idx, vidx, val, label, mask):
         cfg = self.cfg
@@ -340,6 +403,149 @@ class DifactoLearner:
         obj, _ = _loss_dual(self.cfg.loss, label, margin)
         return margin, _progress(obj, margin, label, mask)
 
+    # -- dmesh kind (see the module docstring) -------------------------------
+    def _mesh_prepared(self, seg, idx, val, label, mask, size: int):
+        """The dmesh kind of a global batch's COO triples (seg in the
+        global batch's rows) and this data shard's label and mask: the w
+        cell (pack_mesh_cell, tile-packed for the kernels), the data
+        shard's live nonzeros (bucket, local row, value) and, of them, the
+        positions and local V rows of this rank's V cell."""
+        cfg = self.cfg
+        D, M = self.mesh.num_data, self.mesh.num_model
+        d, m = self.mesh.coords
+        cell, dropped = ck.pack_mesh_cell(
+            idx, seg, val, cfg.num_buckets, cfg.minibatch, D, M, d, m,
+            self._shard_cap, device=self.device, tiled=self._mesh_kernels)
+        if dropped:
+            _log.warning("mesh cell (%d, %d) overflow: dropped %d nonzeros "
+                         "— raise nnz_per_row or mesh_capacity slack", d, m,
+                         dropped)
+        rows_d = cfg.minibatch // D
+        seg = np.asarray(seg, np.int64)
+        val = np.asarray(val, np.float32)
+        sel = (val != 0) & (seg // rows_d == d)
+        r_idx = np.asarray(idx, np.int64)[sel]
+        vb_m = cfg.vb // M
+        vrow = r_idx % cfg.vb
+        vpos = np.flatnonzero(vrow // vb_m == m)
+        return ("dmesh", (cell, r_idx.astype(np.int32),
+                          (seg[sel] - d * rows_d).astype(np.int32), val[sel],
+                          vpos, (vrow[vpos] - m * vb_m).astype(np.int32)),
+                label, mask, size)
+
+    def _mesh_admission(self, r_idx):
+        """1.0 where the nonzero's bucket is admitted (cnt >= threshold,
+        and w != 0 with l1_shrk), for every live nonzero of the data
+        shard: each model shard answers for its own buckets, the answers
+        sum over the model axis."""
+        cfg = self.cfg
+        st = self.store.state
+        lo, hi = self.store.lo, self.store.hi
+        own = (r_idx >= lo) & (r_idx < hi)
+        at = torch.where(own, r_idx - lo, torch.zeros_like(r_idx)).long()
+        adm = st["cnt"].index_select(0, at) >= cfg.threshold
+        if cfg.l1_shrk:
+            adm = adm & (st["w"].index_select(0, at) != 0)
+        adm = (adm & own).to(torch.float32)
+        return collectives.allreduce_sum(adm, self.mesh, MODEL_AXIS)
+
+    def _mesh_forward(self, cell, r_idx, r_seg, r_val, vpos, vloc):
+        """(margin, xw, xv) of this data shard's rows and (the local rows,
+        the admitted values) of the V cell's nonzeros: xw by W1, xv and
+        the x2 term over the V cell summed over the model axis."""
+        cfg = self.cfg
+        rows_d = cfg.minibatch // self.mesh.num_data
+        pull = (ck.mesh_coo_spmv if self._mesh_kernels
+                else ck.mesh_coo_spmv_plain)
+        xw = pull(self.mesh, self.store.state["w"], *cell, cfg.minibatch,
+                  dtype=self._fm_dtype)
+        vval = (r_val * self._mesh_admission(r_idx)).index_select(0, vpos)
+        vs = r_seg.index_select(0, vpos)
+        V = self.vstore.state["V"]
+        parts = torch.cat([spmm(vs, vloc, vval, V, rows_d),
+                           row_squares(vs, vloc, vval, V, rows_d)], 1)
+        collectives.allreduce_sum(parts, self.mesh, MODEL_AXIS)
+        xv, x2v2 = parts[:, :cfg.dim], parts[:, cfg.dim:]
+        margin = xw + 0.5 * torch.sum(xv * xv - x2v2, dim=-1)
+        return margin, xw, xv, vs, vval
+
+    def _mesh_progress(self, margin, xw, label, mask, new_w=None):
+        """(the global batch's progress, the same on every rank, and its
+        margins): margin, xw, label and mask gathered over the data axis
+        in one all_reduce, the |w|_0 delta summed over the model axis."""
+        cfg = self.cfg
+        margin, xw, label, mask = collectives.gather_rows(
+            torch.stack([margin, xw, label, mask], 1), self.mesh,
+            DATA_AXIS).unbind(1)
+        if new_w is not None:
+            new_w = collectives.allreduce_sum(new_w.reshape(1), self.mesh,
+                                              MODEL_AXIS)[0]
+        obj, _ = _loss_dual(cfg.loss, label, margin)
+        prog = _progress(obj, margin, label, mask, new_w)
+        if new_w is not None:
+            prog["objv_w"] = torch.sum(
+                _loss_dual(cfg.loss, label, xw)[0] * mask)
+        return prog, margin
+
+    def _train_step_dmesh(self, cidx, cseg, cval, ctmap, cfirst, r_idx,
+                          r_seg, r_val, vpos, vloc, label, mask):
+        cfg = self.cfg
+        st, vst = self.store.state, self.vstore.state
+        cell = (cidx, cseg, cval, ctmap, cfirst)
+        # count push of the global batch, before the forward (kPushFeaCnt
+        # parity: admission sees this batch's counts)
+        push_cnt = torch.zeros_like(st["cnt"]).index_add_(
+            0, cidx, (cval != 0).to(torch.float32))
+        collectives.allreduce_sum(push_cnt, self.mesh, DATA_AXIS)
+        st["cnt"].add_(push_cnt)
+
+        margin, xw, xv, vs, vval = self._mesh_forward(cell, r_idx, r_seg,
+                                                      r_val, vpos, vloc)
+        obj, d = _loss_dual(cfg.loss, label, margin)
+        d = d * mask
+        push = (ck.mesh_coo_spmv_t if self._mesh_kernels
+                else ck.mesh_coo_spmv_t_plain)
+        gw = quantize_push(push(self.mesh, d, *cell, cfg.num_buckets,
+                                dtype=self._fm_dtype), cfg.fixed_bytes,
+                           self.mesh)
+        touched_w = (push_cnt > 0).to(torch.float32)
+
+        # dV_j = sum_i d_i x_ij (Xv_i - x_ij V_j) over the V cell, and the
+        # rows it touches, summed over the data axis in one block
+        V = vst["V"]
+        contrib = (d.index_select(0, vs) * vval)[:, None] * (
+            xv.index_select(0, vs) - vval[:, None] * V.index_select(0, vloc))
+        block = torch.zeros(V.shape[0], cfg.dim + 1, device=V.device)
+        block[:, :cfg.dim].index_add_(0, vloc, contrib)
+        block[:, cfg.dim].index_add_(0, vloc, (vval != 0).to(torch.float32))
+        collectives.allreduce_sum(block, self.mesh, DATA_AXIS)
+        gV = self._grad_filters(block[:, :cfg.dim], mask)
+        touched_v = (block[:, cfg.dim:] > 0).to(torch.float32)
+
+        w = st["w"]
+        old_nnz = torch.count_nonzero(w)
+        lin = {k: st[k] for k in ("w", "z", "n")}
+        for k, v in _update("ftrl", lin, gw, touched_w, cfg).items():
+            st[k].copy_(v)
+        nV = vst["nV"]
+        nV.add_(touched_v * gV * gV)
+        eta = (cfg.V_lr_beta + torch.sqrt(nV)) / cfg.V_lr_eta
+        V_new = V - touched_v * (gV + cfg.lambda_V * V) / eta
+        V.copy_(torch.where(touched_v > 0, V_new, V))
+        return self._mesh_progress(margin, xw, label, mask,
+                                   torch.count_nonzero(w) - old_nnz)[0]
+
+    def _fwd_dmesh(self, cidx, cseg, cval, ctmap, cfirst, r_idx, r_seg,
+                   r_val, vpos, vloc, label, mask):
+        """(the global batch's margins, its progress)."""
+        margin, xw = self._mesh_forward((cidx, cseg, cval, ctmap, cfirst),
+                                        r_idx, r_seg, r_val, vpos, vloc)[:2]
+        prog, margin = self._mesh_progress(margin, xw, label, mask)
+        return margin, prog
+
+    def _mesh_margins(self, args):
+        return self._fwd_dmesh(*args)[0]
+
     # -- compacted fm kind ---------------------------------------------------
     # Admission (cnt >= threshold) is decided at pack time from a HOST
     # mirror of the count table: counts are pure data statistics the host
@@ -348,7 +554,11 @@ class DifactoLearner:
     # so it stays on the xla kind.
 
     def refresh_count_mirror(self) -> None:
-        self._cnt_host = self.store.state["cnt"].cpu().numpy().copy()
+        """Resync the host count mirror. Only the fm kind's pack reads
+        it; the dmesh kind admits from the device table, which holds the
+        global batch's counts (summed over the data axis)."""
+        if self._use_fm_pallas:
+            self._cnt_host = self.store.state["cnt"].cpu().numpy().copy()
 
     def on_pass_start(self) -> None:
         """Solver hook: resync the count mirror from the device table so
@@ -599,6 +809,11 @@ class DifactoLearner:
         pack of the fm kind advances the count mirror, so it must be
         consumed by a train step."""
         db = self.make_device_batch(blk)
+        if self._mesh_layout:
+            lo, hi = batch_range(self.mesh, self.cfg.minibatch)
+            return self._mesh_prepared(db.seg, db.idx, db.val,
+                                       db.label[lo:hi], db.row_mask[lo:hi],
+                                       blk.size)
         if not self._use_fm_pallas:
             return ("xla", db, blk.size)
         return ("fm", self._pack_fm(db, train), db.label, db.row_mask,
@@ -619,6 +834,10 @@ class DifactoLearner:
         base = ("difacto", self._PACK_VERSION, self._use_fm_pallas,
                 cfg.minibatch, cfg.nnz_per_row, cfg.num_buckets, cfg.vb,
                 cfg.dim, cfg.threshold, cfg.l1_shrk)
+        if self._mesh_layout:  # the cells hold no host state
+            return base + ("dmesh", self._mesh_kernels, self._shard_cap,
+                           self.mesh.num_data, self.mesh.num_model,
+                           ck.TILE, ck.BLK, ck.LANES, *self.mesh.coords)
         if not self._use_fm_pallas:
             return base
         if train or self._fm_caps is None:
@@ -646,7 +865,11 @@ class DifactoLearner:
             return b
         cfg = self.cfg
         ids = None
-        if b[0] == "xla":
+        if b[0] == "dmesh":
+            _, (cell, *rest), label, mask, size = b
+            arrays = [cell.idx, cell.seg, cell.val, cell.tmap, cell.first,
+                      *rest, label, mask]
+        elif b[0] == "xla":
             db, size = b[1], b[2]
             vidx = (db.idx % np.int32(cfg.vb)).astype(np.int32)
             arrays = [db.seg, db.idx, vidx, db.val, db.label, db.row_mask]
@@ -675,7 +898,8 @@ class DifactoLearner:
             self._prepared(blk, True), train=True)
         if not st_train:
             raise ValueError("batch was staged for eval, not train")
-        step = self._train_step_fm if kind == "fm" else self._train_step_xla
+        step = {"fm": self._train_step_fm, "xla": self._train_step_xla,
+                "dmesh": self._train_step_dmesh}[kind]
         prog = _to_floats(step(*args))
         if self.track_touched:
             self._note_touched(ids)
@@ -723,7 +947,8 @@ class DifactoLearner:
             self._prepared(blk, False), train=False)
         if st_train:
             raise ValueError("batch was staged for train, not eval")
-        margin, prog = (self._fwd_fm if kind == "fm" else self._fwd_xla)(*args)
+        margin, prog = {"fm": self._fwd_fm, "xla": self._fwd_xla,
+                        "dmesh": self._fwd_dmesh}[kind](*args)
         return margin, prog, size
 
     def eval_batch(self, blk) -> dict:
@@ -742,10 +967,12 @@ class DifactoLearner:
         return self.store.nnz("w")
 
     def _admitted(self) -> np.ndarray:
-        st = self.store.state
-        admit = st["cnt"].cpu().numpy() >= self.cfg.threshold
+        """Admission of every bucket (on a mesh a collective: the shards
+        gathered into the whole table on every rank)."""
+        st = self.store.to_numpy()
+        admit = st["cnt"] >= self.cfg.threshold
         if self.cfg.l1_shrk:
-            admit &= st["w"].cpu().numpy() != 0
+            admit &= st["w"] != 0
         return admit
 
     def num_admitted(self) -> int:

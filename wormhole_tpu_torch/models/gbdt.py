@@ -82,9 +82,9 @@ class GbdtConfig:
     dsplit: str = "row"                  # only row split is supported
     base_score: float = 0.5
 
-    # the JAX package's multi-host mode (the app refuses it until
-    # ROADMAP.md item 5.4) and BSP mode (apps/gbdt.py, bsp=1 under the
-    # launcher)
+    # the global mesh (the launcher's workers as the ranks of one
+    # process group) and BSP mode (apps/gbdt.py, bsp=1 or global_mesh=1
+    # under the launcher)
     global_mesh: bool = False
     bsp: bool = False
     max_bin: int = 256

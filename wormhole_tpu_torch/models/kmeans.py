@@ -65,8 +65,8 @@ class KmeansConfig:
     model_out: Optional[str] = None
     checkpoint_dir: Optional[str] = None  # per-iter state for resume
     seed: int = 0
-    # several processes over one device mesh; waits for the port's
-    # multi-GPU slice (apps/kmeans.py raises)
+    # the launcher's workers as the ranks of one process group
+    # (apps/kmeans.py's global body)
     global_mesh: bool = False
     # assignment: dense ([B, d] densify + two products, for small or
     # moderate d like MNIST-784) | sparse (per-nonzero gathers and

@@ -20,8 +20,13 @@ prepared batch picks the ops:
 - ``mcoo``: on a mesh larger than 1x1, each rank packs its (data shard x
   model shard) cell of the global batch, runs mesh_coo_spmv (all_reduce
   over the model axis) and mesh_coo_spmv_t (all_reduce over the data
-  axis), and updates its model shard. Every rank steps through the same
-  global batches; the progress of each is that of the whole batch.
+  axis), W1 and W2 with the hand kernels, and updates its model shard;
+  with ``kernel=xla`` the same cells, unsorted, go through the plain
+  twins mesh_coo_spmv_plain / mesh_coo_spmv_t_plain instead. Every rank
+  steps through the same global batches, or, on the global mesh
+  (`global_step_protocol`), feeds its own rows of each; the progress of
+  each is that of the whole batch (xw, label and mask gathered over the
+  data axis).
 
 The state tables are torch tensors updated IN PLACE by every train step
 (the JAX learner donates them to jitted steps instead).
@@ -56,8 +61,8 @@ _log = logging.getLogger(__name__)
 class LinearConfig:
     """Config surface of reference learn/linear/config.proto, with the same
     keys and defaults as the JAX package's LinearConfig, so one conf file
-    drives both. Keys of the PS and multi-host planes are accepted and
-    unused here; model_shards sizes the app's mesh (apps/linear.py)."""
+    drives both. The PS plane's keys feed apps/_runner.py, global_mesh
+    its global mesh; model_shards sizes the app's mesh (apps/linear.py)."""
 
     train_data: str = ""
     val_data: Optional[str] = None
@@ -211,12 +216,80 @@ def _to_floats(p: dict) -> dict:
     return dict(zip(p, vals))
 
 
-class LinearLearner:
+class GlobalMeshSteps:
+    """The global-mesh protocol (apps/_runner.py _global_train) of a
+    learner with a mesh layout: `_mesh_prepared(seg, idx, val, label,
+    mask, size)` makes the prepared batch of global-batch COO triples and
+    this data shard's label and mask, `_mesh_margins(args)` the global
+    batch's margins from a staged one's arrays (label and mask last)."""
+
+    def _global_prepared(self, blk, rank: int):
+        """The mesh kind of this rank's own rows of a global step: its
+        block is rows [rank * local_rows, (rank + 1) * local_rows) of the
+        global batch (parallel/multihost.py global_coo_batch), exactly
+        its data shard on the (num_workers x 1) mesh."""
+        from wormhole_tpu_torch.parallel import multihost as mh
+
+        cfg = self.cfg
+        local_rows = cfg.minibatch // self.mesh.num_data
+        db = to_device_batch(blk, local_rows, local_rows * cfg.nnz_per_row,
+                             cfg.num_buckets)
+        seg, idx, val, label, mask = mh.global_coo_batch(db, rank,
+                                                         local_rows)
+        return self._mesh_prepared(seg, idx, val, label, mask, blk.size)
+
+    def _check_global(self) -> None:
+        if not (self.mesh.device_mesh is not None
+                and self.mesh.num_model == 1
+                and self.cfg.minibatch % self.mesh.num_data == 0):
+            raise ValueError(
+                "the global mesh needs a (num_workers x 1) mesh over a "
+                "process group and minibatch % num_workers == 0; have "
+                f"{self.mesh.num_data}x{self.mesh.num_model}, minibatch "
+                f"{self.cfg.minibatch}")
+
+    def global_step_protocol(self):
+        """(train_fn, eval_fn) of the global mesh: each takes this rank's
+        RowBlock of a global step (an empty one once it has drained) and
+        returns the global batch's progress, the same on every rank. The
+        rng argument keeps the JAX package's signature: the ranks draw
+        from generators seeded alike, in lockstep."""
+        self._check_global()
+        rank = self.mesh.rank
+
+        def train_fn(blk, rng=None):
+            return self.train_batch(self._global_prepared(blk, rank))
+
+        def eval_fn(blk):
+            return self.eval_batch(self._global_prepared(blk, rank))
+
+        return train_fn, eval_fn
+
+    def global_predict_protocol(self):
+        """pred_fn(blk) -> (the global batch's margins, which every rank
+        holds whole, and the global live-row count that drives the
+        lockstep drain)."""
+        self._check_global()
+        rank = self.mesh.rank
+
+        def pred_fn(blk):
+            args = self.stage_batch(self._global_prepared(blk, rank),
+                                    train=False)[2]
+            nex = collectives.allreduce_sum(args[-1].sum().reshape(1),
+                                            self.mesh, DATA_AXIS)
+            return self._mesh_margins(args), float(nex[0])
+
+        return pred_fn
+
+
+class LinearLearner(GlobalMeshSteps):
     """Train/eval/predict steps over one device's weight table, or over
     this rank's shard of it on a mesh."""
 
     #: bump when prepare_batch's output layout changes for identical input
     _PACK_VERSION = 1
+    #: the same for the mcoo kind (2: the cell's own rows of label, mask)
+    _MESH_PACK_VERSION = 2
 
     def __init__(self, cfg: LinearConfig, device=None,
                  mesh: Optional[Mesh] = None):
@@ -231,7 +304,9 @@ class LinearLearner:
         if cfg.kernel not in ("auto", "pallas", "xla"):
             raise ValueError(f"unknown kernel {cfg.kernel!r}")
         D, M = self.mesh.num_data, self.mesh.num_model
-        on_mesh = D > 1 or M > 1
+        # a mesh larger than 1x1, or one rank of a process group (a
+        # global mesh of one worker): the collective layout
+        on_mesh = D > 1 or M > 1 or self.mesh.device_mesh is not None
         # per-cell kernel constraints: each model shard owns whole tiles,
         # each data shard whole lane groups
         shapes_ok = (cfg.num_buckets % (M * ck.TILE) == 0
@@ -243,13 +318,14 @@ class LinearLearner:
             raise ValueError(
                 f"the COO kernels need num_buckets % {M * ck.TILE} == 0 and "
                 f"minibatch % {D * ck.LANES} == 0")
-        if on_mesh and not self.use_pallas:
-            raise NotImplementedError(
-                "kernel=xla on a mesh larger than 1x1 is not ported yet "
-                "(ROADMAP.md Queue A, multi-GPU); use kernel=pallas")
-        # the mesh layout (per-cell kernels + all_reduce) whenever an axis
-        # is larger than 1
-        self._mesh_coo = self.use_pallas and on_mesh
+        # the mesh layout (per-cell products + all_reduce) whenever an
+        # axis is larger than 1: W1/W2 on the hand kernels, or with
+        # kernel=xla (or shapes the kernels refuse) their plain twins
+        self._mesh_coo = on_mesh
+        self._mesh_pull = (ck.mesh_coo_spmv if self.use_pallas
+                           else ck.mesh_coo_spmv_plain)
+        self._mesh_push = (ck.mesh_coo_spmv_t if self.use_pallas
+                           else ck.mesh_coo_spmv_t_plain)
         self._shard_cap = ck.mesh_capacity(cfg.row_capacity, D, M)
         self.store = KVStore(cfg.num_buckets, _tables_for(cfg.algo),
                              self.device, mesh=self.mesh)
@@ -296,7 +372,8 @@ class LinearLearner:
         # of (z, n).
         touched = (1.0 if cfg.algo == "ftrl"
                    else (g != 0).to(torch.float32))
-        g = quantize_push(g, cfg.fixed_bytes)
+        g = quantize_push(g, cfg.fixed_bytes,
+                          self.mesh if self._mesh_coo else None)
         old_nnz = torch.count_nonzero(st["w"])
         for k, v in _update(cfg.algo, st, g, touched, cfg).items():
             if v is not st[k]:
@@ -337,17 +414,18 @@ class LinearLearner:
                            first, self.cfg.minibatch, dtype=self._coo_dtype)
 
     def _xw_mcoo(self, sidx, sseg, sval, tmap, first):
-        """This rank's rows of xw (mesh_coo_spmv over its cell)."""
-        return ck.mesh_coo_spmv(self.mesh, self.store.state["w"], sidx, sseg,
-                                sval, tmap, first, self.cfg.minibatch,
-                                dtype=self._coo_dtype)
+        """This rank's rows of xw (W1 over its cell)."""
+        return self._mesh_pull(self.mesh, self.store.state["w"], sidx, sseg,
+                               sval, tmap, first, self.cfg.minibatch,
+                               dtype=self._coo_dtype)
 
     def _global_progress(self, xw, label, mask, new_w=None):
         """The progress of the whole global batch, the same on every rank:
-        xw's data shards gathered over the data axis (label and mask are
-        the global batch's already), the |w|_0 delta summed over the model
-        axis."""
-        xw = collectives.gather_rows(xw, self.mesh, DATA_AXIS)
+        this data shard's xw, label and mask gathered over the data axis
+        (one all_reduce), the |w|_0 delta summed over the model axis."""
+        xw, label, mask = collectives.gather_rows(
+            torch.stack([xw, label, mask], 1), self.mesh,
+            DATA_AXIS).unbind(1)
         obj, _ = _loss_dual(self.cfg.loss, label, xw)
         if new_w is not None:
             new_w = collectives.allreduce_sum(new_w.reshape(1), self.mesh,
@@ -355,18 +433,20 @@ class LinearLearner:
         return _progress(obj, xw, label, mask, new_w)
 
     def _train_step_mcoo(self, sidx, sseg, sval, tmap, first, label, mask):
+        """label and mask: this data shard's rows."""
         cfg = self.cfg
-        lo, hi = batch_range(self.mesh, cfg.minibatch)
         xw = self._xw_mcoo(sidx, sseg, sval, tmap, first)
-        _, d = _loss_dual(cfg.loss, label[lo:hi], xw)
-        g = ck.mesh_coo_spmv_t(self.mesh, d * mask[lo:hi], sidx, sseg, sval,
-                               tmap, first, cfg.num_buckets,
-                               dtype=self._coo_dtype)
+        _, d = _loss_dual(cfg.loss, label, xw)
+        g = self._mesh_push(self.mesh, d * mask, sidx, sseg, sval, tmap,
+                            first, cfg.num_buckets, dtype=self._coo_dtype)
         return self._global_progress(xw, label, mask, self._dense_update(g))
 
     def _eval_step_mcoo(self, sidx, sseg, sval, tmap, first, label, mask):
         return self._global_progress(
             self._xw_mcoo(sidx, sseg, sval, tmap, first), label, mask)
+
+    def _mesh_margins(self, args):
+        return self._predict_step_mcoo(*args[:-2])
 
     def _predict_step_mcoo(self, sidx, sseg, sval, tmap, first):
         return collectives.gather_rows(
@@ -447,19 +527,13 @@ class LinearLearner:
         prepared batch accepted by stage_batch and
         train/eval/predict_batch."""
         db = self.make_device_batch(blk)
+        if self._mesh_coo:
+            lo, hi = batch_range(self.mesh, self.cfg.minibatch)
+            return self._mesh_prepared(db.seg, db.idx, db.val,
+                                       db.label[lo:hi], db.row_mask[lo:hi],
+                                       blk.size)
         if not self.use_pallas:
             return ("xla", db, blk.size)
-        if self._mesh_coo:
-            d, m = self.mesh.coords
-            cell, dropped = ck.pack_mesh_cell(
-                db.idx, db.seg, db.val, self.cfg.num_buckets,
-                self.cfg.minibatch, self.mesh.num_data, self.mesh.num_model,
-                d, m, self._shard_cap, device=self.device)
-            if dropped:
-                _log.warning("mesh cell (%d, %d) overflow: dropped %d "
-                             "nonzeros — raise nnz_per_row or mesh_capacity "
-                             "slack", d, m, dropped)
-            return ("mcoo", cell, db.label, db.row_mask, blk.size)
         if self.ensure_compact(db.idx):
             tc = ck.pack_tile_coo(db.idx, db.seg, db.val,
                                   self.cfg.num_buckets, self._compact_cap,
@@ -478,6 +552,22 @@ class LinearLearner:
                                device=self.device)
         return ("coo", p, db.label, db.row_mask, blk.size)
 
+    def _mesh_prepared(self, seg, idx, val, label, mask, size: int):
+        """The mcoo kind of a global batch's COO triples (seg in the global
+        batch's rows) and this data shard's label and mask: this rank's
+        cell, tile-packed for the kernels or, for the plain twins, its
+        live entries in input order."""
+        d, m = self.mesh.coords
+        cell, dropped = ck.pack_mesh_cell(
+            idx, seg, val, self.cfg.num_buckets, self.cfg.minibatch,
+            self.mesh.num_data, self.mesh.num_model, d, m, self._shard_cap,
+            device=self.device, tiled=self.use_pallas)
+        if dropped:
+            _log.warning("mesh cell (%d, %d) overflow: dropped %d "
+                         "nonzeros — raise nnz_per_row or mesh_capacity "
+                         "slack", d, m, dropped)
+        return ("mcoo", cell, label, mask, size)
+
     def _prepared(self, x):
         # prepared and staged batches are tuples; anything else is a
         # RowBlock-like CSR batch
@@ -494,7 +584,7 @@ class LinearLearner:
         cfg = self.cfg
         if self._mesh_coo:
             # the JAX package's token, and the cell this rank packs
-            return ("linear", self._PACK_VERSION, self.use_pallas,
+            return ("linear", self._MESH_PACK_VERSION, self.use_pallas,
                     self._mesh_coo, self._compact_cap, self._shard_cap,
                     cfg.minibatch, cfg.nnz_per_row, cfg.num_buckets,
                     self.mesh.num_data, self.mesh.num_model, ck.TILE,

@@ -675,26 +675,30 @@ def mesh_capacity(capacity: int, D: int, M: int, slack: float = 2.0) -> int:
     return max((per + BLK - 1) // BLK, 1) * BLK
 
 
-def _mesh_geometry(num_buckets: int, num_rows: int, D: int, M: int):
+def _mesh_geometry(num_buckets: int, num_rows: int, D: int, M: int,
+                   tiled: bool = True):
     nb_m, rows_d = num_buckets // M, num_rows // D
-    if nb_m % TILE or num_buckets % M:
+    tile, lanes = (TILE, LANES) if tiled else (1, 1)
+    if num_buckets % M or nb_m % tile:
         raise ValueError(f"num_buckets {num_buckets} must split into {M} "
-                         f"model shards of whole {TILE}-bucket tiles")
-    if rows_d % LANES or num_rows % D:
+                         f"model shards of whole {tile}-bucket tiles")
+    if num_rows % D or rows_d % lanes:
         raise ValueError(f"num_rows {num_rows} must split into {D} data "
-                         f"shards of whole {LANES}-row groups")
+                         f"shards of whole {lanes}-row groups")
     return nb_m, rows_d
 
 
 def pack_mesh_cell(idx, seg, val, num_buckets: int, num_rows: int,
                    D: int, M: int, d: int, m: int, capacity_per_shard: int,
-                   device=None) -> tuple[SortedCOO, int]:
+                   device=None, tiled: bool = True) -> tuple[SortedCOO, int]:
     """Pack cell (d, m) of a batch's COO triples: the live (nonzero)
     entries with a row in data shard d and a bucket in model shard m, in
     input order, cut to capacity_per_shard, with local row and bucket ids,
     through pack_sorted_coo. Returns (the cell's SortedCOO, the nonzeros
-    cut). A rank packs only its own cell."""
-    nb_m, rows_d = _mesh_geometry(num_buckets, num_rows, D, M)
+    cut). A rank packs only its own cell. With tiled=False (the plain
+    twins' cell, which needs no whole tiles) the entries stay in input
+    order, unpadded, and tmap and first are empty."""
+    nb_m, rows_d = _mesh_geometry(num_buckets, num_rows, D, M, tiled)
     idx = np.asarray(idx, np.int64)
     seg = np.asarray(seg, np.int64)
     val = np.asarray(val, np.float32)
@@ -707,6 +711,10 @@ def pack_mesh_cell(idx, seg, val, num_buckets: int, num_rows: int,
         ci = ci[:capacity_per_shard]
         cs = cs[:capacity_per_shard]
         cv = cv[:capacity_per_shard]
+    if not tiled:
+        none = np.zeros(0, np.int32)
+        return SortedCOO(ci.astype(np.int32), cs.astype(np.int32),
+                         cv.astype(np.float32), none, none), dropped
     return pack_sorted_coo(ci, cs, cv, nb_m, capacity=capacity_per_shard,
                            device=device), dropped
 

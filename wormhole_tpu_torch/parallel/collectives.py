@@ -12,20 +12,38 @@ CUDA tensors. A gather of rows is an all_reduce into a zero-filled buffer
 that each rank fills at its own slot (x + 0.0 == x, so the rows come back
 bit for bit). On a mesh without a process group every call returns its
 input.
+
+`STATS` counts this process's all_reduce calls and their host-clock
+seconds (gloo returns when the sum is back, so that is its cost; on NCCL
+it is the enqueue only): the global mesh's workers print them at exit.
+`GroupComm` gives the L-BFGS solver BspWorker.allreduce's interface over
+the whole process group.
 """
 
 from __future__ import annotations
 
+import time
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
 from wormhole_tpu_torch.parallel.mesh import DATA_AXIS, Mesh
 
+STATS = {"allreduce_calls": 0, "allreduce_s": 0.0}
+
+
+def _timed_all_reduce(x: torch.Tensor, op, group=None) -> None:
+    t = time.perf_counter()
+    dist.all_reduce(x, op=op, group=group)
+    STATS["allreduce_calls"] += 1
+    STATS["allreduce_s"] += time.perf_counter() - t
+
 
 def _allreduce(x: torch.Tensor, mesh: Mesh, axis: str, op) -> torch.Tensor:
     group = mesh.group(axis)
-    if group is not None:
-        dist.all_reduce(x, op=op, group=group)
+    if group is not None and mesh.shape[axis] > 1:
+        _timed_all_reduce(x, op, group)
     return x
 
 
@@ -93,3 +111,35 @@ class Communicator:
             return x.sum(0)
         mine = x[self.mesh.index(self.axis)].clone()
         return allreduce_sum(mine, self.mesh, self.axis)
+
+
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
+
+
+class GroupComm:
+    """runtime/allreduce.py BspWorker's allreduce interface over the
+    default process group (the global mesh's, or torch.distributed.run's),
+    for host-orchestrated solvers (solver/lbfgs.py `comm`): a host array
+    reduced in float32, every rank returning the same array. The group
+    has no respawn, so checkpoint() keeps nothing and load_checkpoint()
+    finds nothing."""
+
+    def __init__(self, device=None):
+        if device is None:
+            device = (torch.device("cuda", torch.cuda.current_device())
+                      if dist.get_backend() == "nccl"
+                      else torch.device("cpu"))
+        self.device = torch.device(device)
+
+    def allreduce(self, x, op: str = "sum") -> np.ndarray:
+        a = np.asarray(x, np.float32)
+        t = torch.from_numpy(np.array(a.ravel())).to(self.device)
+        _timed_all_reduce(t, _OPS[op])
+        return t.cpu().numpy().reshape(a.shape)
+
+    def checkpoint(self, state: dict) -> None:
+        pass
+
+    def load_checkpoint(self):
+        return None

@@ -168,15 +168,21 @@ class KVStore:
                 np.asarray(v)[self.lo:self.hi]))
 
 
-def quantize_push(grad, nbytes: int = 0):
+def quantize_push(grad, nbytes: int = 0, mesh: Optional[Mesh] = None):
     """Transfer-filter parity (fixed_bytes knob, reference
     config.proto:126-133): round the pushed gradient to a lower precision
     before aggregation. 0 = off, 2 = bfloat16 (half to even), 1 = int8
-    with a per-array absmax scale (torch.round is half to even too)."""
+    with a per-array absmax scale (torch.round is half to even too). With
+    `mesh`, grad is this rank's model shard of the table and the scale is
+    the whole table's (its absmax over the model axis), as the JAX
+    package's sharded array takes it."""
     if nbytes == 0:
         return grad
     if nbytes >= 2:
         return grad.to(torch.bfloat16).to(grad.dtype)
-    scale = torch.clamp(torch.max(torch.abs(grad)), min=1e-12) / 127.0
+    amax = torch.max(torch.abs(grad)).reshape(1)
+    if mesh is not None:
+        collectives.allreduce_max(amax, mesh, MODEL_AXIS)
+    scale = torch.clamp(amax[0], min=1e-12) / 127.0
     q = torch.clamp(torch.round(grad / scale), -127, 127).to(torch.int8)
     return q.to(grad.dtype) * scale

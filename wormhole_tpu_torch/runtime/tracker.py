@@ -135,8 +135,8 @@ class NodeEnv:
     num_workers: int
     num_servers: int
     scheduler_uri: str
-    # the global mesh's coordinator: kept for the launcher's env
-    # contract; the global mesh is not ported (ROADMAP.md item 5.4)
+    # the global mesh's coordinator: the workers' process group meets
+    # there (parallel/multihost.py init_from_env)
     coord_uri: str = ""
     num_serve: int = 0   # online serving shards (--serve group)
 
