@@ -90,7 +90,14 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    wall), the two passes again from the crb file (data_format=crb), every
    batch of the crb file, read by one reader, equal to the batch parsed
    from the text byte for byte, and a linear pass at 2^26 from a
-   131,072-row adfea file;
+   131,072-row adfea file; the URI filesystem layer ([fs], after the
+   passes; data/filesys.py): every batch of the 2^22 file's 4 parts,
+   parsed on the card, equal byte for byte read by its plain path, as
+   file://<path> and from an in-memory filesystem this script registers
+   under a scheme of its own, one linear 2^22 train pass of each way
+   (examples/s), a linear 2^26 model saved and loaded through the
+   registered scheme with every table bit-equal, and hdfs://, azure://
+   and an unknown scheme refused as the JAX package refuses them;
 8. k-means at the bench's MNIST-784 shape ([kmeans]; bench.py
    bench_kmeans: 16,384 rows of 160 uniform column ids of 784, values
    U[0, 1), k 10): the packed assignment (coo_spmv_t over 14,680,064
@@ -213,7 +220,17 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    logloss; that run's distance from the single process is reported
    beside the 0.05 bar, which the synthetic labels (no signal) do not let
    the JAX package's launcher hold either (tests/torch_ps_reference.py).
-   [ps] takes ~160 s of command time;
+   The hot plane (parallel/hot_plane.py): after the -n 1 -s 1 launches
+   of each app, the same app at -n 1 -s 1 twice at one shape with
+   max_delay 1 and 4 steps a part, WH_PS_PLANE=tcp (sync plane) and then
+   WH_PS_PLANE=hot: linear on the same files at 6,272 rows a batch,
+   DiFacto on the [e2e] file at 32,768. The hot worker's [ps-wire] must
+   say plane hot, hot_steps must equal its train steps and the tcp
+   launch's, its flushes the train parts (at most a quarter of the tcp
+   launch's syncs), and the model its servers saved (the cold tier)
+   must score val within 1e-3 of the single process on the same conf;
+   examples/s of the last round, wire bytes and the row copies of tcp
+   and hot side by side. [ps] takes ~260 s of command time;
 14. the BSP allreduce plane ([bsp], after [ps]): `python -m
    wormhole_tpu_torch.launcher.dmlc_tpu -n 3 -s 0 --node-timeout 30
    --max-worker-restarts 1 -- python -m
@@ -274,8 +291,8 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
 The [ps], [bsp] and [global] workers are child processes: their
 launches are not in the kernels line's counts, and each launch checks
 its workers' own.
-The launches of parse_libsvm over the apps, the passes, the k-means run,
-the L-BFGS apps and [cache] make its launch count; parse_criteo's are
+The launches of parse_libsvm over the apps, the passes, [fs]'s passes,
+the k-means run, the L-BFGS apps and [cache] make its launch count; parse_criteo's are
 the Criteo passes', the convert's and the one-reader check's text side,
 parse_adfea's the adfea pass's; coo_spmv_t's count
 includes the k-means run's and app's and [cache]'s, and its row carries
@@ -2415,6 +2432,141 @@ def run_e2e(device, files: dict, apps=E2E_APPS, fmt: str = "libsvm",
                f"{stall:.3f} s ({100 * rec['stall_share']:.1f}% of the wall)")
             + f"; app call {app_s:.2f} s")
         out[name] = rec
+    return out
+
+
+# ---------------------------------------------------------------- fs
+FS_SCHEME = "smokemem"  # the in-memory filesystem [fs] registers
+FS_APP = ("linear-2^22", "linear", DENSE_BUCKETS, ["algo=ftrl"])
+
+
+class MemFS:
+    """An in-memory filesystem (data/filesys.py's FileSystem surface):
+    whole objects in a dict, written on close, as an object store
+    writes them."""
+
+    def __init__(self):
+        self.files: dict[str, bytes] = {}
+
+    def open(self, path: str, mode: str = "rb"):
+        import io
+
+        if "r" in mode:
+            return io.BytesIO(self.files[path])
+        files = self.files
+
+        class _Upload(io.BytesIO):
+            def close(self_inner):  # noqa: N805
+                files[path] = self_inner.getvalue()
+                super().close()
+
+        return _Upload()
+
+    def list_dir(self, path: str) -> list:
+        path = path.rstrip("/") + "/"
+        return sorted({f[len(path):].split("/", 1)[0]
+                       for f in self.files if f.startswith(path)})
+
+    def isfile(self, path: str) -> bool:
+        return path in self.files
+
+    def isdir(self, path: str) -> bool:
+        return bool(self.list_dir(path))
+
+    def getsize(self, path: str) -> int:
+        return len(self.files[path])
+
+
+def run_fs(device, path: str) -> dict:
+    """[fs]: the URI filesystem layer on the main path. The [e2e] 2^22
+    libsvm file is read three ways, by its plain path, as file://<path>
+    and from an in-memory filesystem registered under FS_SCHEME: every
+    part's batches, parsed on the card, equal byte for byte, and one
+    linear 2^22 train pass of each through the app (examples/s, its
+    parse_libsvm launches). A linear 2^26 model is saved and loaded
+    through the registered scheme, its tables bit-equal; hdfs:// and
+    azure:// raise NotImplementedError naming register_filesystem, an
+    unknown scheme ValueError. Returns each way's pass."""
+    import torch
+
+    from wormhole_tpu_torch.data import filesys as fsys
+    from wormhole_tpu_torch.data.minibatch import MinibatchIter
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.ops import _cuda
+    from wormhole_tpu_torch.utils import checkpoint as ckpt
+
+    mem = MemFS()
+    fsys.register_filesystem(FS_SCHEME, mem)
+    with open(path, "rb") as f:
+        mem.files["e2e/" + os.path.basename(path)] = f.read()
+    ways = {"path": path, "file": "file://" + os.path.abspath(path),
+            "registered": f"{FS_SCHEME}://e2e/{os.path.basename(path)}"}
+    n = 0
+    _cuda.reset_launches()
+    for part in range(E2E_PARTS):
+        its = {w: MinibatchIter(u, part, E2E_PARTS, minibatch_size=MINIBATCH,
+                                device=device) for w, u in ways.items()}
+        for blks in zip(*its.values(), strict=True):
+            want = rowblock_arrays(blks[0])
+            for w, blk in zip(list(ways)[1:], blks[1:]):
+                same_arrays(f"[fs] {w} batch {n}", rowblock_arrays(blk),
+                            want)
+            n += 1
+    card = torch.device(device).type == "cuda"
+    if card and not _cuda.LAUNCHES["parse_libsvm"]:
+        raise AssertionError("[fs] the readers parsed nothing on the card")
+    log(f"[fs] {n} batches of {E2E_PARTS} parts equal byte for byte from "
+        f"the plain path, file:// and {FS_SCHEME}://, each parsed on the "
+        f"card")
+    out = {"batches": n}
+    for w, uri in ways.items():
+        rec = run_e2e(device, {DENSE_BUCKETS: uri},
+                      apps=((f"{FS_APP[0]} {w}", *FS_APP[1:]),))
+        out[w] = next(iter(rec.values()))
+        if card and out[w]["launches"]["parse_libsvm"] == 0:
+            raise AssertionError(f"[fs] the {w} pass launched no "
+                                 f"parse_libsvm")
+    # a 2^26 model through the registered scheme: random values at a
+    # sixty-fourth of the rows, as sparse as a trained model's tables
+    cfg = LinearConfig(num_buckets=COMPACT_BUCKETS, minibatch=MINIBATCH,
+                       nnz_per_row=NNZ_PER_ROW, algo="ftrl")
+    a, b = (LinearLearner(cfg, device=device) for _ in range(2))
+    gen = torch.Generator(device=device).manual_seed(19)
+    for v in a.store.state.values():
+        rows = torch.randint(0, v.shape[0], (v.shape[0] // 64,),
+                             generator=gen, device=device)
+        v[rows] = torch.randn(rows.shape, generator=gen, device=device)
+    base = f"{FS_SCHEME}://models/linear-2^26"
+    t = time.perf_counter()
+    ckpt.save_model(a.store, base)
+    save_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ckpt.load_model(b.store, base)
+    load_s = time.perf_counter() - t
+    for k, v in a.store.state.items():
+        if not bool((b.store.state[k] == v).all()):
+            raise AssertionError(f"[fs] table {k} changed through "
+                                 f"{FS_SCHEME}://")
+    nbytes = len(mem.files["models/linear-2^26.npz"])
+    log(f"[fs] a linear 2^26 model ({', '.join(a.store.state)}) saved "
+        f"through {FS_SCHEME}:// in {save_s:.2f} s ({nbytes} bytes, "
+        f"compressed) and loaded in {load_s:.2f} s, every table bit-equal")
+    out["model"] = {"save_s": save_s, "load_s": load_s, "bytes": nbytes}
+    for scheme in ("hdfs", "azure"):
+        try:
+            fsys.open_stream(f"{scheme}://nn/x", "rb")
+        except NotImplementedError as e:
+            if "register_filesystem" not in str(e):
+                raise AssertionError(f"[fs] {scheme}:// says {e}") from e
+        else:
+            raise AssertionError(f"[fs] {scheme}:// opened")
+    try:
+        fsys.get_filesystem("nosuchscheme://x")
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("[fs] an unknown scheme resolved")
+    fsys._REGISTRY.pop(FS_SCHEME, None)
     return out
 
 
@@ -4721,6 +4873,12 @@ LINEAR_PS_KERNELS = ("tile_gather", "coo_spmv_t", "scatter_update",
                      "parse_libsvm")
 PS_KNOBS = ("WH_ASYNC_SYNC", "WH_KEYCACHE", "WH_WIRE", "WH_WIRE_EF",
             "WH_WIRE_COMP", "WH_PS_PLANE", "WH_NUM_LOADERS", "WH_ROLE")
+# [ps] hot: tcp then hot at one shape, 4 steps a part, max_delay 1 (the
+# tcp launch syncs every step, the hot one flushes once a part)
+PS_HOT_MINIBATCH = 6_272       # a 25,000-row file's quarter, 128-aligned
+PS_HOT_FM_MINIBATCH = 32_768   # a quarter of an [e2e] part's 131,072 rows
+PS_HOT_MAX_DELAY = 1
+PS_HOT_SHARE = 0.25  # the hot launch's flushes over the tcp launch's syncs
 
 
 def ps_launch(tag: str, n: int, s: int, app: str, conf: str, device,
@@ -4801,7 +4959,10 @@ def ps_summary(rec: dict) -> dict:
             perf[k] = round(perf.get(k, 0.0) + v, 3)
     return {"examples_per_s": nex / max(sec, 1e-9),
             "bytes_per_sync": [w["last_round_bytes_per_sync"] for w in ws],
+            "wire_bytes": [w["bytes_push"] + w["bytes_pull"] for w in ws],
             "syncs": [w["num_syncs"] for w in ws],
+            "plane": [w["plane"] for w in ws],
+            "steps": [w["perf_cnt"].get("train_step", 0) for w in ws],
             "perf_sec": perf,
             "keycache_hits": [w["keycache_hits"] for w in ws],
             "keycache_hit_rate": [w["keycache_hit_rate"] for w in ws],
@@ -4839,6 +5000,7 @@ def ps_single(app: str, conf: str, device, loaders=None) -> dict:
         raise AssertionError(f"[ps] single {app}: no pass line\n"
                              f"{text.getvalue()[-2000:]}")
     return {"walls": [float(w) for w in walls],
+            "rows": int(res["train"].value("nex")),  # the last pass's
             "val_logloss": res["val"].mean("logloss"),
             "val_auc": res["val"].mean("auc")}
 
@@ -4868,15 +5030,81 @@ def write_ps_conf(path: str, body: dict) -> str:
     return path
 
 
+def ps_hot_pair(tag: str, app: str, body: dict, d: str, device,
+                kernels, train_parts: int) -> dict:
+    """[ps] hot: `app` on `body`'s conf through the launcher at -n 1 -s 1
+    twice, WH_PS_PLANE=tcp with the sync plane, then WH_PS_PLANE=hot, and
+    the single process on the same conf (one loader: the parts in file
+    order) for the bar. Fails unless the hot worker's [ps-wire] names the
+    hot plane, counted every step it took (hot_steps == its train steps
+    == the tcp launch's), flushed once a train part (`train_parts`: the
+    part ends; the round ends and the final flush find nothing new) and
+    at most PS_HOT_SHARE of the tcp launch's syncs, and the model its
+    servers saved (the cold tier) scores val within PS_N1_BAR of the
+    single process. Returns tcp's and hot's numbers side by side."""
+    out = {}
+    for plane in ("tcp", "hot"):
+        conf = write_ps_conf(os.path.join(d, f"{tag}-{plane}.conf"),
+                             dict(body, model_out=f"{d}/{tag}-{plane}"))
+        if plane == "tcp":
+            one = ps_single(app, conf, device, loaders=1)
+            out["single"] = {"val_logloss": one["val_logloss"],
+                             "one_loader_examples_per_s":
+                                 one["rows"] / one["walls"][-1]}
+        rec = ps_launch(f"n1s1 {tag} {plane}", 1, 1, app, conf, device,
+                        dict(PS_PLANES[1][1], WH_PS_PLANE=plane), kernels)
+        w = rec["wires"][0]
+        row = ps_summary(rec)
+        row.update(hot_steps=w.get("hot_steps"), flushes=w.get("flushes"),
+                   devices=w.get("devices"),
+                   saved_val_logloss=ps_saved_logloss(
+                       app, conf, f"{d}/{tag}-{plane}", device))
+        out[plane] = row
+    tcp, hot = out["tcp"], out["hot"]
+    steps = hot["steps"][0]
+    diff = abs(hot["saved_val_logloss"] - out["single"]["val_logloss"])
+    log(f"[ps] hot {tag}: tcp {json.dumps(tcp)}")
+    log(f"[ps] hot {tag}: hot {json.dumps(hot)}")
+    log(f"[ps] hot {tag}: tcp vs hot: examples/s of the last round "
+        f"{tcp['examples_per_s']:.0f} vs {hot['examples_per_s']:.0f}, wire "
+        f"bytes {tcp['wire_bytes'][0]} vs {hot['wire_bytes'][0]}, syncs "
+        f"{tcp['syncs'][0]} vs flushes {hot['flushes']} ({steps} steps, "
+        f"{train_parts} train parts), d2h copies {tcp['d2h_copies'][0]} vs "
+        f"{hot['d2h_copies'][0]}, h2d copies {tcp['h2d_copies'][0]} vs "
+        f"{hot['h2d_copies'][0]}; the hot servers' model scores val "
+        f"{hot['saved_val_logloss']:.6f} against the single process's "
+        f"{out['single']['val_logloss']:.6f} (|diff| {diff:.2e}, bar "
+        f"{PS_N1_BAR})")
+    bad = []
+    if tcp["plane"] != ["tcp"] or hot["plane"] != ["hot"]:
+        bad.append(f"planes {tcp['plane']} {hot['plane']}")
+    if not hot["hot_steps"] == steps == tcp["steps"][0] > 0:
+        bad.append(f"hot_steps {hot['hot_steps']}, steps {steps}, tcp "
+                   f"steps {tcp['steps'][0]}")
+    if hot["flushes"] != train_parts:
+        bad.append(f"flushes {hot['flushes']} of {train_parts} part ends")
+    if not hot["flushes"] <= PS_HOT_SHARE * tcp["syncs"][0]:
+        bad.append(f"flushes {hot['flushes']} over a quarter of the tcp "
+                   f"launch's {tcp['syncs'][0]} syncs")
+    if not diff <= PS_N1_BAR:
+        bad.append(f"saved val logloss {hot['saved_val_logloss']} vs the "
+                   f"single process's {out['single']['val_logloss']}")
+    if bad:
+        raise AssertionError(f"[ps] hot {tag}: " + "; ".join(bad))
+    return out
+
+
 def run_ps(device, smi: str, workdir: str, e2e_file: str,
            num_buckets=COMPACT_BUCKETS, rows=PS_ROWS, files=PS_FILES,
            minibatch=PS_MINIBATCH, val_rows=PS_VAL_ROWS, passes=PS_PASSES,
            fm_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
            fm_minibatch=MINIBATCH, fm_val_rows=MINIBATCH,
-           fm_rows=E2E_BATCHES * MINIBATCH) -> dict:
+           fm_rows=E2E_BATCHES * MINIBATCH, hot_minibatch=PS_HOT_MINIBATCH,
+           hot_fm_minibatch=PS_HOT_FM_MINIBATCH) -> dict:
     """[ps]: the parameter-server plane through the launcher (see the
-    module docstring). Every launch's workers train on `device` with
-    kernel=pallas, so a worker without its kernels fails the launch."""
+    module docstring), the hot plane's tcp/hot pairs among it. Every
+    launch's workers train on `device` with kernel=pallas, so a worker
+    without its kernels fails the launch."""
     import torch
 
     from wormhole_tpu_torch.utils import checkpoint as ckpt
@@ -4926,6 +5154,11 @@ def run_ps(device, smi: str, workdir: str, e2e_file: str,
         if not diff <= bar:
             raise AssertionError(f"[ps] n1s1 {tag}: val logloss {saved} "
                                  f"vs {one['val_logloss']}")
+    # the hot plane on the same files at the same width, 4 steps a part
+    out["hot linear"] = ps_hot_pair(
+        "linear", "linear", dict(base, minibatch=hot_minibatch,
+                                 max_delay=PS_HOT_MAX_DELAY),
+        d, device, LINEAR_PS_KERNELS, train_parts=passes * files)
     conf2 = write_ps_conf(os.path.join(d, "n2.conf"),
                           dict(base, model_out=f"{d}/model-n2"))
     rec = ps_launch("n2s2 linear", 2, 2, "linear", conf2, device,
@@ -4964,6 +5197,10 @@ def run_ps(device, smi: str, workdir: str, e2e_file: str,
     if not diff <= PS_N1_BAR:
         raise AssertionError(f"[ps] n1s1 difacto: val logloss "
                              f"{rec['logloss']} vs {fone['val_logloss']}")
+    out["hot difacto"] = ps_hot_pair(
+        "difacto", "difacto", dict(fm, minibatch=hot_fm_minibatch,
+                                   max_delay=PS_HOT_MAX_DELAY),
+        d, device, FM_KERNELS, train_parts=E2E_PARTS)
     # -n 2 -s 2: one shared model (its saved shards score val as the
     # scheduler's final line says); its distance from the single process
     # is reported beside the 0.05 bar, which this configuration's labels
@@ -5687,6 +5924,14 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
         f"{time.perf_counter() - t:.1f}s")
     passes = run_e2e(device, files)
     log(f"[phase] e2e {time.perf_counter() - t:.1f}s")
+    # the URI filesystem layer: its passes parse on the card, and their
+    # parse_libsvm launches are the main path's
+    t = time.perf_counter()
+    fs = run_fs(device, files[DENSE_BUCKETS])
+    for w in ("path", "file", "registered"):
+        launches["parse_libsvm"] += fs[w].pop("launches")["parse_libsvm"]
+    log(f"[fs] {smi}: " + json.dumps(fs))
+    log(f"[phase] fs {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
     lbfgs, n_parse = run_lbfgs(device, files[DENSE_BUCKETS])
     launches["parse_libsvm"] += n_parse

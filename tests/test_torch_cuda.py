@@ -51,6 +51,36 @@ def _sum_close(got, want, mag):
     assert (err <= 1e-4 + 1e-5 * mag).all(), float(err.max())
 
 
+def _graph_ops(call, stream):
+    """The device operations `call` enqueues, as a CUDA graph captured on
+    `stream` records them: a list of (kind, label), kind "memset" or
+    "kernel", from the graph's DOT dump. A capture holds exactly what the
+    call enqueued on its stream, nothing of another stream, thread or
+    test, and no record can go missing (a torch.profiler session in a
+    full-file run lost some of its operations' activity records), and a
+    host sync inside the call fails the capture."""
+    import os
+    import tempfile
+
+    g = torch.cuda.CUDAGraph(keep_graph=True)  # kept for the dump
+    with torch.cuda.graph(g, stream=stream):
+        call()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "graph.dot")
+        g.enable_debug_mode()
+        g.debug_dump(path)
+        with open(path) as f:
+            text = f.read()
+    del g
+    # a node's definition starts a line with its quoted name and its
+    # attributes, up to "];" (an edge's line starts `"a" -> "b" [`)
+    nodes = re.findall(r'^\s*"[^"\s]*node_\d+"\s*\[(.*?)\];', text,
+                       flags=re.S | re.M)
+    assert nodes, text[:2000]
+    return [("memset" if "MEMSET" in node.upper() else "kernel", node)
+            for node in nodes]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES, ids=["f32", "bf16"])
 def test_coo_kernels_match_plain(cuda, dtype):
@@ -756,7 +786,9 @@ def test_v_row_kernels_layouts(cuda, dim, case):
 @pytest.mark.cuda
 def test_scatter_update_one_launch_no_sync(cuda):
     """With fixed_bytes == 0 a call enqueues one device operation (the
-    kernel: no memset, no scale) and never syncs the host."""
+    kernel: no memset, no scale) and never syncs the host. Every call
+    runs on one stream of the test's own: the wrapper's scratch is a
+    stream's, zeroed by its first call there."""
     rng = np.random.default_rng(7)
     nb, uniq_np = _update_slots("pack", rng)
     slots = torch.from_numpy(uniq_np).to(cuda)
@@ -764,24 +796,25 @@ def test_scatter_update_one_launch_no_sync(cuda):
     state = {"w": torch.randn(nb, device=cuda),
              "z": torch.randn(nb, device=cuda),
              "n": torch.rand(nb, device=cuda)}
-    fu.scatter_update("ftrl", state, g, slots, None, None, None,
-                      dtype=torch.float32, **HYPER)  # builds, scratch
     torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
+    stream = torch.cuda.Stream(cuda)
+    with torch.cuda.stream(stream):
         fu.scatter_update("ftrl", state, g, slots, None, None, None,
-                          dtype=torch.float32, **HYPER)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    with torch.profiler.profile(
-            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        fu.scatter_update("ftrl", state, g, slots, None, None, None,
-                          dtype=torch.float32, **HYPER)
+                          dtype=torch.float32, **HYPER)  # builds, scratch
         torch.cuda.synchronize()
-    device_ops = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fu.scatter_update("ftrl", state, g, slots, None, None, None,
+                              dtype=torch.float32, **HYPER)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    device_ops = _graph_ops(
+        lambda: fu.scatter_update("ftrl", state, g, slots, None, None, None,
+                                  dtype=torch.float32, **HYPER), stream)
     assert len(device_ops) == 1, device_ops
+    assert device_ops[0][0] == "kernel", device_ops
+    assert "scatter_update" in device_ops[0][1], device_ops
 
 
 def _push_edge_stream(case, seed):
@@ -865,19 +898,17 @@ def test_coo_spmv_t_no_sync(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
-    activities = [torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=activities):  # starts CUPTI
-        ck.coo_spmv_t(d, *args)
-        torch.cuda.synchronize()
-    with torch.profiler.profile(activities=activities) as prof:
+    stream = torch.cuda.Stream(cuda)
+
+    def three_calls():
         for _ in range(3):
             ck.coo_spmv_t(d, *args)
-        torch.cuda.synchronize()
-    device_ops = [e.name for e in prof.events()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    device_ops = _graph_ops(three_calls, stream)
     assert len(device_ops) == 6, device_ops
-    assert sum("push_kernel" in op for op in device_ops) == 3, device_ops
-    assert sum("emset" in op for op in device_ops) == 3, device_ops
+    assert sum(kind == "kernel" and "push_kernel" in lab
+               for kind, lab in device_ops) == 3, device_ops
+    assert sum(kind == "memset" for kind, _ in device_ops) == 3, device_ops
 
 
 @pytest.mark.cuda

@@ -193,3 +193,35 @@ def test_ps_plane_host_modules_import_no_torch():
                          capture_output=True, text=True, env=env,
                          cwd=str(ROOT), timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_scan_covers_the_last_modules():
+    """The hot plane, the URI filesystem layer and match_file are among
+    the sources scanned and the modules the probe imports with JAX
+    blocked."""
+    for rel in ("parallel/hot_plane.py", "data/filesys.py",
+                "data/match_file.py", "__init__.py"):
+        assert PORT / rel in SOURCES
+
+
+def test_scheduler_file_matching_imports_no_torch():
+    """The scheduler matches files through data/match_file.py and
+    data/filesys.py: importing them, and the pool that re-exports
+    match_file, pulls in neither torch nor JAX."""
+    probe = (
+        "import sys; sys.path.insert(0, sys.argv[1])\n"
+        "import wormhole_tpu_torch.data.filesys\n"
+        "import wormhole_tpu_torch.data.match_file\n"
+        "from wormhole_tpu_torch.solver.workload import match_file\n"
+        "from wormhole_tpu_torch.data.match_file import match_file as m\n"
+        "assert match_file is m\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'wormhole_tpu'))\n"
+        "assert not bad, bad\n"
+        "from wormhole_tpu_torch.data import MinibatchIter, RowBlock\n"
+        "assert 'torch' in sys.modules\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", probe, str(ROOT)],
+                         capture_output=True, text=True, env=env,
+                         cwd=str(ROOT), timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -57,3 +57,31 @@ def test_bsp_names_are_registered():
     for n in ("bsp.allreduce_s", "bsp.checkpoint_s"):
         assert n in names.HISTOGRAMS
     assert {"bsp.round", "bsp.peer.*"} <= set(names.SPANS)
+
+
+# what the port's registry leaves out of the JAX one, and what only the
+# port emits (wormhole_tpu_torch/obs/names.py's docstring)
+LEFT_OUT = {"kv.gather_rows", "kv.jit_cache_misses", "kv.scatter_rows",
+            "kv.gather_s", "kv.scatter_s", "san.block.calls",
+            "san.findings", "san.order.cycles", "san.order.edges",
+            "san.race.candidates", "solver.*_pass"}
+PORT_ONLY = {"kvstore.d2h_copies", "kvstore.h2d_copies",
+             "serve.score.h2d_s"}
+
+
+@pytest.mark.parametrize("kind", ["COUNTERS", "GAUGES", "HISTOGRAMS",
+                                  "SPANS", "EVENTS"])
+def test_port_registry_is_the_jax_one_less_its_exclusions(kind):
+    """Each kind of the port's registry is the JAX package's, less the
+    names it leaves out and plus its own, with the same help text; the
+    hot plane's ps.hot.* are no longer left out."""
+    from wormhole_tpu.obs import names as jax_names
+    from wormhole_tpu_torch.obs import names
+
+    want, got = getattr(jax_names, kind), getattr(names, kind)
+    assert set(want) - set(got) == set(want) & LEFT_OUT
+    assert set(got) - set(want) == set(got) & PORT_ONLY
+    for k in set(got) & set(want):
+        assert got[k] == want[k], k
+    if kind == "COUNTERS":
+        assert {"ps.hot.steps", "ps.hot.flushes"} <= set(got)

@@ -11,7 +11,10 @@ the single-process run and its validation logloss within 1e-3; against
 the JAX launcher's `-n 1 -s 1` run, the tables within rtol 1e-4 / atol
 1e-6 and logloss and AUC within 1e-3 (the learner bar of
 tests/test_linear.py); `-n 2` runs within 0.05 logloss of the
-single-process run (the bar of tests/test_apps.py). The parity runs read
+single-process run (the bar of tests/test_apps.py). A `-n 1 -s 1`
+launch under WH_PS_PLANE=hot holds the same bars as the tcp one and
+flushes fewer times than the tcp launch syncs; `-n 2` under hot fails
+with the JAX package's RuntimeError. The parity runs read
 one file of one part: the JAX pool hands parts out at random, the port's
 in file order."""
 
@@ -237,10 +240,56 @@ def test_other_apps_refuse_launcher_roles(data, tmp_path):
     assert "run with bsp=1, or without the launcher" in p.stdout + p.stderr
 
 
+@pytest.fixture(scope="module")
+def hot_n1(data, tmp_path_factory):
+    """The port's `-n 1 -s 1` launch under WH_PS_PLANE=hot on the
+    one-part parity file."""
+    d = tmp_path_factory.mktemp("hot")
+    conf = _conf(d / "hot.conf", LINEAR, train_data=f"{data}/one.libsvm",
+                 val_data=f"{data}/val.libsvm", num_parts_per_file=1,
+                 model_out=f"{d}/model")
+    cmd = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
+           "-n", "1", "-s", "1", "--", sys.executable, "-m",
+           "wormhole_tpu_torch.apps.linear", str(conf), "device=cpu"]
+    out = run_group(cmd, env_extra={"WH_PS_PLANE": "hot",
+                                    "WH_ASYNC_SYNC": "1"})
+    return out, load_parts(f"{d}/model")
+
+
+def test_n1_s1_hot_launch_matches_single_process(hot_n1, port_n1, data,
+                                                 monkeypatch):
+    """WH_PS_PLANE=hot through the launcher: the worker names the hot
+    plane, its steps make no sync (one flush a part: two passes of one
+    part), the servers' saved model (the cold tier) scores val within
+    1e-3 logloss of the single process, and it flushed fewer times than
+    the tcp launch synced."""
+    import json
+
+    out, saved = hot_n1
+    assert "[ps-plane] hot (workers=1, device=cpu)" in out
+    w = json.loads(re.search(r"\[ps-wire\] (\{.*\})", out).group(1))
+    assert w["plane"] == "hot" and w["devices"] == 1
+    assert w["async_sync"] == 0  # WH_ASYNC_SYNC=1 does not leak in
+    assert w["hot_steps"] == 2 * 4  # two passes of 512 rows / 128
+    assert w["flushes"] == w["num_syncs"] == 2
+    tcp = json.loads(re.search(r"\[ps-wire\] (\{.*\})",
+                               port_n1[0]).group(1))
+    assert tcp["plane"] == "tcp" and w["flushes"] < tcp["num_syncs"]
+    res, single = _single_linear(
+        monkeypatch, train_data=f"{data}/one.libsvm",
+        val_data=f"{data}/val.libsvm", num_parts_per_file=1)
+    for k in ("z", "n"):
+        np.testing.assert_allclose(saved[k], single[k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    logloss, _ = final_val(out)
+    assert abs(logloss - res["val"].mean("logloss")) < 1e-3
+
+
 def test_hot_plane_and_global_mesh_raise(data, tmp_path):
-    """WH_PS_PLANE=hot still raises (ROADMAP item 5.5). global_mesh=1 now
-    launches cleanly: with -s 1 the server idles and the one worker
-    trains as a group of one rank."""
+    """WH_PS_PLANE=hot across two worker processes raises the JAX
+    package's RuntimeError in every role, so the launch fails at once.
+    global_mesh=1 launches cleanly: with -s 1 the server idles and the
+    one worker trains as a group of one rank."""
     conf = _conf(tmp_path / "h.conf", LINEAR,
                  train_data=f"{data}/one.libsvm", num_parts_per_file=1)
     out = launch("wormhole_tpu_torch", 1, 1, "linear", conf, "device=cpu",
@@ -248,18 +297,19 @@ def test_hot_plane_and_global_mesh_raise(data, tmp_path):
     assert "[global-mesh] rank 0 of 1: backend gloo, device cpu" in out
     assert "[global-mesh] train pass 0" in out
     assert "[global server 0] cuda context: none" in out
-    for extra, env, msg in (([], {"WH_PS_PLANE": "hot"}, "item 5.5"),):
-        cmd = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
-               "-n", "1", "-s", "1", "--", sys.executable, "-m",
-               "wormhole_tpu_torch.apps.linear", str(conf), "device=cpu",
-               *extra]
-        p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                             stderr=subprocess.STDOUT, text=True,
-                             env=dict(os.environ, PYTHONPATH=REPO, **env),
-                             cwd=REPO, start_new_session=True)
-        try:
-            out, _ = p.communicate(timeout=LAUNCH_TIMEOUT)
-        finally:
-            if p.poll() is None:
-                os.killpg(p.pid, signal.SIGKILL)
-        assert p.returncode != 0 and msg in out, out[-2000:]
+    cmd = [sys.executable, "-m", "wormhole_tpu_torch.launcher.dmlc_tpu",
+           "-n", "2", "-s", "1", "--", sys.executable, "-m",
+           "wormhole_tpu_torch.apps.linear", str(conf), "device=cpu"]
+    p = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True,
+                         env=dict(os.environ, PYTHONPATH=REPO,
+                                  WH_PS_PLANE="hot"),
+                         cwd=REPO, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=LAUNCH_TIMEOUT)
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+    assert p.returncode != 0, out[-2000:]
+    assert ("RuntimeError: WH_PS_PLANE=hot requires all data-parallel "
+            "workers in one process (job has -n 2)") in out, out[-2000:]

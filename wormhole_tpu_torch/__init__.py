@@ -10,3 +10,23 @@ versions.
 """
 
 __version__ = "0.1.0"
+
+import os as _os
+
+
+def _install_stackdump() -> None:
+    """WORMHOLE_STACKDUMP=1: dump all-thread Python stacks to stderr on
+    SIGUSR1 — the way to see where a launcher-spawned role process is
+    stuck on a machine without gdb or py-spy."""
+    if _os.environ.get("WORMHOLE_STACKDUMP") != "1":
+        return
+    try:
+        import faulthandler
+        import signal
+
+        faulthandler.register(signal.SIGUSR1, all_threads=True)
+    except (ImportError, AttributeError, ValueError):
+        pass  # non-main thread / platform without SIGUSR1
+
+
+_install_stackdump()

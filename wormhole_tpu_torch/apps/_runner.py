@@ -30,7 +30,9 @@ does:
 - worker: a learner on its device (the card unless `device=cpu`) whose
   parts come from the scheduler's RemotePool and whose tables sync with
   the server group through a SyncedStore, every `max_delay` minibatches
-  and at every part's end.
+  and at every part's end; or, with WH_PS_PLANE=hot and `-n 1`, through
+  a HotPlane (parallel/hot_plane.py) whose steps make no RPC and which
+  reconciles the servers, its cold tier, at every part's end only.
 
 With global_mesh=1 (`maybe_run_global`, every app) the `-n` workers join
 ONE process group instead
@@ -161,9 +163,9 @@ def run_minibatch_app(cfg, make_learner, device="cuda",
         return maybe_run_global(
             cfg, lambda cfg, env, client, dev: _global_train(
                 cfg, env, make_learner, dev, verbose, client), device)
-    # every role checks the plane, so a launch that asks for one the
-    # port lacks fails at once, not at the scheduler's liveness timeout
-    _pick_plane(env)
+    # every role checks the plane, so a launch that asks for one it
+    # cannot run fails at once, not at the scheduler's liveness timeout
+    _plane_knob(env)
     if env.role.value == "scheduler":
         return _run_scheduler(cfg, env, verbose)
     if env.role.value == "server":
@@ -818,7 +820,13 @@ def _run_worker_body(cfg, env, verbose, learner, client) -> dict:
                       resolver=_resolve if retry_sec > 0 else None)
         learner.track_touched = hasattr(learner, "collect_touched")
         plane = _pick_plane(env)
-        synced = SyncedStore(
+        if plane == "hot":
+            from wormhole_tpu_torch.parallel.hot_plane import HotPlane
+
+            plane_cls = HotPlane
+        else:
+            plane_cls = SyncedStore
+        synced = plane_cls(
             _store(learner), ps,
             max_delay=getattr(cfg, "max_delay", 16),
             fixed_bytes=getattr(cfg, "fixed_bytes", 0),
@@ -906,20 +914,43 @@ def _run_worker_body(cfg, env, verbose, learner, client) -> dict:
     return result
 
 
-def _pick_plane(env) -> str:
-    """Resolve WH_PS_PLANE. The port has the TCP plane only: `auto`
-    resolves to it, and `hot` (the model resident on the worker's
-    devices, the servers a flush-barrier cold tier) raises until its
-    slice."""
+def _plane_knob(env) -> str:
+    """WH_PS_PLANE as set (auto, tcp or hot), checked: an unknown value
+    raises ValueError, and `hot` across several worker processes raises
+    RuntimeError. Every role checks it; it imports no torch."""
     plane = (os.environ.get("WH_PS_PLANE") or "auto").lower()
     if plane not in ("auto", "tcp", "hot"):
         raise ValueError(
             f"WH_PS_PLANE={plane!r}: expected auto, tcp, or hot")
-    if plane == "hot":
-        raise NotImplementedError(
-            "WH_PS_PLANE=hot (the hot plane, parallel/hot_plane.py) is "
-            "not ported: ROADMAP.md Queue A item 5.5; use tcp or auto")
-    return "tcp"
+    if plane == "hot" and env.num_workers > 1:
+        raise RuntimeError(
+            "WH_PS_PLANE=hot requires all data-parallel workers in "
+            f"one process (job has -n {env.num_workers}): the hot "
+            "plane's tables are sharded over the LOCAL device mesh, "
+            "and separate worker processes would each train a "
+            "private copy. Use -n 1 (the local mesh is the data "
+            "parallelism) or WH_PS_PLANE=tcp.")
+    return plane
+
+
+def _pick_plane(env) -> str:
+    """Resolve WH_PS_PLANE. `hot` keeps the model on the worker's card
+    (parallel/hot_plane.py: its steps wire-silent) and demotes the TCP
+    servers to a flush-barrier cold tier — valid only when ALL
+    data-parallel workers share this process. A hot worker's learner is
+    the one a `-n 1` worker has anyway: one device, no process group;
+    that one device is the port's "local mesh". `auto` picks hot exactly
+    where the JAX package does (one worker process, >= 2 local devices,
+    here `torch.cuda.device_count()`) and the TCP plane everywhere
+    else, so on one card and on the CPU it resolves to tcp."""
+    plane = _plane_knob(env)
+    if plane != "auto":
+        return plane
+    if env.num_workers != 1:
+        return "tcp"
+    import torch
+
+    return "hot" if torch.cuda.device_count() >= 2 else "tcp"
 
 
 def _store(learner):

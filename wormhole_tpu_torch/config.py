@@ -109,10 +109,7 @@ def apply_config(cls, kv: dict[str, list[str]]):
 
 # ---------------------------------------------------------------------------
 # Environment-knob registry: the port's copy of the JAX package's, with the
-# same names, types, defaults and docs for the knobs the port reads (the
-# serving tier and the wire, retry, overload, fault and obs layers beneath
-# it). The loader plane's WH_PACK_CACHE* and WH_NUM_LOADERS are still read
-# straight from the environment.
+# same names, types, defaults and docs for every knob the port reads.
 # ---------------------------------------------------------------------------
 
 
@@ -413,6 +410,9 @@ declare_knob("WH_ASYNC_SYNC", bool, False,
 declare_knob("WH_KEYCACHE", bool, False,
              "Key-list digest caching on the PS wire (resend on miss).",
              group="ps")
+# In the port a worker's "devices" are torch.cuda.device_count(): 'auto'
+# is hot for -n 1 with two or more cards, tcp on one card and on the CPU
+# (apps/_runner.py _pick_plane). The help text stays the JAX registry's.
 declare_knob("WH_PS_PLANE", str, "auto",
              "Parameter plane: 'tcp' = SyncedStore push/pull RPCs every "
              "max_delay steps, 'hot' = device-resident sharded tables with "
@@ -489,3 +489,30 @@ declare_knob("WH_SERVE_SNAPSHOT", str, "",
              "Snapshot base path the serving shards load and watch "
              "(default: <WH_SNAPSHOT_DIR>/srv — the trainer's PS shard "
              "snapshots).", group="serve")
+
+# -- the launcher's scheduler port
+declare_knob("WH_SCHED_PORT", int, 0,
+             "Pin the launcher's scheduler RPC port so outside tooling "
+             "(chaos_lab serve driver, obs_top) can dial the job; 0 = "
+             "ephemeral.", group="runtime")
+
+# -- the loader plane
+declare_knob("WH_PACK_CACHE", bool, False,
+             "Enable the packed-batch epoch cache.", group="data")
+declare_knob("WH_PACK_CACHE_DIR", str, None,
+             "Disk tier directory for the pack cache; unset = memory only.",
+             group="data")
+declare_knob("WH_PACK_CACHE_MB", int, 512,
+             "Memory-tier byte budget for the pack cache, in MiB.",
+             group="data")
+declare_knob("WH_NUM_LOADERS", int, None,
+             "Pin the loader thread-pool size (disables adaptive sizing "
+             "unless WH_ADAPTIVE_LOADERS overrides).", group="data")
+
+# -- debugging
+declare_knob("WORMHOLE_STACKDUMP", bool, False,
+             "Install a SIGUSR1 stack-dump handler at import.", group="debug")
+declare_knob("WORMHOLE_DEBUG", bool, False,
+             "Verbose debug printing in the GBDT trainer.", group="debug")
+declare_knob("WORMHOLE_PROFILE_DIR", str, None,
+             "Directory for utils/perf.py profile dumps.", group="debug")

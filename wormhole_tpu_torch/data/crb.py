@@ -9,8 +9,8 @@ than LZ4 — the on-disk format is ours, only the design is parity.
 
 The port's copy of the JAX package's module: the same bytes on disk, so
 either package reads the other's files. Host code on every device (zlib
-has no kernel); local paths only, as data/parsers.py iter_file_chunks
-reads them.
+has no kernel); any URI data/filesys.py binds, as data/parsers.py
+iter_file_chunks reads them.
 
 Record layout (little-endian):
   u32 magic (0x57524254 'WRBT') | u32 flags | u32 num_rows |
@@ -27,6 +27,7 @@ from typing import Iterator, Optional
 
 import numpy as np
 
+from wormhole_tpu_torch.data import filesys as fsys
 from wormhole_tpu_torch.data.rowblock import RowBlock
 
 MAGIC = 0x57524254
@@ -41,7 +42,7 @@ def _pack_field(arr: Optional[np.ndarray]) -> bytes:
 def write_crb(path: str, blocks, append: bool = False) -> int:
     """Write RowBlocks as CRB records; returns #records written."""
     n = 0
-    with open(path, "ab" if append else "wb") as f:
+    with fsys.open_stream(path, "ab" if append else "wb") as f:
         for blk in blocks:
             rec = [struct.pack("<III", MAGIC, 0, blk.size)]
             rec.append(_pack_field(np.asarray(blk.label, np.float32)))
@@ -98,7 +99,7 @@ def read_crb(path: str, part: int = 0, num_parts: int = 1) -> Iterator[RowBlock]
     """Stream records of (part k of n): records are dealt round-robin to
     parts (disjoint-cover contract of InputSplit); other parts' records are
     seeked over via the length prefixes, not decompressed."""
-    with open(path, "rb") as f:
+    with fsys.open_stream(path, "rb") as f:
         i = 0
         while True:
             if i % num_parts == part:

@@ -15,7 +15,6 @@ adfea). The crb binary format is data/crb.py.
 
 from __future__ import annotations
 
-import os
 from typing import Iterator
 
 import numpy as np
@@ -158,18 +157,21 @@ def iter_file_chunks(
     num_parts: int = 1,
     chunk_bytes: int = 1 << 24,
 ) -> Iterator[str]:
-    """Yield text chunks of (part k of n) of a local file, split on line
+    """Yield text chunks of (part k of n) of a file, split on line
     boundaries — the InputSplit contract: a part starts at the first line
     beginning at-or-after its byte range start and ends at the first line
     boundary at-or-after its range end. A chunk ends at the first line
     boundary at-or-after chunk_bytes from its start (or the part's end),
     as the JAX package's line-by-line reader cuts it; the file is read a
     block at a time (a few calls a chunk, not two a line: loader threads
-    that read line by line queue on the interpreter lock)."""
-    size = os.path.getsize(path)
+    that read line by line queue on the interpreter lock). `path` may be
+    any URI data/filesys.py binds (Stream::Create parity)."""
+    from wormhole_tpu_torch.data import filesys as fsys
+
+    size = fsys.getsize(path)
     begin = size * part // num_parts
     end = size * (part + 1) // num_parts
-    with open(path, "rb") as f:
+    with fsys.open_stream(path, "rb") as f:
         if begin > 0:
             f.seek(begin - 1)
             # consume the partial line belonging to the previous part

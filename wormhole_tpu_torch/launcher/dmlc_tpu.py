@@ -591,9 +591,9 @@ def main(argv=None) -> int:
     ap.add_argument("--plane", choices=("auto", "tcp", "hot"),
                     default=None,
                     help="parameter-plane selection for the spawned "
-                         "roles (exports WH_PS_PLANE): the port has the "
-                         "tcp plane, which auto resolves to; hot raises "
-                         "(ROADMAP.md item 5.5)")
+                         "roles (exports WH_PS_PLANE): hot needs -n 1; "
+                         "auto is hot only for -n 1 with two or more "
+                         "cards, else tcp")
     ap.add_argument("cmd", nargs=argparse.REMAINDER,
                     help="program to launch (prefix with --)")
     args = ap.parse_args(argv)

@@ -15,10 +15,10 @@ dict literals statically and holds them against every
 and every registered name emitted. So the registry is the JAX one less
 what the port does not emit, and plus what only the port emits:
 
-- left out: the hot plane's ``ps.hot.*`` (ROADMAP.md item 5.5), the
-  kvstore jit timers ``kv.*`` (the port's stores are torch tensors, no
-  jit cache), the runtime sanitizer's ``san.*`` (not ported) and the
-  ``solver.*_pass`` span (the port's solver does not trace its passes);
+- left out: the kvstore jit timers ``kv.*`` (the port's stores are
+  torch tensors, no jit cache), the runtime sanitizer's ``san.*`` (not
+  ported) and the ``solver.*_pass`` span (the port's solver does not
+  trace its passes);
 - the port's own: ``kvstore.d2h_copies`` / ``kvstore.h2d_copies`` (row
   copies between the card and the host, the PS worker's ``[ps-wire]``
   line) and ``serve.score.h2d_s`` (the fetch scorer's copies to the
@@ -44,6 +44,8 @@ COUNTERS: dict[str, str] = {
     "ps.keycache.hits": "key-list digests accepted by the server",
     "ps.keycache.misses": "digest misses forcing a full key resend",
     "ps.keycache.invalidations": "key caches dropped on restore/reconnect",
+    "ps.hot.steps": "train steps aggregated in-jit by the hot plane",
+    "ps.hot.flushes": "hot-plane cold-tier flush round-trips",
     "sched.liveness_evictions": "nodes evicted by the liveness loop",
     "sched.server_recoveries": "server re-registrations after death",
     "sched.recoveries": "scheduler restarts resumed from the journal",

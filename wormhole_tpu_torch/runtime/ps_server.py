@@ -429,7 +429,7 @@ class ServerNode:
         lo, hi = shard_range(group, self.rank, self.world)
         return hi - lo
 
-    def _create_group_meta(self) -> None:
+    def _create_group_meta(self) -> None:  # wormlint: guarded-by(self._lock)
         """Version/dirty arrays for every row-space group (caller holds
         the lock, full_rows already set). uint32 clock stamps: 4
         bytes/row; push asserts the clock never reaches the wrap point
@@ -873,7 +873,7 @@ class ServerNode:
         # pull-EF residuals roll back with the tables they corrected
         self._efq = {}
 
-    def _recompute_derived(self) -> None:
+    def _recompute_derived(self) -> None:  # wormlint: guarded-by(self._lock)
         """Recompute derived tables from their additive sources over the
         rows dirtied since the last recompute (caller holds the lock).
         FTRL's w is soft-threshold-nonlinear in (z, n), so additively
@@ -899,7 +899,7 @@ class ServerNode:
         for g in self._dirty:
             self._dirty[g] = []
 
-    def _load(self, base: str, it: Optional[int]) -> None:
+    def _load(self, base: str, it: Optional[int]) -> None:  # wormlint: guarded-by(self._lock)
         """Create this shard's tables from a checkpoint (caller holds the
         lock). When the checkpoint was written by a same-world server
         group, this server reads ONLY its own `_part-<rank>` file (the

@@ -416,7 +416,9 @@ class MinibatchSolver:
                     if self._lockstep and not put(q, part_end):
                         return
             except Exception as e:  # relayed to the main thread
-                errors.append(e)
+                # CPython list.append is atomic; the main thread reads
+                # the list only after joining every loader
+                errors.append(e)  # wormlint: disable=lock-discipline
             finally:
                 put(q, end)
 

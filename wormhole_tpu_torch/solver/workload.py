@@ -23,28 +23,13 @@ which holds the pool, never touches the card.
 from __future__ import annotations
 
 import dataclasses
-import os
 import random
-import re
 import threading
 import time
 from enum import IntEnum
 from typing import Callable, Optional
 
-
-def match_file(pattern: str) -> list[str]:
-    """Sorted local files whose basename matches the regex ``pattern``'s
-    basename, within its directory (reference match_file.h:12-45). A
-    plain existing file matches itself."""
-    if os.path.isfile(pattern):
-        return [pattern]
-    dirname = os.path.dirname(pattern) or "."
-    rx = re.compile(os.path.basename(pattern))
-    if not os.path.isdir(dirname):
-        return []
-    return sorted(os.path.join(dirname, n) for n in os.listdir(dirname)
-                  if rx.search(n)
-                  and os.path.isfile(os.path.join(dirname, n)))
+from wormhole_tpu_torch.data.match_file import match_file  # noqa: F401
 
 
 def list_parts(pattern: str, num_parts_per_file: int) -> list[tuple]:

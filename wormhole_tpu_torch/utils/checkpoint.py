@@ -7,7 +7,10 @@ bucket axis, one a model shard. The port writes one part from one device
 or a mesh of one model shard, and the `_part-R` fan-out from a mesh of
 several, where data rank 0 of model shard R writes part R; it reads
 either form under any shard count, as the JAX package does, so each
-package loads the other's files. Local paths only.
+package loads the other's files. A base may be any URI data/filesys.py
+binds: a remote part is written as one whole buffer and parts are found
+with `filesys.list_dir`; the removal of an earlier save's stale parts
+stays local, as in the JAX package.
 
 `store` is anything with to_numpy / from_numpy: a KVStore, or DiFacto's
 _CombinedStore, which saves both of its table groups and, after a load,
@@ -17,21 +20,40 @@ fires its on_load callback (the learner's count-mirror resync).
 from __future__ import annotations
 
 import glob
+import io
 import os
 import re
 from typing import Optional
 
 import numpy as np
 
+from wormhole_tpu_torch.data import filesys as fsys
+
+
+def _local(uri: str) -> Optional[str]:
+    """The local path of a plain or file:// URI, else None."""
+    scheme, path = fsys.split_scheme(uri)
+    return uri if not scheme else path if scheme == "file" else None
+
 
 def atomic_savez(path: str, compressed: bool = False, **arrays) -> None:
     """np.savez via a temp file + os.replace, so a crash mid-write never
-    leaves a truncated checkpoint."""
+    leaves a truncated checkpoint. Non-local URIs upload a complete
+    buffer on close: object stores make whole-object writes atomic by
+    nature (iter_solver.h writes model shards to HDFS/S3 the same way)."""
+    save = np.savez_compressed if compressed else np.savez
     if not path.endswith(".npz"):
         path += ".npz"
-    tmp = path[:-len(".npz")] + ".tmp.npz"
-    (np.savez_compressed if compressed else np.savez)(tmp, **arrays)
-    os.replace(tmp, path)
+    local = _local(path)
+    if local is None:
+        buf = io.BytesIO()
+        save(buf, **arrays)
+        with fsys.open_stream(path, "wb") as f:
+            f.write(buf.getvalue())
+        return
+    tmp = local[:-len(".npz")] + ".tmp.npz"
+    save(tmp, **arrays)
+    os.replace(tmp, local)
 
 
 def part_name(base: str, it: Optional[int], rank: int) -> str:
@@ -56,12 +78,13 @@ def save_model(store, base: str, it: Optional[int] = None) -> list[str]:
     mesh = getattr(store, "mesh", None)
     grouped = mesh is not None and mesh.device_mesh is not None
     prefix = save_prefix(base, it)
+    local = _local(prefix)
     if grouped:
         mesh.barrier()  # no rank still reads an earlier save
-    if not grouped or mesh.rank == 0:
-        os.makedirs(os.path.dirname(base) or ".", exist_ok=True)
-        for old in (glob.glob(prefix + "_part-*.npz")
-                    + glob.glob(prefix + ".npz")):
+    if local is not None and (not grouped or mesh.rank == 0):
+        os.makedirs(os.path.dirname(local) or ".", exist_ok=True)
+        for old in (glob.glob(local + "_part-*.npz")
+                    + glob.glob(local + ".npz")):
             os.remove(old)
     if grouped:
         mesh.barrier()
@@ -88,17 +111,31 @@ def load_parts(base: str, it: Optional[int] = None) -> dict[str, np.ndarray]:
     """Read a checkpoint written with any part count into full-model
     numpy arrays."""
     prefix = save_prefix(base, it)
-    if os.path.exists(prefix + ".npz"):
-        with np.load(prefix + ".npz") as z:
-            return {k: z[k] for k in z.files if not k.startswith("__")}
-    paths = sorted(
-        glob.glob(prefix + "_part-*.npz"),
-        key=lambda p: int(re.search(r"_part-(\d+)\.npz$", p).group(1)),
-    )
+    local = _local(prefix)
+    if local is None:
+        def load(uri):
+            with fsys.open_stream(uri, "rb") as f:
+                return dict(np.load(io.BytesIO(f.read())))
+
+        if fsys.isfile(prefix + ".npz"):
+            return {k: v for k, v in load(prefix + ".npz").items()
+                    if not k.startswith("__")}
+        d, b = fsys.dirname(prefix), fsys.basename(prefix)
+        paths = [fsys.join(d, n) for n in fsys.list_dir(d)
+                 if re.fullmatch(re.escape(b) + r"_part-\d+\.npz", n)]
+    else:
+        load = np.load
+        prefix = local
+        if os.path.exists(prefix + ".npz"):
+            with np.load(prefix + ".npz") as z:
+                return {k: z[k] for k in z.files if not k.startswith("__")}
+        paths = glob.glob(prefix + "_part-*.npz")
+    paths.sort(key=lambda p: int(re.search(r"_part-(\d+)\.npz$",
+                                           p).group(1)))
     if not paths:
         raise FileNotFoundError(
             f"no checkpoint matches {prefix}.npz or {prefix}_part-*")
-    parts = [dict(np.load(p)) for p in paths]
+    parts = [dict(load(p)) for p in paths]
     # "__"-prefixed keys are per-part metadata, not model tables
     return {k: np.concatenate([p[k] for p in parts], axis=0)
             for k in parts[0] if not k.startswith("__")}
