@@ -201,8 +201,9 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    25,000-row val file, max_delay 2, 2 passes: -n 1 -s 1 with async
    sync and the key cache, synchronous, and int8 + error feedback +
    byte shuffle on the wire (WH_WIRE*), then -n 2 -s 2; DiFacto at its
-   width at -n 2 -s 2 over the [e2e] 2^22 file (4 parts, 65,536 rows a
-   batch, 1 pass) with a 65,536-row val file. Against the single-process
+   width over the [e2e] 2^22 file (4 parts, 65,536 rows a batch, 1
+   pass; -n 2 -s 2 over its first 262,144 rows, for the script's wall)
+   with a 65,536-row val file. Against the single-process
    card run on the same conf (in this process: one loader for the bar,
    the solver's own for examples/s): the -n 1 -s 1 sync model the
    servers saved scores the val file within 1e-3 logloss, every other
@@ -287,8 +288,36 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    step, round or iteration, each worker's all_reduce calls and ms (gloo
    over one card: host-staged, not a multi-GPU number), and examples/s
    against one device.
+16. the runtime sanitizer ([san], after [global]): each process imports
+   the port alone with WH_SAN=1 and a WH_SAN_DUMP_DIR of its own, so
+   wormhole_tpu_torch/wormsan arms at `import wormhole_tpu_torch`,
+   before torch loads. (a) [e2e]'s 2^26 linear pass (4 parts, 4 loaders
+   on streams of their own, a val pass on [ps]'s val file after it) and,
+   after it in the same process, (c) the fetch-mode router against 2
+   shards of a 2^26 model, closed loop at concurrency 4 in 3 s windows
+   until one holds the snapshot swapped at 0.25 s, in a `chip_smoke.py
+   --san-proc SPEC` child; (b) [ps]'s `dmlc_tpu -n 1 -s 1` linear conf
+   with WH_ASYNC_SYNC=1 and WH_KEYCACHE=1 (its files, 2 passes, so the
+   second pass goes digest-only through the key cache; the launcher
+   forwards WH_SAN to every role). Their unarmed runs in this call are
+   [e2e]'s pass, the same conf as (a) in this process after it, and
+   [ps]'s launch. Fails on any finding in any dump, on a process that
+   does not show it was armed (san.order.edges above 0: (a)'s own
+   registry, (b)'s run_report.json; every process's `[wormsan] exit`
+   line, by the role the launcher prefixes, with no finding, classes
+   instrumented and, but the launcher's, lock-order edges), unless (a)
+   launched [e2e]'s kernels, its w is finite and not all 0, its rows
+   and steps are the unarmed runs' and its val logloss within 0.05 of
+   the unarmed one, unless (b) hit the key cache and its saved model
+   scores within 0.05 of [ps]'s one-loader single process, as [ps]'s
+   unarmed launch must, unless (c)'s every response carries the scores
+   of its version, and unless (b)'s scheduler and server open no CUDA
+   context. Prints each
+   process's findings, san.* counters and classes instrumented, and
+   (a)'s and (b)'s examples/s armed beside unarmed (the sanitizer's
+   cost, no bar).
 
-The [ps], [bsp] and [global] workers are child processes: their
+The [ps], [bsp], [global] and [san] workers are child processes: their
 launches are not in the kernels line's counts, and each launch checks
 its workers' own.
 The launches of parse_libsvm over the apps, the passes, [fs]'s passes,
@@ -322,6 +351,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import types
 
@@ -1243,20 +1273,83 @@ def run_difacto(device, num_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
 
 
 # ------------------------------------------------------------- phase 3
+def _dec(x, width: int, pad: bool = False) -> tuple:
+    """Decimal digits of non-negative ints `x` in `width` ASCII columns,
+    right-aligned, and which columns "%d" keeps (no leading zeros; all
+    of them with `pad`, as the fraction of "%.3f")."""
+    x = np.array(x, np.int64)
+    chars = np.empty((*x.shape, width), np.uint8)
+    kept = np.empty(chars.shape, bool)
+    for j in range(width - 1, -1, -1):
+        chars[..., j] = x % 10 + 48
+        kept[..., j] = x > 0
+        x //= 10
+    kept[..., -1] = True
+    return chars, (np.ones(chars.shape, bool) if pad else kept)
+
+
+def _lit(shape: tuple, s: str) -> tuple:
+    """The literal `s` in every cell of `shape`, all of it kept."""
+    chars = np.broadcast_to(np.frombuffer(s.encode(), np.uint8),
+                            (*shape, len(s)))
+    return chars, np.ones(chars.shape, bool)
+
+
+def _fixed(v, places: int) -> list:
+    """"%.<places>f" of values whose scaled value is exact in f64 (float32
+    values at 3 or 5 places) or rounds back to the integer it stands for
+    (k/1000): printf rounds the exact value half to even, as np.rint
+    does, and keeps the sign of a negative value that rounds to 0."""
+    v = np.asarray(v)
+    scale = 10 ** places
+    r = np.rint(np.abs(v.astype(np.float64)) * scale).astype(np.int64)
+    whole = int(r.max(initial=0)) // scale
+    sign = np.full((*v.shape, 1), ord("-"), np.uint8)
+    return [(sign, np.signbit(v)[..., None]),
+            _dec(r // scale, len(str(whole))), _lit(r.shape, "."),
+            _dec(r % scale, places, pad=True)]
+
+
+def _rows_text(prefix: list, token: list) -> str:
+    """Rows of text: the `prefix` parts, then each column's `token` parts
+    and a space (a newline after the row's last). Parts are (chars,
+    kept) pairs, (rows, w) in `prefix`, (rows, columns, w) in `token`."""
+    rows, cols = token[0][0].shape[:2]
+    sep = np.full((rows, cols, 1), ord(" "), np.uint8)
+    sep[:, -1] = ord("\n")
+    token = token + [(sep, np.ones(sep.shape, bool))]
+    chars = [c for c, _ in prefix] + [np.concatenate(
+        [c for c, _ in token], -1).reshape(rows, -1)]
+    kept = [k for _, k in prefix] + [np.concatenate(
+        [k for _, k in token], -1).reshape(rows, -1)]
+    return np.concatenate(chars, 1)[np.concatenate(kept, 1)].tobytes() \
+        .decode()
+
+
+TEXT_ROWS = 1 << 16  # rows formatted at a time
+
+
 def criteo_text(num_buckets: int, rows: int, seed: int,
                 values: bool = False) -> str:
     """Synthetic Criteo-shaped libsvm rows: a 0/1 label and 39 bucket
-    keys, bare (binary) or as k:v with a 3-decimal value."""
+    keys, bare (binary) or as k:v with a 3-decimal value; formatted by
+    numpy a block of rows at a time, as "%d" and "%.3f" write them."""
     from wormhole_tpu_torch.data.synth import synth_criteo_batch
 
     rng = np.random.default_rng(seed)
     _, idx, _, label, _ = synth_criteo_batch(rng, rows, num_buckets)
-    toks = idx.reshape(rows, NNZ_PER_ROW).astype(str)
+    keys = idx.reshape(rows, NNZ_PER_ROW)
     if values:
-        v = rng.integers(1, 100_000, size=toks.shape) / 1000
-        toks = np.char.add(np.char.add(toks, ":"), np.char.mod("%.3f", v))
-    return "\n".join(f"{int(y)} " + " ".join(k)
-                     for y, k in zip(label, toks)) + "\n"
+        v = rng.integers(1, 100_000, size=keys.shape) / 1000
+    out = []
+    for a in range(0, rows, TEXT_ROWS):
+        k = keys[a:a + TEXT_ROWS]
+        token = [_dec(k, len(str(num_buckets - 1)))]
+        if values:
+            token += [_lit(k.shape, ":")] + _fixed(v[a:a + TEXT_ROWS], 3)
+        out.append(_rows_text([_dec(label[a:a + TEXT_ROWS], 1),
+                               _lit((len(k),), " ")], token))
+    return "".join(out)
 
 
 def write_libsvm(path: str, num_buckets: int, rows: int, seed: int) -> None:
@@ -2018,10 +2111,25 @@ def run_gbdt(device, higgs, depth=GBDT_DEPTH, rounds=GBDT_ROUNDS,
 
 
 def higgs_text(rows: int, dim: int, seed: int, fmt: str = "%.5f") -> str:
-    """HIGGS-shaped libsvm rows: a 0/1 label and dim features f:<fmt>."""
+    """HIGGS-shaped libsvm rows: a 0/1 label and dim features f:<fmt>.
+    "%.5f" goes through criteo_text's numpy formatter, which writes fixed
+    places only, and is the faster where the script's wall counts. Any
+    other format (the [parse] corpus's "%.17g", tools/parse_lab.py) is
+    written by np.char.mod, once, on [parse]'s 65,536 rows.
+    tests/test_torch_smoke_text.py holds both paths to %-formatting."""
     from wormhole_tpu_torch.data.synth import synth_higgs
 
     X, y = synth_higgs(np.random.default_rng(seed), rows, dim)
+    if fmt == "%.5f":
+        out = []
+        for a in range(0, rows, TEXT_ROWS):
+            x = X[a:a + TEXT_ROWS]
+            f = np.broadcast_to(np.arange(dim), x.shape)
+            out.append(_rows_text(
+                [_dec(y[a:a + TEXT_ROWS], 1), _lit((len(x),), " ")],
+                [_dec(f, len(str(dim - 1))), _lit(x.shape, ":"),
+                 *_fixed(x, 5)]))
+        return "".join(out)
     cols = [np.char.add(f"{f}:", np.char.mod(fmt, X[:, f]))
             for f in range(dim)]
     lines = [f"{int(t)} " + " ".join(c) for t, c in zip(y, zip(*cols))]
@@ -2368,13 +2476,23 @@ E2E_APPS = (("linear-2^26", "linear", COMPACT_BUCKETS, ["algo=ftrl"]),
               "kernel=pallas"]))
 
 
-def write_e2e_files(directory: str) -> dict:
-    """The passes' libsvm files, E2E_BATCHES full minibatches each: bucket
+E2E_SEEDS = {COMPACT_BUCKETS: 61, DENSE_BUCKETS: 62}
+
+
+def e2e_text(nb: int) -> str:
+    """A pass's libsvm text at `nb` buckets, E2E_BATCHES full minibatches."""
+    return criteo_text(nb, E2E_BATCHES * MINIBATCH, E2E_SEEDS[nb])
+
+
+def write_e2e_files(directory: str, texts=None) -> dict:
+    """The passes' libsvm files (of `texts`, else made here): bucket
     count -> path."""
     files = {}
-    for nb, seed in ((COMPACT_BUCKETS, 61), (DENSE_BUCKETS, 62)):
+    texts = texts or {nb: e2e_text(nb) for nb in E2E_SEEDS}
+    for nb, text in texts.items():
         files[nb] = os.path.join(directory, f"e2e-{nb}.libsvm")
-        write_libsvm(files[nb], nb, E2E_BATCHES * MINIBATCH, seed)
+        with open(files[nb], "w") as f:
+            f.write(text)
     return files
 
 
@@ -2576,16 +2694,20 @@ FORMAT_APPS = tuple(a for a in E2E_APPS if a[0] != "linear-2^22")
 ADFEA_ROWS = 2 * MINIBATCH  # the adfea pass's file
 
 
-def write_criteo_file(directory: str) -> str:
-    """The formats' passes' Criteo TSV file (data/synth.py
-    synth_criteo_tsv): E2E_BATCHES minibatches of rows, about 243 bytes a
-    row."""
+def criteo_tsv() -> bytes:
+    """The formats' passes' Criteo TSV (data/synth.py synth_criteo_tsv):
+    E2E_BATCHES minibatches of rows, about 243 bytes a row."""
     from wormhole_tpu_torch.data.synth import synth_criteo_tsv
 
+    return synth_criteo_tsv(np.random.default_rng(63),
+                            E2E_BATCHES * MINIBATCH)
+
+
+def write_criteo_file(directory: str, data=None) -> str:
+    """The formats' passes' Criteo TSV file (of `data`, else made here)."""
     path = os.path.join(directory, "e2e-criteo.tsv")
     with open(path, "wb") as f:
-        f.write(synth_criteo_tsv(np.random.default_rng(63),
-                                 E2E_BATCHES * MINIBATCH))
+        f.write(data or criteo_tsv())
     return path
 
 
@@ -2669,12 +2791,17 @@ def uniform_rows(rng, rows: int, dim: int, nnz: int, distinct: bool):
 
 def mnist_text(rows: int, seed: int) -> str:
     """MNIST-shaped libsvm rows (label 0, KM_NNZ uniform ids of KM_DIM,
-    3-decimal values)."""
+    3-decimal values), formatted as criteo_text is."""
     rng = np.random.default_rng(seed)
     _, idx, val = uniform_rows(rng, rows, KM_DIM, KM_NNZ, distinct=False)
-    toks = np.char.add(np.char.add(idx.astype(str), ":"),
-                       np.char.mod("%.3f", val)).reshape(rows, KM_NNZ)
-    return "\n".join("0 " + " ".join(t) for t in toks) + "\n"
+    idx, val = idx.reshape(rows, KM_NNZ), val.reshape(rows, KM_NNZ)
+    out = []
+    for a in range(0, rows, TEXT_ROWS):
+        i = idx[a:a + TEXT_ROWS]
+        out.append(_rows_text([_lit((len(i),), "0 ")], [
+            _dec(i, len(str(KM_DIM - 1))), _lit(i.shape, ":"),
+            *_fixed(val[a:a + TEXT_ROWS], 3)]))
+    return "".join(out)
 
 
 def check_assign(name: str, got, want, atol: float, ties: int = 0) -> None:
@@ -2708,10 +2835,10 @@ def near_ties(lrn, C, X, mask) -> int:
     return int((((top[:, 0] - top[:, 1]) < 1e-6) & (mask > 0)).sum())
 
 
-def write_mnist(path: str, rows: int) -> None:
+def write_mnist(path: str, rows: int, text=None) -> None:
     t = time.perf_counter()
     with open(path, "w") as f:
-        f.write(mnist_text(rows, seed=71))
+        f.write(text or mnist_text(rows, seed=71))
     log(f"[kmeans] {rows}-row file written in "
         f"{time.perf_counter() - t:.1f}s")
 
@@ -4570,10 +4697,10 @@ def serve_stage_row(snap: dict) -> dict:
 
 
 def serve_window(router, blocks: list, concurrency: int, seconds: float,
-                 swap) -> tuple:
+                 swap, swap_s: float = SERVE_SWAP_S) -> tuple:
     """`concurrency` threads send `blocks` round robin, closed loop, for
     `seconds`, while `swap()` writes a new snapshot version every
-    SERVE_SWAP_S. Returns the window's row and every response as
+    `swap_s`. Returns the window's row and every response as
     (block index, version, scores)."""
     import threading
 
@@ -4605,7 +4732,7 @@ def serve_window(router, blocks: list, concurrency: int, seconds: float,
             responses.extend(got)
 
     def swapper():
-        while not stop.wait(SERVE_SWAP_S):
+        while not stop.wait(swap_s):
             swap()
 
     threads = [threading.Thread(target=loop, args=(t,), daemon=True)
@@ -4848,8 +4975,8 @@ def run_serve(device, smi: str, workdir: str,
 # bench.py bench_linear_ps's operating point, nothing cut: linear FTRL at
 # 2^26 buckets, lambda_l1 1, 100,000 synthetic Criteo rows in 4 files,
 # minibatch 25,000, max_delay 2, 2 passes; -n 1 -s 1 in three planes and
-# -n 2 -s 2 beside it; DiFacto at its width at -n 2 -s 2 on the [e2e]
-# 2^22 file
+# -n 2 -s 2 beside it; DiFacto at its width on the [e2e] 2^22 file (its
+# -n 2 -s 2 launch on the first half)
 PS_ROWS = 100_000
 PS_FILES = 4
 # bench_linear_ps's 25,000 rows a batch (a file's rows: one batch a
@@ -4877,6 +5004,10 @@ PS_KNOBS = ("WH_ASYNC_SYNC", "WH_KEYCACHE", "WH_WIRE", "WH_WIRE_EF",
 # tcp launch syncs every step, the hot one flushes once a part)
 PS_HOT_MINIBATCH = 6_272       # a 25,000-row file's quarter, 128-aligned
 PS_HOT_FM_MINIBATCH = 32_768   # a quarter of an [e2e] part's 131,072 rows
+# DiFacto's -n 2 -s 2 launch takes the first PS_FM_N2_ROWS rows of the
+# [e2e] 2^22 file, 4 parts of one minibatch (half the file: the
+# script's wall)
+PS_FM_N2_ROWS = E2E_PARTS * MINIBATCH
 PS_HOT_MAX_DELAY = 1
 PS_HOT_SHARE = 0.25  # the hot launch's flushes over the tcp launch's syncs
 
@@ -4942,7 +5073,7 @@ def ps_launch(tag: str, n: int, s: int, app: str, conf: str, device,
                     f"[ps] {tag}: worker {w['rank']} on {w.get('device')} "
                     f"launched no {missing}")
     return {"wires": wires, "logloss": float(m.group(1)),
-            "auc": float(m.group(2)), "wall_s": wall}
+            "auc": float(m.group(2)), "wall_s": wall, "out": out}
 
 
 def ps_summary(rec: dict) -> dict:
@@ -5099,7 +5230,8 @@ def run_ps(device, smi: str, workdir: str, e2e_file: str,
            minibatch=PS_MINIBATCH, val_rows=PS_VAL_ROWS, passes=PS_PASSES,
            fm_buckets=DENSE_BUCKETS, v_buckets=V_BUCKETS,
            fm_minibatch=MINIBATCH, fm_val_rows=MINIBATCH,
-           fm_rows=E2E_BATCHES * MINIBATCH, hot_minibatch=PS_HOT_MINIBATCH,
+           fm_rows=E2E_BATCHES * MINIBATCH, fm_n2_rows=PS_FM_N2_ROWS,
+           hot_minibatch=PS_HOT_MINIBATCH,
            hot_fm_minibatch=PS_HOT_FM_MINIBATCH) -> dict:
     """[ps]: the parameter-server plane through the launcher (see the
     module docstring), the hot plane's tcp/hot pairs among it. Every
@@ -5178,8 +5310,14 @@ def run_ps(device, smi: str, workdir: str, e2e_file: str,
           "max_delay": PS_MAX_DELAY, "print_sec": 3600}
     fconf = write_ps_conf(os.path.join(d, "fm.conf"),
                           dict(fm, model_out=f"{d}/fm-model-n1"))
+    # -n 2 -s 2 on the file's first fm_n2_rows rows
+    fm_half = os.path.join(d, "fm-half.libsvm")
+    with open(e2e_file) as src, open(fm_half, "w") as dst:
+        for _, line in zip(range(fm_n2_rows), src):
+            dst.write(line)
     fconf2 = write_ps_conf(os.path.join(d, "fm2.conf"),
-                           dict(fm, model_out=f"{d}/fm-model"))
+                           dict(fm, train_data=fm_half,
+                                model_out=f"{d}/fm-model"))
     fone = ps_single("difacto", fconf, device, loaders=1)
     fsingle = ps_single("difacto", fconf, device)
     out["difacto single"] = {"examples_per_s": fm_rows / fsingle["walls"][-1],
@@ -5216,7 +5354,8 @@ def run_ps(device, smi: str, workdir: str, e2e_file: str,
     log(f"[ps] -n 2 -s 2 difacto: {json.dumps(out['n2s2 difacto'])}; the "
         f"saved shards score val {saved:.6f} (the scheduler's line "
         f"{rec['logloss']:.6f}); against the single process "
-        f"{fone['val_logloss']:.6f}: |diff| {gap:.4f} "
+        f"{fone['val_logloss']:.6f} (the whole file; this launch its "
+        f"first {fm_n2_rows} rows): |diff| {gap:.4f} "
         f"({'within' if gap <= PS_N2_BAR else 'over'} {PS_N2_BAR})")
     if not (math.isfinite(saved) and abs(saved - rec["logloss"]) <= PS_N1_BAR):
         raise AssertionError(f"[ps] n2s2 difacto: the saved model scores "
@@ -5863,18 +6002,399 @@ def global_blocks_rank(pattern: str, rank: int, local_rows: int,
                                    minibatch_size=local_rows, device=device)]
 
 
+# ---------------------------------------------------------------- san
+# [san]: the port's runtime sanitizer (wormhole_tpu_torch/wormsan) over
+# the threaded planes on the card, each process importing only the port
+# with WH_SAN=1 and a dump dir of its own
+SAN_PASS_PARTS = E2E_PARTS    # (a): the [e2e] 2^26 pass, 4 parts, 4 loaders
+SAN_SERVE_SECONDS = 3.0       # (c): one closed-loop window, one swap in it
+SAN_SWAP_AT_S = 0.25          # (c)'s swap, early: a 2^26 set takes 1-4 s to
+                              # write and load
+SAN_SERVE_WINDOWS = 4         # (c)'s windows at most, until one holds the
+                              # new version
+SAN_SERVE_CONCURRENCY = 4
+SAN_TIMEOUT_S = 240           # each child's or launch's own
+SAN_KNOBS = ("WH_SAN", "WH_SAN_SAMPLE", "WH_SAN_DUMP_DIR", "WH_OBS_DIR",
+             "WH_NUM_LOADERS")
+
+
+def san_report() -> dict:
+    """This process's sanitizer numbers: findings by detector, the
+    san.* counters of its registry, the model classes it instrumented."""
+    from wormhole_tpu_torch import wormsan
+    from wormhole_tpu_torch.obs import metrics as obs
+
+    if not wormsan.enabled():
+        raise AssertionError("[san] WH_SAN did not arm this process")
+    s = wormsan.summary()
+    return {"findings": [f["key"] for f in wormsan.findings()],
+            "counters": obs.san_counters(),
+            "instrumented": len(wormsan.instrumented()),
+            "by_detector": {d: s[d] for d in wormsan.DETECTORS}}
+
+
+def san_proc_pass(spec: dict) -> dict:
+    """(a) in its process: the linear app's body (its run_minibatch_app)
+    on `spec`'s conf and device, the pass line's numbers, the kernels it
+    launched and the trained w's nonzeros."""
+    import contextlib as _cl
+    import io
+    import re
+
+    import torch
+
+    from wormhole_tpu_torch.apps import _runner, linear
+    from wormhole_tpu_torch.config import load_config
+    from wormhole_tpu_torch.ops import _cuda
+
+    cfg = load_config(linear.LinearConfig, conf_file=spec["conf"])
+    learners = []
+
+    def make(cfg, device="cuda", mesh=None):
+        learners.append(linear.make_learner(cfg, device, mesh))
+        return learners[-1]
+
+    text = io.StringIO()
+    with _cl.redirect_stdout(text):
+        res = _runner.run_minibatch_app(cfg, make, spec["device"])
+    m = re.search(r"train pass 0: (\d+) minibatches, avg ([\d.]+)ms/step, "
+                  r"wall ([\d.]+)s, loader stall ([\d.]+)s", text.getvalue())
+    if m is None:
+        raise AssertionError(f"[san] pass: no pass line in "
+                             f"{text.getvalue()[-2000:]!r}")
+    w = learners[0].store.state["w"]
+    return {"steps": int(m.group(1)), "ms_per_step": float(m.group(2)),
+            "wall_s": float(m.group(3)), "stall_s": float(m.group(4)),
+            "rows": int(res["train"].value("nex")),
+            "train_logloss": res["train"].mean("logloss"),
+            "val_logloss": res["val"].mean("logloss"),
+            "w_finite": bool(torch.isfinite(w).all()),
+            "w_nnz": int(torch.count_nonzero(w)),
+            "launches": dict(_cuda.LAUNCHES)}
+
+
+def san_proc_serve(spec: dict) -> dict:
+    """(c) in its process: a fetch-mode Router, its scorer on `spec`'s
+    device, against two ModelServer shards of a linear model of
+    `spec`'s buckets (the [serve] bench's 2^26 on the card), the fixed
+    requests first, then SAN_SERVE_SECONDS closed loop at concurrency
+    SAN_SERVE_CONCURRENCY with one snapshot swap; every response is
+    2^k times its request's first-version scores for the one k of the
+    version it carries."""
+    from wormhole_tpu_torch.models.linear import LinearConfig
+    from wormhole_tpu_torch.serving import LinearScorer, Router
+    from wormhole_tpu_torch.utils.manifest import write_snapshot_set
+
+    import torch
+
+    nb, rows, nnz = spec["buckets"], spec["minibatch"], spec["nnz"]
+    rng = np.random.default_rng(23)
+    w = (rng.normal(size=nb) * 0.1).astype(np.float32)
+    keys = rng.integers(0, nb, size=1 << 18).astype(np.uint64)
+    blocks = serve_blocks(rng, keys, SERVE_POOL, rows, nnz)
+    base = os.path.join(spec["workdir"], "srv")
+    versions = {write_snapshot_set(base, {"w": w}, world=SERVE_SHARDS,
+                                   compressed=False): 0}
+    servers = serve_group(base, SERVE_SHARDS)
+    try:
+        router = Router([s.uri for s in servers],
+                        LinearScorer(LinearConfig(
+                            minibatch=rows, nnz_per_row=nnz, num_buckets=nb),
+                            device=scorer_device(torch.device(
+                                spec["device"]))), mode="fetch")
+        try:
+            first = [router.predict_block(b)[0] for b in blocks]
+
+            def swap():  # once
+                if len(versions) == 1:
+                    v = write_snapshot_set(base, {"w": w * np.float32(2.0)},
+                                           world=SERVE_SHARDS,
+                                           compressed=False)
+                    versions[v] = 1
+
+            # a window at a time until a response carries the new
+            # version (writing and loading 2^26 rows takes 1-4 s)
+            windows, responses = [], []
+            while len(windows) < SAN_SERVE_WINDOWS and not any(
+                    versions[v] for _, v, _ in responses):
+                row, got = serve_window(router, blocks,
+                                        SAN_SERVE_CONCURRENCY,
+                                        SAN_SERVE_SECONDS, swap,
+                                        swap_s=SAN_SWAP_AT_S)
+                windows.append(row)
+                responses += got
+        finally:
+            router.close()
+    finally:
+        for s in servers:
+            s.stop()
+    seen = set()
+    for bi, ver, scores in responses:
+        k = versions[ver]
+        seen.add(k)
+        serve_hold(f"[san] version {k}", scores,
+                   first[bi] * np.float32(2.0 ** k))
+    if len(seen) < 2:
+        raise AssertionError(f"[san] serve: the windows saw versions "
+                             f"{sorted(seen)} only")
+    return {"windows": [{k: w[k] for k in ("seconds", "requests", "qps",
+                                           "p50_ms", "p99_ms", "swaps")}
+                        for w in windows], "versions_seen": len(seen)}
+
+
+def san_proc(spec: str) -> int:
+    """`chip_smoke.py --san-proc SPEC`: one [san] process, armed by
+    WH_SAN=1 at `import wormhole_tpu_torch` (before torch loads): the
+    pass of the JSON object SPEC's "pass", then its "serve" if any; the
+    results and the sanitizer's numbers as one `[san-proc]` JSON line."""
+    spec = json.loads(spec)
+    out = {"pass": san_proc_pass(spec["pass"])}
+    if "serve" in spec:
+        out["serve"] = san_proc_serve(spec["serve"])
+    if os.environ.get("WH_SAN") == "1":
+        out["san"] = san_report()
+    print("[san-proc] " + json.dumps(out), flush=True)
+    return 0
+
+
+def san_child(tag: str, spec: dict, env: dict) -> dict:
+    """Run one `--san-proc` child in a session of its own (its group
+    killed on timeout) with the SAN_KNOBS of `env`; its JSON line."""
+    import re
+    import signal
+
+    full = {k: v for k, v in os.environ.items() if k not in SAN_KNOBS}
+    full.update(env, PYTHONPATH=ROOT)
+    p = subprocess.Popen([sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+                          "--san-proc", json.dumps(spec)],
+                         stdout=subprocess.PIPE,
+                         stderr=subprocess.STDOUT, text=True, env=full,
+                         cwd=ROOT, start_new_session=True)
+    try:
+        out, _ = p.communicate(timeout=SAN_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        os.killpg(p.pid, signal.SIGKILL)
+        out, _ = p.communicate()
+        raise AssertionError(f"[san] {tag}: timed out after {SAN_TIMEOUT_S}s"
+                             f"\n{out[-3000:]}")
+    finally:
+        if p.poll() is None:
+            os.killpg(p.pid, signal.SIGKILL)
+    m = re.findall(r"^\[san-proc\] (\{.*\})$", out, re.M)
+    if p.returncode != 0 or not m:
+        raise AssertionError(f"[san] {tag}: exited {p.returncode}\n"
+                             f"{out[-4000:]}")
+    return json.loads(m[-1])
+
+
+def san_dump(tag: str, dump: str) -> None:
+    """Fails on any finding a process wrote into `dump` (a process writes
+    its san-<pid>.jsonl at its first finding)."""
+    import glob
+
+    found = []
+    for path in glob.glob(os.path.join(dump, "san-*.jsonl")):
+        with open(path) as f:
+            found += [json.loads(x) for x in f if x.strip()]
+    if found:
+        raise AssertionError(f"[san] {tag}: {len(found)} finding(s): "
+                             + "; ".join(f"[{f['detector']}] {f['message']}"
+                                         for f in found[:5]))
+
+
+def san_proc_line(tag: str, rec: dict) -> dict:
+    """A process's [san] numbers; fails unless it was armed (lock-order
+    edges counted), watched model classes and found nothing."""
+    san = rec["san"]
+    c = san["counters"] or {}
+    row = {"findings": len(san["findings"]),
+           "san.order.edges": c.get("san.order.edges", 0),
+           "san.block.calls": c.get("san.block.calls", 0),
+           "san.race.candidates": c.get("san.race.candidates", 0),
+           "classes_instrumented": san["instrumented"]}
+    log(f"[san] {tag}: {json.dumps(row)}")
+    if row["findings"] or not row["san.order.edges"] > 0 \
+            or not row["classes_instrumented"] > 0:
+        raise AssertionError(f"[san] {tag}: {json.dumps(san)}")
+    return row
+
+
+def run_san(device, smi: str, workdir: str, e2e_file: str, plain: dict,
+            ps: dict, num_buckets=COMPACT_BUCKETS, minibatch=MINIBATCH,
+            serve_minibatch=SERVE_MINIBATCH, serve_nnz=SERVE_NNZ) -> dict:
+    """[san] (see the module docstring): (a) the [e2e] 2^26 pass armed,
+    with (c) the fetch router after it in the same process, beside
+    [e2e]'s own pass (`plain`, its run_e2e record) and the same conf in
+    this process, both unarmed; (b) [ps]'s
+    -n 1 -s 1 async+keycache launch armed, beside [ps]'s own (`ps`,
+    run_ps's numbers) unarmed. Every process imports only the port."""
+    import re
+
+    d = os.path.join(workdir, "san")
+    os.makedirs(d)
+    ps_dir = os.path.join(workdir, "ps")
+    out = {}
+    # (a) and (c): [e2e]'s 2^26 pass (its args, and a val pass after it
+    # on [ps]'s val file), then the router, in one armed process
+    body = {"train_data": e2e_file, "val_data": f"{ps_dir}/val.libsvm",
+            "algo": "ftrl", "lambda_l1": 1, "lr_eta": 0.1,
+            "minibatch": minibatch, "nnz_per_row": NNZ_PER_ROW,
+            "num_buckets": num_buckets, "max_data_pass": 1,
+            "num_parts_per_file": SAN_PASS_PARTS,
+            "max_concurrency": SAN_PASS_PARTS, "print_sec": 3600}
+    serve = {"workdir": os.path.join(d, "c"), "device": str(device),
+             "buckets": num_buckets, "minibatch": serve_minibatch,
+             "nnz": serve_nnz}
+    os.makedirs(serve["workdir"])
+    dump = os.path.join(d, "ac-armed")
+    pass_spec = {"conf": write_ps_conf(os.path.join(d, "a.conf"), body),
+                 "device": str(device)}
+    rec = san_child("(a) and (c)", {"pass": pass_spec, "serve": serve},
+                    {"WH_SAN": "1", "WH_SAN_DUMP_DIR": dump})
+    san_dump("(a) and (c)", dump)
+    out["ac_process"] = san_proc_line("(a) and (c)'s process", rec)
+    armed = rec["pass"]
+    # the same conf unarmed in this process: the model's bar
+    twin = san_proc_pass(pass_spec)
+    rows = E2E_BATCHES * minibatch
+    gap = abs(armed["val_logloss"] - twin["val_logloss"])
+    missing = [k for k in LINEAR_PS_KERNELS if device.type == "cuda"
+               and not armed["launches"].get(k)]
+    if missing or not armed["w_finite"] or armed["w_nnz"] == 0 \
+            or not armed["rows"] == twin["rows"] == rows \
+            or not armed["steps"] == twin["steps"] == plain["steps"] \
+            or not gap <= PS_N2_BAR:
+        raise AssertionError(
+            f"[san] (a): launched no {missing}, w finite "
+            f"{armed['w_finite']}, nnz {armed['w_nnz']}; rows "
+            f"{armed['rows']} (unarmed {twin['rows']}, the file {rows}), "
+            f"steps {armed['steps']} (unarmed {twin['steps']}, [e2e] "
+            f"{plain['steps']}), val logloss {armed['val_logloss']} "
+            f"(unarmed {twin['val_logloss']})")
+    for r in (armed, twin):
+        r["examples_per_s"] = r["rows"] / r["wall_s"]
+    keys = ("examples_per_s", "wall_s", "ms_per_step", "stall_s",
+            "val_logloss")
+    out["a"] = {"armed": {f: armed[f] for f in keys},
+                "unarmed": {f: plain[f] for f in (
+                    "examples_per_s", "wall_s", "ms_per_step")},
+                "unarmed_here": {f: twin[f] for f in keys}}
+    log(f"[san] (a) linear 2^{num_buckets.bit_length() - 1} pass, "
+        f"{SAN_PASS_PARTS} parts, {SAN_PASS_PARTS} loaders, on {smi}: armed "
+        f"{armed['examples_per_s']:.0f} examples/s (wall "
+        f"{armed['wall_s']:.3f} s, a process of its own) beside [e2e]'s "
+        f"unarmed {plain['examples_per_s']:.0f} (wall {plain['wall_s']:.3f} "
+        f"s, in this process) and the same conf's unarmed "
+        f"{twin['examples_per_s']:.0f} (wall {twin['wall_s']:.3f} s, in "
+        f"this process, after it); {armed['rows']} rows in "
+        f"{armed['steps']} steps as unarmed; val logloss "
+        f"{armed['val_logloss']:.6f} against the unarmed "
+        f"{twin['val_logloss']:.6f} (|diff| {gap:.2e}, bar {PS_N2_BAR})")
+    out["c"] = rec["serve"]
+    log(f"[san] (c) fetch router, {SERVE_SHARDS} shards of {num_buckets} "
+        f"buckets, {serve_minibatch} rows a request, concurrency "
+        f"{SAN_SERVE_CONCURRENCY}, {SAN_SERVE_SECONDS:.0f} s windows until "
+        f"one holds the swapped version, armed, on {smi}: "
+        f"{json.dumps(out['c'])}")
+
+    # (b): [ps]'s -n 1 -s 1 async+keycache conf (its files, 2 passes: the
+    # second pass's pushes and pulls go digest-only through the key
+    # cache), so [ps]'s launch of it is the unarmed run in this call and
+    # [ps]'s one-loader single process the bar
+    with open(os.path.join(ps_dir, "n1.conf")) as f:
+        lines = [ln for ln in f if not ln.startswith("model_out")]
+    bconf = os.path.join(d, "b.conf")
+    with open(bconf, "w") as f:
+        f.writelines(lines + [f"model_out = {d}/b-model\n"])
+    dump, obs_dir = os.path.join(d, "b-armed"), os.path.join(d, "b-obs")
+    rec = ps_launch("san n1s1 armed", 1, 1, "linear", bconf, device,
+                    dict(PS_PLANES[0][1], WH_SAN="1", WH_SAN_DUMP_DIR=dump,
+                         WH_OBS_DIR=obs_dir), LINEAR_PS_KERNELS)
+    armed = ps_summary(rec)
+    armed["saved_val_logloss"] = ps_saved_logloss("linear", bconf,
+                                                  f"{d}/b-model", device)
+    single = ps["single"]["val_logloss"]
+    diff = abs(armed["saved_val_logloss"] - single)
+    if not diff <= PS_N2_BAR:
+        raise AssertionError(f"[san] (b): the saved model scores "
+                             f"{armed['saved_val_logloss']} vs the single "
+                             f"process's {single}")
+    san_dump("(b)", dump)
+    with open(os.path.join(obs_dir, "run_report.json")) as f:
+        edges = json.load(f)["counters"].get("san.order.edges", 0)
+    # every process's exit line, by the role prefix the launcher gives
+    # its lines; the launcher's own is bare
+    exits = {}
+    for role, x in re.findall(r"^(?:\[([\w-]+)\] )?\[wormsan\] exit "
+                              r"(\{.*\})$", rec["out"], re.M):
+        exits[role or "launcher"] = json.loads(x)
+    roles = {"launcher", "scheduler", "server-0", "worker-0"}
+    if edges <= 0 or set(exits) != roles or any(
+            e["findings"] or not e["instrumented"] > 0
+            or (r != "launcher" and not e["edges"] > 0)
+            for r, e in exits.items()):
+        raise AssertionError(f"[san] (b): run_report.json san.order.edges "
+                             f"{edges}, exit lines {json.dumps(exits)}")
+    if not armed["keycache_hits"][0] > 0:
+        raise AssertionError(f"[san] (b): no key-cache hit "
+                             f"{json.dumps(armed)}")
+    rows = {r: {k: exits[r][k] for k in ("findings", "edges",
+                                         "instrumented")}
+            for r in sorted(exits)}
+    log(f"[san] (b) launch: run_report.json san.order.edges {edges}; "
+        f"every process's exit line (findings, lock-order edges, classes "
+        f"instrumented): {json.dumps(rows)}")
+    out["b_processes"] = {"san.order.edges": edges, "exits": exits}
+    plain = ps["n1s1 async+keycache"]
+    keys = ("examples_per_s", "launch_wall_s", "saved_val_logloss",
+            "keycache_hits")
+    out["b"] = {"armed": {k: armed[k] for k in keys},
+                "unarmed": {k: plain[k] for k in keys},
+                "single_val_logloss": single}
+    log(f"[san] (b) -n 1 -s 1 linear 2^{num_buckets.bit_length() - 1}, "
+        f"WH_ASYNC_SYNC=1 WH_KEYCACHE=1, [ps]'s conf, on {smi}: armed "
+        f"{armed['examples_per_s']:.0f} examples/s of the last round "
+        f"(launch wall {armed['launch_wall_s']:.1f} s) beside [ps]'s "
+        f"unarmed {plain['examples_per_s']:.0f} ({plain['launch_wall_s']:.1f}"
+        f" s); key-cache hits {armed['keycache_hits'][0]} (unarmed "
+        f"{plain['keycache_hits'][0]}); the saved model scores val "
+        f"{armed['saved_val_logloss']:.6f} "
+        f"against the single process's {single:.6f} (|diff| {diff:.2e}, "
+        f"bar {PS_N2_BAR}); no CUDA context on the scheduler or the server")
+    return out
+
+
+def host_data() -> dict:
+    """The host-made inputs of the phases that do not depend on the card:
+    the HIGGS-shaped data, [kmeans]', [e2e]'s and the formats' texts.
+    main() makes them while nvcc builds the kernels, on threads (numpy
+    lets go of the interpreter lock in its array work)."""
+    import concurrent.futures as cf
+
+    with cf.ThreadPoolExecutor(4) as pool:
+        jobs = {"higgs": pool.submit(make_higgs),
+                "mnist": pool.submit(mnist_text,
+                                     KM_FILE_BATCHES * KM_MINIBATCH, 71),
+                "tsv": pool.submit(criteo_tsv),
+                **{nb: pool.submit(e2e_text, nb) for nb in E2E_SEEDS}}
+        out = {k: f.result() for k, f in jobs.items()}
+    out["e2e"] = {nb: out.pop(nb) for nb in E2E_SEEDS}
+    return out
+
+
 def data_phases(device, smi: str, data_dir: str, knums: dict,
-                launches: dict) -> None:
+                launches: dict, texts: dict) -> None:
     """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
-    [lbfgs], [cache], [ps] and [bsp]. Adds their main paths' launches to
+    [lbfgs], [cache], [ps], [bsp], [global] and [san]. Adds their main paths' launches to
     `launches` (the [ps] and [bsp] workers check their own) and
-    coo_spmv_t's k-means numbers to `knums`."""
+    coo_spmv_t's k-means numbers to `knums`; the files' texts come from
+    host_data()."""
     from wormhole_tpu_torch.ops import _cuda
 
     # k-means: its run and app are the main path (launch counts are taken
     # inside, over them alone); the staged checks before them are not
     km_path = os.path.join(data_dir, "mnist.libsvm")
-    write_mnist(km_path, KM_FILE_BATCHES * KM_MINIBATCH)
+    write_mnist(km_path, KM_FILE_BATCHES * KM_MINIBATCH, texts["mnist"])
     t = time.perf_counter()
     km = run_kmeans(device, km_path)
     counts = km.pop("launches")
@@ -5919,7 +6439,7 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
         launches[k] += counts[k]
     log(f"[phase] serve {time.perf_counter() - t:.1f}s")
     t = time.perf_counter()
-    files = write_e2e_files(data_dir)
+    files = write_e2e_files(data_dir, texts["e2e"])
     log(f"[e2e] files of {E2E_BATCHES} minibatches written in "
         f"{time.perf_counter() - t:.1f}s")
     passes = run_e2e(device, files)
@@ -5950,7 +6470,7 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
     # its crb from the convert app, and an adfea pass; their parses make
     # parse_criteo's and parse_adfea's launch counts
     t = time.perf_counter()
-    tsv = write_criteo_file(data_dir)
+    tsv = write_criteo_file(data_dir, texts["tsv"])
     log(f"[e2e] Criteo TSV file of {E2E_BATCHES} minibatches, "
         f"{os.path.getsize(tsv) / 1e6:.1f} MB, written in "
         f"{time.perf_counter() - t:.1f}s")
@@ -6019,12 +6539,26 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
         f"host-staged, not a multi-GPU number): " + json.dumps(glob))
     log(f"[phase] global {time.perf_counter() - t:.1f}s")
 
+    # the sanitizer over the threaded planes: its processes are children
+    # that import only the port; (a)'s and (b)'s workers check their own
+    # launches
+    t = time.perf_counter()
+    san = run_san(device, smi, data_dir, files[COMPACT_BUCKETS],
+                  passes["linear-2^26"], ps)
+    log(f"[san] {smi}: " + json.dumps(san))
+    log(f"[phase] san {time.perf_counter() - t:.1f}s")
+
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--san-proc"]:  # a [san] process: arm, then torch
+        sys.path.insert(0, ROOT)
+        import wormhole_tpu_torch  # noqa: F401  (WH_SAN arms here)
+
+        return san_proc(argv[1])
     import torch
 
-    argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--mesh-rank"]:  # a rank of [mesh], on the spec's device
         sys.path.insert(0, ROOT)
         return mesh_rank(int(argv[1]), int(argv[2]), argv[3])
@@ -6052,9 +6586,18 @@ def main(argv=None) -> int:
         f"python {sys.version.split()[0]}")
     t0 = time.perf_counter()
     report, probe_build = start_ptxas_report(), start_probe_build()
+    host = {}
+    maker = threading.Thread(target=lambda: host.update(host_data()))
+    maker.start()
     secs = _cuda.build()
     log(f"[build] {json.dumps({k: round(v, 2) for k, v in secs.items()})} "
         f"wall {time.perf_counter() - t0:.2f}s")
+    maker.join()
+    if not host:
+        raise AssertionError("the host data thread failed")
+    log(f"[phase] host data (HIGGS-shaped; [kmeans]', [e2e]'s and the "
+        f"formats' texts) made beside the build, ready "
+        f"{time.perf_counter() - t0:.1f}s after it began")
     finish_ptxas_report(report)
     probe = finish_probe_build(*probe_build)
 
@@ -6070,10 +6613,7 @@ def main(argv=None) -> int:
                         fm_nums["scatter_update"]["max_abs_err"]))
     knums.update(fm_nums)
     log(f"[phase] kernels {time.perf_counter() - t:.1f}s")
-    t = time.perf_counter()
-    higgs = make_higgs()
-    log(f"[phase] HIGGS-shaped data {higgs[1].shape} + {higgs[3].shape} "
-        f"on the host {time.perf_counter() - t:.1f}s")
+    higgs = host.pop("higgs")
     t = time.perf_counter()
     knums.update(check_hist_kernel(device, higgs))
     log(f"[phase] level_hist kernel {time.perf_counter() - t:.1f}s")
@@ -6108,7 +6648,7 @@ def main(argv=None) -> int:
 
     data_dir = tempfile.mkdtemp(prefix="wh-smoke-")
     try:
-        data_phases(device, smi, data_dir, knums, launches)
+        data_phases(device, smi, data_dir, knums, launches, host)
         # the mesh's main paths run in its ranks, each with its counts set
         # to 0 just before and read just after; a W row's launches are
         # theirs

@@ -30,3 +30,31 @@ def _install_stackdump() -> None:
 
 
 _install_stackdump()
+
+
+def _arm_wormsan() -> bool:
+    """WH_SAN=1: install the port's runtime concurrency sanitizer
+    (wormhole_tpu_torch/wormsan) before any submodule import creates a
+    lock, so every ``threading.Lock``/``RLock`` made after it is wrapped.
+    The shared-state model is loaded first (it needs tools/wormlint from
+    the repo root); each model class is instrumented when its module is
+    imported, so arming imports nothing the process would not."""
+    if _os.environ.get("WH_SAN") != "1":
+        return False
+    import sys as _sys
+
+    try:
+        from wormhole_tpu_torch import wormsan
+
+        model = wormsan.load_model()
+    except ImportError as e:
+        _sys.stderr.write(f"[wormsan] WH_SAN=1 but the sanitizer cannot "
+                          f"load its model ({e}; run from the repo root): "
+                          f"WH_SAN is off in this process\n")
+        return False
+    wormsan.install(instrument=False)
+    wormsan.instrument_classes(model)
+    return True
+
+
+_WORMSAN_ARMED = _arm_wormsan()

@@ -41,6 +41,15 @@ def make_learner(cfg: DifactoConfig, device="cuda", mesh=None):
                                               device=device))
 
 
+
+def serve_scorer(cfg: DifactoConfig, device=None):
+    """Scorer for the serving tier (router-side predict math), on the
+    card unless `device` says otherwise."""
+    from wormhole_tpu_torch.serving.scoring import DifactoScorer
+
+    return DifactoScorer(cfg, device=device)
+
+
 def main(argv=None) -> int:
     return app_main(DifactoConfig, make_learner, argv, ranks=True)
 

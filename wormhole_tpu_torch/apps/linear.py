@@ -42,6 +42,15 @@ def make_learner(cfg: LinearConfig, device="cuda", mesh=None):
                                              device=device))
 
 
+
+def serve_scorer(cfg: LinearConfig, device=None):
+    """Scorer for the serving tier (router-side predict math), on the
+    card unless `device` says otherwise."""
+    from wormhole_tpu_torch.serving.scoring import LinearScorer
+
+    return LinearScorer(cfg, device=device)
+
+
 def main(argv=None) -> int:
     return app_main(LinearConfig, make_learner, argv, ranks=True)
 

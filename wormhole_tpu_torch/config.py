@@ -140,6 +140,14 @@ def declare_knob(name: str, type: type, default: Any, doc: str,
     return knob
 
 
+def env_flag(name: str, default: bool = False) -> bool:
+    """Truthy-string env read shared by the boolean knobs."""
+    v = os.environ.get(name)
+    if v is None:
+        return default
+    return v.lower() not in ("", "0", "false", "off")
+
+
 def knob_value(name: str) -> Any:
     """Typed read of a declared knob: env value converted to the declared
     type, or the declared default when unset/empty."""
@@ -150,6 +158,27 @@ def knob_value(name: str) -> Any:
     if knob.type is bool:
         return raw.lower() not in ("", "0", "false", "off")
     return knob.type(raw)
+
+
+def _fmt_default(knob: EnvKnob) -> str:
+    if knob.default is None:
+        return "(unset)"
+    if knob.type is str and knob.default == "":
+        return '`""`'
+    return f"`{knob.default}`"
+
+
+def knob_table_markdown(group: Optional[str] = None) -> str:
+    """Render the declared knobs (optionally one group) as a Markdown table."""
+    rows = sorted((k for k in KNOBS.values()
+                   if group is None or k.group == group),
+                  key=lambda k: k.name)
+    lines = ["| Knob | Type | Default | Description |",
+             "| --- | --- | --- | --- |"]
+    for k in rows:
+        lines.append(f"| `{k.name}` | {k.type.__name__} | {_fmt_default(k)} "
+                     f"| {k.doc} |")
+    return "\n".join(lines)
 
 
 declare_knob("WH_FAULT_SPEC", str, "",
@@ -224,6 +253,20 @@ declare_knob("WH_FLIGHT_MIN_SEC", float, 10.0,
              "Minimum seconds between unforced flight dumps on one node "
              "(dump storms from repeated triggers are suppressed).",
              group="obs")
+declare_knob("WH_SAN", bool, False,
+             "Runtime concurrency sanitizer (tools/wormsan): wraps every "
+             "Lock/RLock to detect lock-order cycles, blocking calls "
+             "under registry-known locks, and sampled lockset races over "
+             "wormlint's shared-state model. Off = nothing is patched.",
+             group="obs")
+declare_knob("WH_SAN_SAMPLE", int, 1,
+             "Sanitizer race-detector sampling: check 1-in-N instrumented "
+             "attribute writes (1 = every write; raise to cut overhead "
+             "under load).", group="obs")
+declare_knob("WH_SAN_DUMP_DIR", str, "",
+             "Directory for san-<pid>.jsonl finding dumps; replay with "
+             "`python -m tools.wormsan <dir>`. Empty = in-process and "
+             "stderr reporting only.", group="obs")
 
 declare_knob("WH_WIRE_DEBUG", str, "",
              "Wire-codec diagnostics to stderr: '1' prints each EFQuant "
@@ -508,6 +551,12 @@ declare_knob("WH_PACK_CACHE_MB", int, 512,
 declare_knob("WH_NUM_LOADERS", int, None,
              "Pin the loader thread-pool size (disables adaptive sizing "
              "unless WH_ADAPTIVE_LOADERS overrides).", group="data")
+declare_knob("WH_ADAPTIVE_LOADERS", bool, True,
+             "Stall-driven loader pool resizing between passes (defaults on "
+             "unless WH_NUM_LOADERS pins the size).", group="data")
+declare_knob("WH_DEVICE_FEED", bool, True,
+             "Loader-side device staging (double-buffered feed).",
+             group="data")
 
 # -- debugging
 declare_knob("WORMHOLE_STACKDUMP", bool, False,
@@ -516,3 +565,18 @@ declare_knob("WORMHOLE_DEBUG", bool, False,
              "Verbose debug printing in the GBDT trainer.", group="debug")
 declare_knob("WORMHOLE_PROFILE_DIR", str, None,
              "Directory for utils/perf.py profile dumps.", group="debug")
+
+
+def config_to_text(cfg) -> str:
+    """A config dataclass as `key = value` lines (None fields left out,
+    a list one line per element): what `load_config` reads back."""
+    lines = []
+    for f in dataclasses.fields(cfg):
+        v = getattr(cfg, f.name)
+        if v is None:
+            continue
+        if isinstance(v, list):
+            lines += [f"{f.name} = {x}" for x in v]
+        else:
+            lines.append(f"{f.name} = {v}")
+    return "\n".join(lines) + "\n"

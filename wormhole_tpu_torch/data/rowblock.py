@@ -54,6 +54,13 @@ class RowBlock:
     def __len__(self) -> int:
         return self.size
 
+    @property
+    def nbytes(self) -> int:
+        """Host footprint of the batch's arrays (cache byte budgeting)."""
+        return sum(a.nbytes for a in (self.label, self.offset, self.index,
+                                      self.value, self.weight)
+                   if a is not None)
+
     def slice(self, begin: int, end: int) -> "RowBlock":
         """Zero-copy row range view (offsets are rebased)."""
         end = min(end, self.size)
@@ -139,6 +146,12 @@ class DeviceBatch:
     @property
     def capacity(self) -> int:
         return len(self.seg)
+
+    @property
+    def nbytes(self) -> int:
+        """Host footprint of the padded arrays (cache byte budgeting)."""
+        return (self.seg.nbytes + self.idx.nbytes + self.val.nbytes
+                + self.label.nbytes + self.row_mask.nbytes)
 
 
 def bucketize(index: np.ndarray, num_buckets: int) -> np.ndarray:

@@ -22,8 +22,11 @@ Snapshots are plain JSON-able dicts:
 
 from __future__ import annotations
 
+import contextlib
 import random
+import sys
 import threading
+import time
 import zlib
 
 DEFAULT_RESERVOIR = 256
@@ -39,7 +42,7 @@ class Counter:
         self._value = 0
         self._lock = threading.Lock()
 
-    def inc(self, n: int = 1) -> None:
+    def inc(self, n: int = 1) -> None:  # wormlint: thread-entry
         with self._lock:
             self._value += n
 
@@ -58,7 +61,7 @@ class Gauge:
         self._value = 0.0
         self._lock = threading.Lock()
 
-    def set(self, v: float) -> None:
+    def set(self, v: float) -> None:  # wormlint: thread-entry
         with self._lock:
             self._value = float(v)
 
@@ -84,7 +87,7 @@ class Histogram:
         self._rng = random.Random(zlib.crc32(name.encode()))
         self._lock = threading.Lock()
 
-    def observe(self, v: float) -> None:
+    def observe(self, v: float) -> None:  # wormlint: thread-entry
         v = float(v)
         with self._lock:
             self.count += 1
@@ -99,6 +102,11 @@ class Histogram:
                 j = self._rng.randrange(self.count)
                 if j < self.reservoir:
                     self._res[j] = v
+
+    def quantile(self, q: float) -> float | None:
+        with self._lock:
+            res = sorted(self._res)
+        return _quantile_sorted(res, q)
 
     def reset(self) -> None:
         """Forget every observation: a new measurement window (the
@@ -126,27 +134,36 @@ class Registry:
         self._gauges: dict[str, Gauge] = {}
         self._hists: dict[str, Histogram] = {}
 
-    def counter(self, name: str) -> Counter:
+    def counter(self, name: str) -> Counter:  # wormlint: thread-entry
         with self._lock:
             c = self._counters.get(name)
             if c is None:
                 c = self._counters[name] = Counter(name)
             return c
 
-    def gauge(self, name: str) -> Gauge:
+    def gauge(self, name: str) -> Gauge:  # wormlint: thread-entry
         with self._lock:
             g = self._gauges.get(name)
             if g is None:
                 g = self._gauges[name] = Gauge(name)
             return g
 
-    def histogram(self, name: str,
+    def histogram(self, name: str,  # wormlint: thread-entry
                   reservoir: int = DEFAULT_RESERVOIR) -> Histogram:
         with self._lock:
             h = self._hists.get(name)
             if h is None:
                 h = self._hists[name] = Histogram(name, reservoir)
             return h
+
+    @contextlib.contextmanager
+    def timer(self, name: str):
+        """Time a block into histogram `name` (seconds)."""
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.histogram(name).observe(time.perf_counter() - t0)
 
     def snapshot(self) -> dict:
         with self._lock:
@@ -159,10 +176,29 @@ class Registry:
             "hists": {h.name: h.snapshot() for h in hists},
         }
 
+    def reset(self) -> None:
+        """Drop every instrument (tests and respawned incarnations).
+        Handles cached at import keep working but leave the snapshots."""
+        with self._lock:
+            self._counters.clear()
+            self._gauges.clear()
+            self._hists.clear()
+
 
 #: The process-wide registry. Hot paths fetch a handle once at import
 #: and call it per event.
 REGISTRY = Registry()
+
+
+def san_counters() -> dict | None:
+    """This process's ``san.*`` counters when WH_SAN armed the port's
+    sanitizer (wormhole_tpu_torch/wormsan), else None."""
+    san = sys.modules.get("wormhole_tpu_torch.wormsan")
+    if san is None or not san.enabled():
+        return None
+    san.summary()  # drains counts deferred under an obs lock
+    return {k: v for k, v in REGISTRY.snapshot()["counters"].items()
+            if k.startswith("san.")}
 
 
 def merge_snapshots(snaps, reservoir: int = DEFAULT_RESERVOIR) -> dict:

@@ -16,9 +16,8 @@ and every registered name emitted. So the registry is the JAX one less
 what the port does not emit, and plus what only the port emits:
 
 - left out: the kvstore jit timers ``kv.*`` (the port's stores are
-  torch tensors, no jit cache), the runtime sanitizer's ``san.*`` (not
-  ported) and the ``solver.*_pass`` span (the port's solver does not
-  trace its passes);
+  torch tensors, no jit cache) and the ``solver.*_pass`` span (the
+  port's solver does not trace its passes);
 - the port's own: ``kvstore.d2h_copies`` / ``kvstore.h2d_copies`` (row
   copies between the card and the host, the PS worker's ``[ps-wire]``
   line) and ``serve.score.h2d_s`` (the fetch scorer's copies to the
@@ -119,6 +118,11 @@ COUNTERS: dict[str, str] = {
     "flight.suppressed": "flight dumps suppressed by the rate limit",
     "prof.samples": "stack sweeps taken by the sampling profiler",
     "prof.throttled": "profiler sweeps skipped to stay under budget",
+    "san.findings": "deduplicated findings reported by the runtime sanitizer",
+    "san.order.edges": "distinct lock-order edges in the acquisition graph",
+    "san.order.cycles": "lock-order inversion (ABBA) findings",
+    "san.block.calls": "blocking calls flagged under a registry-known lock",
+    "san.race.candidates": "candidate unsynchronized shared writes flagged",
 }
 
 GAUGES: dict[str, str] = {

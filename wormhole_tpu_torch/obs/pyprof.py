@@ -103,7 +103,7 @@ class Profiler:
             target=self._loop, name="wh-pyprof", daemon=True)
         self._thread.start()
 
-    def _loop(self) -> None:
+    def _loop(self) -> None:  # wormlint: thread-entry
         period = 1.0 / self.hz
         feed_every = max(int(self.hz * _SNAP_FEED_S), 1)
         n = 0

@@ -5,15 +5,16 @@ packs the field/group id into the top 10 bits:
 ``(CityHash64(s) >> 10) | (field << 54)`` (reference
 learn/base/criteo_parser.h:69-82, adfea_parser.h:56-64), reimplemented
 here from the public CityHash v1.1 algorithm. The port's copy of the JAX
-package's module, less the byte-reversal key spreading that no module of
-the port calls: ``cityhash64`` is the contract of the card's hash
+package's module: ``cityhash64`` is the contract of the card's hash
 (csrc/formats.cu ``cityhash64``), which the criteo parse kernel runs on
-every field.
+every field; ``reverse_bytes_u64`` is the reference's key spreading.
 """
 
 from __future__ import annotations
 
 import struct
+
+import numpy as np
 
 _M = (1 << 64) - 1  # u64 mask
 
@@ -175,3 +176,8 @@ def pack_field_key(s, field: int) -> int:
     """
     return ((cityhash64(s) >> 10) | ((field & 0x3FF) << 54)) & _M
 
+
+def reverse_bytes_u64(keys: np.ndarray) -> np.ndarray:
+    """Byte-reverse uint64 keys so sequential feature ids spread uniformly
+    across the sharded key space (reference localizer.h:16-26)."""
+    return np.ascontiguousarray(keys, dtype=np.uint64).byteswap()

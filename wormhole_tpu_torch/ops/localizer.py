@@ -14,6 +14,7 @@ import dataclasses
 import numpy as np
 
 from wormhole_tpu_torch import native
+from wormhole_tpu_torch.data.rowblock import RowBlock
 
 
 @dataclasses.dataclass
@@ -29,3 +30,17 @@ def localize(block_index: np.ndarray, device=None) -> Localized:
     uniq, inv, counts = native.unique(keys, device)
     return Localized(uniq_keys=uniq, counts=counts.astype(np.int32),
                      local_index=inv.astype(np.int32).reshape(-1))
+
+
+def localize_block(blk: RowBlock, device=None) -> tuple[Localized, RowBlock]:
+    """Localize a RowBlock: returns the mapping and the remapped block whose
+    index column holds local ids (fits int32, dense in [0, n_uniq))."""
+    loc = localize(blk.index, device)
+    remapped = RowBlock(
+        label=blk.label,
+        offset=blk.offset,
+        index=loc.local_index.astype(np.uint64),
+        value=blk.value,
+        weight=blk.weight,
+    )
+    return loc, remapped

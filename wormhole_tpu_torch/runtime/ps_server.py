@@ -440,7 +440,7 @@ class ServerNode:
             self._reset_pushlog(g)
 
     # -- ops ----------------------------------------------------------------
-    def _dispatch(self, header: dict,
+    def _dispatch(self, header: dict,  # wormlint: thread-entry
                   arrays: dict) -> tuple[dict, dict]:
         op = header.get("op")
         t0 = time.perf_counter()
@@ -454,7 +454,7 @@ class ServerNode:
             _obs.REGISTRY.histogram(f"ps.server.op.{op}_s").observe(
                 time.perf_counter() - t0)
 
-    def _dispatch_op(self, op, header: dict,
+    def _dispatch_op(self, op, header: dict,  # wormlint: thread-entry
                      arrays: dict) -> tuple[dict, dict]:
         if faults.ACTIVE is not None:
             faults.ACTIVE.server_op(op)
@@ -770,7 +770,7 @@ class ServerNode:
     _LOG_ELEM_CAP = 1 << 23
     _LOG_ENTRY_CAP = 4096
 
-    def _log_push(self, g: int, idx) -> None:
+    def _log_push(self, g: int, idx) -> None:  # wormlint: guarded-by(self._lock)
         """Record a sparse push for O(pushed) pulls (lock held)."""
         arr = np.asarray(idx, np.int64)
         if arr.size == 0:
@@ -784,7 +784,7 @@ class ServerNode:
             self._log_elems[g] -= old.size
             self._log_start[g] = c
 
-    def _reset_pushlog(self, g: int) -> None:
+    def _reset_pushlog(self, g: int) -> None:  # wormlint: guarded-by(self._lock)
         """Version stamps changed outside push (load/spec stamp): the
         log no longer covers history before this clock (lock held)."""
         self._pushlog[g] = []
@@ -799,7 +799,7 @@ class ServerNode:
     _KC_CAP = 32
     _KC_KNOWN_CAP = 8
 
-    def _kc_resolve(self, sender: str, kdig: dict, idx_of: dict) -> list:
+    def _kc_resolve(self, sender: str, kdig: dict, idx_of: dict) -> list:  # wormlint: guarded-by(self._lock)
         """Adopt/resolve a push's key-list digests (lock held): a group
         whose idx array rode the frame is cached under its digest; a
         digest-only group is resolved from the cache into `idx_of`.
@@ -832,7 +832,7 @@ class ServerNode:
             known.popitem(last=False)
         return need
 
-    def _kc_pull_digest(self, sender: str,
+    def _kc_pull_digest(self, sender: str,  # wormlint: guarded-by(self._lock)
                         idx: np.ndarray) -> tuple[str, bool]:
         """Pull-reply half of the key cache (lock held): returns
         (digest, held) — `held` means the sender provably has this key
@@ -849,7 +849,7 @@ class ServerNode:
             known.popitem(last=False)
         return dig, False
 
-    def _wire_pull(self, sender, k: str, idx: np.ndarray,
+    def _wire_pull(self, sender, k: str, idx: np.ndarray,  # wormlint: guarded-by(self._lock)
                    vals: np.ndarray, wire: str, header: dict) -> QuantRows:
         """Quantize a versioned-pull reply's rows (wire codec v2, lock
         held). With `wire_ef` and a named sender the per-(sender, table)
@@ -862,7 +862,7 @@ class ServerNode:
             return efq.apply(idx, vals)
         return quantize_rows(vals, wire)
 
-    def _kc_invalidate(self) -> None:
+    def _kc_invalidate(self) -> None:  # wormlint: guarded-by(self._lock)
         """Recovery-path cache discard (snapshot restore / checkpoint
         load): a rolled-back server must not resolve pre-crash digests
         (lock held)."""
@@ -971,7 +971,7 @@ class ServerNode:
             # must take the scan path
             self._reset_pushlog(g)
 
-    def _stamp_nonspec_groups(self, specs: dict) -> None:
+    def _stamp_nonspec_groups(self, specs: dict) -> None:  # wormlint: guarded-by(self._lock)
         """After a checkpoint load, groups holding non-zero-init tables
         must be stamped wholly dirty the first time a worker's init spec
         names them: the worker's seeded init differs from the loaded
@@ -1292,7 +1292,7 @@ class PSClient:
             offer["wire_comp"] = self.wire_comp
         return offer
 
-    def _latch_hello(self, r: int, h: dict) -> None:
+    def _latch_hello(self, r: int, h: dict) -> None:  # wormlint: thread-owned
         """Adopt a hello reply's negotiation acks for connection r: the
         frame-compression mode (string modes win over legacy zlib) and
         the wire-codec capability. An older server acks neither and the
@@ -1302,7 +1302,7 @@ class PSClient:
                        else bool(h.get("net_compress")))
         self._wc[r] = bool(h.get("wire"))
 
-    def _file(self, r: int):
+    def _file(self, r: int):  # wormlint: thread-owned
         if self._files[r] is None:
             host, port = self.uris[r].rsplit(":", 1)
             s = connect_with_retry((host, int(port)), self.connect_deadline)
@@ -1363,7 +1363,7 @@ class PSClient:
         lock = threading.Lock()
         state: dict = {}
 
-        def fire():
+        def fire():  # wormlint: thread-entry
             if done.is_set() or not self._hedge.try_issue():
                 return
             try:
@@ -1417,7 +1417,7 @@ class PSClient:
         finally:
             timer.cancel()
 
-    def _note_epoch(self, r: int, h: dict) -> None:
+    def _note_epoch(self, r: int, h: dict) -> None:  # wormlint: thread-owned
         ep = h.get("epoch")
         if ep is None:
             return
@@ -1435,7 +1435,7 @@ class PSClient:
                   "full re-pull", flush=True)
         self._epochs[r] = ep
 
-    def _rpc(self, r: int, header: dict, arrays=None, fixed_bytes: int = 0,
+    def _rpc(self, r: int, header: dict, arrays=None, fixed_bytes: int = 0,  # wormlint: thread-owned
              compress: bool = False, journal_arrays=None):
         if compress:
             header = dict(header, comp_reply=1)
@@ -1525,7 +1525,7 @@ class PSClient:
                 self.bytes_init += sent + received
         return h, arrs
 
-    def _recover(self, r: int, op_name: str, err: Exception) -> None:
+    def _recover(self, r: int, op_name: str, err: Exception) -> None:  # wormlint: thread-owned
         """Reconnect to server r (re-resolving its URI when a resolver
         is available), fence with `hello`, and replay unacked journaled
         pushes. Raises with the resume guidance once `retry_deadline`
@@ -1615,7 +1615,7 @@ class PSClient:
                 self.close(r)
                 err = e2
 
-    def rehello(self, mepoch: Optional[int] = None) -> None:
+    def rehello(self, mepoch: Optional[int] = None) -> None:  # wormlint: thread-owned
         """Absorb a membership-epoch bump: the WORKER set changed (a
         peer joined or left) while the server group stayed fixed, so the
         shard map is untouched — but this process may be the one that
@@ -1661,7 +1661,7 @@ class PSClient:
                     raise
                 self._recover(r, "rehello", e)
 
-    def close(self, r: Optional[int] = None) -> None:
+    def close(self, r: Optional[int] = None) -> None:  # wormlint: thread-owned
         ranks = range(self.world) if r is None else [r]
         for i in ranks:
             try:
@@ -1690,7 +1690,7 @@ class PSClient:
         if self._pool is None:
             # lazy init on the train thread only; close() tears it down
             # after the last fan-out returned
-            self._pool = concurrent.futures.ThreadPoolExecutor(
+            self._pool = concurrent.futures.ThreadPoolExecutor(  # wormlint: thread-owned
                 max_workers=min(self.world, 8),
                 thread_name_prefix="ps-rpc")
         ctx = _trace.current_ctx()
@@ -1804,7 +1804,7 @@ class PSClient:
         just uses the shipped rows."""
         kc = self.keycache and self.sender is not None
 
-        def one(r: int) -> tuple[dict, dict]:
+        def one(r: int) -> tuple[dict, dict]:  # wormlint: thread-entry thread-owned
 
             s = int(since[r])
             if self._rolled_back[r]:
@@ -1916,7 +1916,7 @@ class PSClient:
         respawned server) triggers a full resend under a fresh seq."""
         kc = self.keycache and self.sender is not None
 
-        def one(r: int) -> None:
+        def one(r: int) -> None:  # wormlint: thread-entry thread-owned
 
             sel: dict[int, slice] = {}
             loc_of: dict[int, np.ndarray] = {}

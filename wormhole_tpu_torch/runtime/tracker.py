@@ -693,7 +693,7 @@ class Scheduler:
         return self.progress
 
     # -- RPC ops ------------------------------------------------------------
-    def _dispatch(self, req: dict) -> dict:
+    def _dispatch(self, req: dict) -> dict:  # wormlint: thread-entry
         op = req.get("op")
         t0 = time.perf_counter()
         try:
@@ -740,7 +740,7 @@ class Scheduler:
             _obs.REGISTRY.histogram(f"sched.op.{op}_s").observe(
                 time.perf_counter() - t0)
 
-    def _dispatch_op(self, op, req: dict) -> dict:
+    def _dispatch_op(self, op, req: dict) -> dict:  # wormlint: thread-entry
         if faults.ACTIVE is not None and not self._replaying:
             # journal replay re-runs recorded ops; armed faults (drops,
             # kills) must not fire on historical traffic
@@ -1158,7 +1158,7 @@ class Scheduler:
             controller = MembershipController(initial_workers, lo=lo, hi=hi)
         t0 = time.monotonic()
 
-        def loop():
+        def loop():  # wormlint: thread-entry
             while not self._stop_evt.wait(max(cadence, 0.2)):
                 try:
                     if plan:
@@ -1196,7 +1196,7 @@ class Scheduler:
             self._flight_why = reason
         return _flight.dump(reason, force=True)
 
-    def _scrape_loop(self) -> None:
+    def _scrape_loop(self) -> None:  # wormlint: thread-entry
         """WH_OBS_SCRAPE_SEC sampler: append the aggregated cluster
         snapshot to the ring every tick (metrics over time, not just
         final values) and refresh the slo.*_burn gauges so burn rates

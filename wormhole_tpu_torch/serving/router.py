@@ -222,7 +222,7 @@ class _Batcher:
         self._max = max(int(max_batch), 1)
         self._wait = max(float(wait_s), 0.0)
         self._cond = threading.Condition()
-        self._q: List[_BatchReq] = []
+        self._q: List[_BatchReq] = []  # wormlint: guarded-by(self._cond)
         self._stop = False
         self._thread = threading.Thread(
             target=self._loop, name="serve-batcher", daemon=True)
@@ -262,7 +262,7 @@ class _Batcher:
         if len(self._q) >= self._max:
             _BATCH_FLUSH_FULL.inc()
 
-    def _loop(self) -> None:
+    def _loop(self) -> None:  # wormlint: thread-entry
         while True:
             with self._cond:
                 while not self._q and not self._stop:
@@ -294,7 +294,7 @@ class Router:
                                else float(retry_deadline))
         self.connect_deadline = connect_deadline
         self._lock = threading.Lock()
-        self._uris = list(uris)
+        self._uris = list(uris)  # wormlint: guarded-by(self._lock)
         self.world = len(uris)
         self._free: Dict[int, list] = {r: [] for r in range(self.world)}
         # pooled (sock, file) pairs for hedge backups: a hedge must ride
@@ -304,7 +304,7 @@ class Router:
         # keyed on the frame's (sender, seq), not the connection
         self._hedge_free: Dict[int, list] = {
             r: [] for r in range(self.world)}
-        self._slot_ids = 0
+        self._slot_ids = 0  # wormlint: guarded-by(self._lock)
         self._pool = ThreadPoolExecutor(
             max_workers=max(8, 2 * self.world),
             thread_name_prefix="serve-router")
@@ -471,7 +471,7 @@ class Router:
         lock = threading.Lock()
         state: dict = {}
 
-        def fire():
+        def fire():  # wormlint: thread-entry
             if done.is_set() or not hedge.try_issue():
                 return
             conn = None

@@ -329,7 +329,7 @@ class ModelServer:
                 pass
 
     # -- hot swap -----------------------------------------------------------
-    def _watch_loop(self) -> None:
+    def _watch_loop(self) -> None:  # wormlint: thread-entry
         _pyprof.tag_thread("watcher")
         while not self._shutdown.wait(self.poll_sec):
             try:
@@ -381,7 +381,7 @@ class ModelServer:
         return True
 
     # -- ops ----------------------------------------------------------------
-    def _dispatch(self, header: dict,
+    def _dispatch(self, header: dict,  # wormlint: thread-entry
                   arrays: dict,
                   t_in: Optional[float] = None) -> tuple[dict, dict]:
         op = header.get("op")
@@ -406,7 +406,7 @@ class ModelServer:
             _obs.REGISTRY.histogram(f"serve.op.{op}_s").observe(
                 time.perf_counter() - t0)
 
-    def _dispatch_op(self, op, header: dict,
+    def _dispatch_op(self, op, header: dict,  # wormlint: thread-entry
                      arrays: dict) -> tuple[dict, dict]:
         _REQUESTS.inc()
         # one pointer read per request: rows AND the stamped version come

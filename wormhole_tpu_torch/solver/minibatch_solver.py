@@ -15,9 +15,11 @@ the JAX package's single-process MinibatchSolver:
   queue while the main thread runs the device steps. They parse and pack
   on the learner's device; on CUDA each loader does so on a stream of its
   own, off the steps' stream, and stages the packed arrays on the steps'
-  stream, as the steps read them;
+  stream, as the steps read them (``WH_DEVICE_FEED=0``: the main thread
+  stages each batch before its step, the same batches and the same model);
 - the loader pool has ``WH_NUM_LOADERS`` threads, else
-  ``cfg.max_concurrency``; unless ``WH_NUM_LOADERS`` pinned that count, a
+  ``cfg.max_concurrency``; unless ``WH_NUM_LOADERS`` pinned that count
+  (and ``WH_ADAPTIVE_LOADERS=1`` does not override the pin), a
   LoaderController resizes it between passes from the pass's loader
   stall;
 - with the epoch pack cache on (``WH_PACK_CACHE``, ``WH_PACK_CACHE_DIR``;
@@ -54,6 +56,7 @@ from typing import Callable, Optional
 
 import torch
 
+from wormhole_tpu_torch.config import env_flag
 from wormhole_tpu_torch.data import pack_cache as _pc
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
 from wormhole_tpu_torch.obs.metrics import REGISTRY
@@ -224,9 +227,15 @@ class MinibatchSolver:
         self._lockstep = mesh is not None and mesh.device_mesh is not None
         self._rank = mesh.rank if self._lockstep else 0
         self.t0 = time.time()
-        # adaptive sizing is on unless the count was pinned
+        # adaptive sizing defaults on, but a pinned count means the
+        # operator chose: it stays fixed unless WH_ADAPTIVE_LOADERS=1
         self.controller: Optional[LoaderController] = (
-            None if pinned else LoaderController(self.num_loaders))
+            LoaderController(self.num_loaders)
+            if env_flag("WH_ADAPTIVE_LOADERS", default=not pinned)
+            else None)
+        # loader-side staging: batch N+1's arrays go to the device while
+        # the main thread steps batch N; off, the main thread stages
+        self.device_feed = env_flag("WH_DEVICE_FEED", True)
         self.pack_cache = _pc.from_env()
         # early-stop hook: (pass progress, data_pass, key) -> bool
         self.stop_hook: Optional[Callable] = None
@@ -374,6 +383,13 @@ class MinibatchSolver:
                 _ST_PACK.observe(time.perf_counter() - t0)
             return out
 
+        def stage(b):
+            t0 = time.perf_counter()
+            b = lrn.stage_batch(b, train=train)
+            if train:
+                _ST_H2D.observe(time.perf_counter() - t0)
+            return b
+
         def loader(i):
             q = queues[i % len(queues)]
             try:
@@ -405,12 +421,8 @@ class MinibatchSolver:
                             b = next(batches, None)
                         if b is None:
                             break
-                        # staging in the loader: batch N+1's arrays go to
-                        # the device while the main thread steps batch N
-                        t0 = time.perf_counter()
-                        b = lrn.stage_batch(b, train=train)
-                        if train:
-                            _ST_H2D.observe(time.perf_counter() - t0)
+                        if self.device_feed:
+                            b = stage(b)
                         if not put(q, b):
                             return
                     if self._lockstep and not put(q, part_end):
@@ -474,6 +486,8 @@ class MinibatchSolver:
         last_print = time.time()
         try:
             for dw, item in staged():
+                if not self.device_feed:
+                    item = stage(item)
                 t_s = time.perf_counter()
                 out = step(item)
                 dt = time.perf_counter() - t_s

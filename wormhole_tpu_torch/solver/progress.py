@@ -26,7 +26,7 @@ class Progress:
         self._last: dict[str, float] = {}
         self._lock = threading.Lock()
 
-    def merge(self, p: dict) -> None:
+    def merge(self, p: dict) -> None:  # wormlint: thread-entry
         with self._lock:
             for k, v in p.items():
                 self.tot[k] = self.tot.get(k, 0.0) + float(v)

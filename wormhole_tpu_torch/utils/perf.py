@@ -50,7 +50,7 @@ class Perf:
         self._log_every = log_every
         self._since_log = 0
 
-    def add(self, op: str, sec: float) -> None:
+    def add(self, op: str, sec: float) -> None:  # wormlint: thread-entry
         h = self._hists.get(op)
         if h is None:
             # double-checked: the unlocked miss re-checks under the lock
