@@ -315,7 +315,33 @@ runs it). The third is the histogram GBDT at the bench's HIGGS shape
    context. Prints each
    process's findings, san.* counters and classes instrumented, and
    (a)'s and (b)'s examples/s armed beside unarmed (the sanitizer's
-   cost, no bar).
+   cost, no bar);
+17. the observability plane ([obs], after [san], with no other
+   torch.profiler session open): [e2e]'s 2^26 linear pass through the
+   app's main(), four times in turns (armed, unarmed, unarmed, armed),
+   in this process, the knobs read again as a process started under
+   them reads them at import. Armed is WH_OBS_DIR, WH_RUN_ID, WH_PROF=1,
+   WH_FLIGHT=1 and WORMHOLE_PROFILE_DIR, each turn in directories of
+   its own, with the train.stage.* histograms emptied before it so the
+   run report is the pass's. Each armed pass fails the phase unless
+   run_report.json has summary, counters, gauges, hists and nodes and
+   its train_stages the load, step and metrics stages; its one trace
+   file starts with its M line and holds one solver.train_pass and a
+   solver.train_step span a step of the pass; tools/trace_viewer.py
+   merges it into events; the sampling profiler's folded stacks hold
+   train and loader lines; tools/blackbox.py summarizes a forced flight
+   dump with a solver record a span; and the torch.profiler export
+   minibatch_solver-<pid>.json holds as many device events of each step
+   kernel (tile_gather_kernel, push_kernel, scatter_update_kernel) as
+   its wrapper counted launches over the pass (the loaders'
+   parse_count_kernel events are printed beside parse_libsvm's launches,
+   with no bar). Prints explained_frac beside the JAX test's 0.9, the
+   trace's and the profile's sizes, and examples/s armed and unarmed
+   (no bar: a single pass spreads ~2x between calls); then merges
+   [bsp]'s fault-free GBDT launch's per-node trace files on one time
+   axis (its nodes, one a file, and its spans: none, since the ring's
+   loop opens no span). The phase's wall is printed beside its
+   30 s share, the script's beside its 1,200 s limit.
 
 The [ps], [bsp], [global] and [san] workers are child processes: their
 launches are not in the kernels line's counts, and each launch checks
@@ -326,7 +352,7 @@ the Criteo passes', the convert's and the one-reader check's text side,
 parse_adfea's the adfea pass's; coo_spmv_t's count
 includes the k-means run's and app's and [cache]'s, and its row carries
 the k-means shape's numbers ("kmeans"); every kernel's count includes
-[cache]'s. The rows mesh_coo_spmv, mesh_coo_spmv_t and mesh_level_hist
+[cache]'s and [obs]'s four passes'. The rows mesh_coo_spmv, mesh_coo_spmv_t and mesh_level_hist
 carry the [mesh] ranks' launches (summed, and per rank; W1 and W2 the
 linear and DiFacto meshes'), the slowest
 rank's kernel times, the bound of the largest cell, and the all_reduce's
@@ -6364,6 +6390,178 @@ def run_san(device, smi: str, workdir: str, e2e_file: str, plain: dict,
     return out
 
 
+# ---------------------------------------------------------------- obs
+OBS_KNOBS = ("WH_OBS_DIR", "WH_RUN_ID", "WH_PROF", "WH_FLIGHT",
+             "WH_FLIGHT_DIR", "WORMHOLE_PROFILE_DIR", "WH_ROLE")
+OBS_TURNS = ("armed", "unarmed", "unarmed", "armed")  # in turns, ABBA
+OBS_LIMIT_S = 30.0      # [obs]'s share of the script's command time
+SCRIPT_LIMIT_S = 1200.0
+OBS_JAX_BAR = 0.9       # tests/test_obs.py's explained_frac bar
+# the kernel each wrapper of the 2^26 pass launches once a call, as the
+# profiler names its device events. The steps' three are held to their
+# launches; the loaders' parse is printed beside its launches, no bar: in
+# the full script's process the profile kept some of its 12 events
+OBS_KERNELS = {"tile_gather": "tile_gather_kernel",
+               "coo_spmv_t": "push_kernel",
+               "scatter_update": "scatter_update_kernel",
+               "parse_libsvm": "parse_count_kernel"}
+OBS_HELD = ("tile_gather", "coo_spmv_t", "scatter_update")
+
+
+def load_tool(name: str):
+    """tools/<name>.py (stdlib only), loaded from its file."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(ROOT, "tools", f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def obs_reinit() -> None:
+    """Read the obs knobs again in this process, as a process started
+    under them does at import: the flight recorder first (the tracer and
+    the sampler feed it), then the tracer and the sampler."""
+    from wormhole_tpu_torch.obs import flight, pyprof, trace
+
+    flight.init_from_env()
+    trace.init_from_env()
+    pyprof.init_from_env()
+
+
+def device_kernels(profile: str) -> dict:
+    """Device events of a torch.profiler Chrome trace, by the wrapper
+    whose kernel (OBS_KERNELS) each one is."""
+    import re
+
+    with open(profile) as f:
+        events = json.load(f)["traceEvents"]
+    pats = {w: re.compile(rf"(^|[\s:]){k}\s*[<(]")
+            for w, k in OBS_KERNELS.items()}
+    got = dict.fromkeys(OBS_KERNELS, 0)
+    for e in events:
+        if e.get("cat") == "kernel":
+            for w, pat in pats.items():
+                if pat.search(e.get("name", "")):
+                    got[w] += 1
+    return got
+
+
+def obs_check(tag: str, rec: dict, obs: str, prof_dir: str, folded: list,
+              dump: str) -> dict:
+    """(a)'s checks of one armed pass (see the module docstring); returns
+    its figures."""
+    report = json.load(open(os.path.join(obs, "run_report.json")))
+    stages = report.get("train_stages", {})
+    if not ({"summary", "counters", "gauges", "hists", "nodes"}
+            <= set(report) and {"load", "step", "metrics"}
+            <= set(stages.get("stages", {}))):
+        raise AssertionError(f"[obs] {tag}: run_report.json keys "
+                             f"{sorted(report)}, train_stages {stages}")
+    traces = [f for f in os.listdir(obs)
+              if f.startswith("trace-") and f.endswith(".jsonl")]
+    if len(traces) != 1:
+        raise AssertionError(f"[obs] {tag}: trace files {traces}")
+    path = os.path.join(obs, traces[0])
+    lines = [json.loads(line) for line in open(path)]
+    spans = [r["name"] for r in lines if r.get("ph") == "X"]
+    passes, steps = (spans.count(f"solver.train_{k}")
+                     for k in ("pass", "step"))
+    if lines[0].get("ph") != "M" or passes != 1 or steps != rec["steps"]:
+        raise AssertionError(f"[obs] {tag}: first line {lines[0]}, "
+                             f"{passes} pass spans, {steps} step spans "
+                             f"for {rec['steps']} steps")
+    merged = load_tool("trace_viewer").merge_traces([path])["traceEvents"]
+    if not merged:
+        raise AssertionError(f"[obs] {tag}: trace_viewer merged nothing")
+    roles = {line.split(";", 1)[0] for line in folded}
+    if not {"train", "loader"} <= roles:
+        raise AssertionError(f"[obs] {tag}: sampler roles {sorted(roles)}")
+    summary = load_tool("blackbox").summarize([dump])
+    if not any(f"solver={steps + 1}" in line for line in summary):
+        raise AssertionError(f"[obs] {tag}: blackbox summary {summary}")
+    profile = os.path.join(prof_dir, f"minibatch_solver-{os.getpid()}.json")
+    dev = device_kernels(profile)
+    launched = {w: rec["launches"][w] for w in OBS_KERNELS}
+    if any(dev[w] != launched[w] or not launched[w] for w in OBS_HELD):
+        raise AssertionError(f"[obs] {tag}: device kernels {dev}, wrapper "
+                             f"launches {launched}")
+    return {"explained_frac": stages["explained_frac"],
+            "steps": steps, "merged_events": len(merged),
+            "folded_lines": len(folded), "roles": sorted(roles),
+            "trace_bytes": os.path.getsize(path),
+            "profile_bytes": os.path.getsize(profile),
+            "device_kernels": dev, "launches": launched}
+
+
+def run_obs(device, smi: str, workdir: str, e2e_file: str,
+            launches: dict) -> dict:
+    """[obs] (see the module docstring): the [e2e] 2^26 pass armed with
+    every obs knob and unarmed, in turns, then the merge of [bsp]'s
+    fault-free GBDT launch's trace files. Adds the passes' kernel
+    launches to `launches`."""
+    import glob
+
+    from wormhole_tpu_torch.obs import flight, pyprof, trace
+    from wormhole_tpu_torch.obs.metrics import REGISTRY
+
+    d = os.path.join(workdir, "obs")
+    out: dict = {"armed": [], "unarmed": []}
+    for i, turn in enumerate(OBS_TURNS):
+        armed = turn == "armed"
+        obs, prof_dir = (os.path.join(d, f"{k}-{i}")
+                         for k in ("obs", "profile"))
+        env = dict(WH_OBS_DIR=obs, WH_RUN_ID=f"chip-smoke-obs-{i}",
+                   WH_PROF="1", WH_FLIGHT="1",
+                   WORMHOLE_PROFILE_DIR=prof_dir) if armed else {}
+        # the report's stage table is this pass's alone
+        for k in (*STAGES, "total"):
+            REGISTRY.histogram(f"train.stage.{k}_s").reset()
+        with set_knobs(OBS_KNOBS, **env):
+            obs_reinit()
+            rec = run_e2e(device, {COMPACT_BUCKETS: e2e_file},
+                          apps=E2E_APPS[:1])["linear-2^26"]
+            if armed:
+                trace.ACTIVE.close()
+                folded = pyprof.ACTIVE.folded()
+                pyprof.ACTIVE.stop()
+                dump = flight.dump("chip_smoke [obs]", force=True)
+        obs_reinit()  # the knobs are unset again: every hook off
+        for k in KERNELS:
+            launches[k] += rec["launches"][k]
+        row = {"examples_per_s": rec["examples_per_s"],
+               "wall_s": rec["wall_s"], "app_s": rec["app_s"]}
+        if armed:
+            row.update(obs_check(f"turn {i}", rec, obs, prof_dir, folded,
+                                 dump))
+            log(f"[obs] turn {i} armed: {row['examples_per_s']:.0f} "
+                f"examples/s, {row['steps']} step spans and 1 pass span, "
+                f"explained_frac {row['explained_frac']} (the JAX test's "
+                f"bar {OBS_JAX_BAR}), trace {row['trace_bytes']} bytes, "
+                f"profile {row['profile_bytes']} bytes, device kernels "
+                f"{row['device_kernels']} against the wrappers' launches "
+                f"{row['launches']} (held: {', '.join(OBS_HELD)})")
+        else:
+            log(f"[obs] turn {i} unarmed: {row['examples_per_s']:.0f} "
+                f"examples/s")
+        out[turn].append(row)
+    # (c) [bsp]'s fault-free GBDT launch: its nodes' files on one axis
+    paths = sorted(glob.glob(os.path.join(workdir, "bsp", "obs-gbdt",
+                                          "trace-*.jsonl")))
+    # a fault-free BSP launch emits no span (the ring's loop has no span
+    # call site, in the JAX package either): the merge is the nodes'
+    # lanes, on one axis by their clock anchors
+    merged = load_tool("trace_viewer").merge_traces(paths)["traceEvents"]
+    nodes = sum(e.get("name") == "process_name" for e in merged)
+    spans = sum(e.get("ph") == "X" for e in merged)
+    if len(paths) < 2 or nodes != len(paths):
+        raise AssertionError(f"[obs] [bsp] merge: {len(paths)} files, "
+                             f"{nodes} nodes, {spans} spans")
+    out["bsp_merge"] = {"files": len(paths), "nodes": nodes, "spans": spans}
+    log(f"[obs] [bsp] gbdt launch: {len(paths)} trace files merged, "
+        f"{nodes} nodes and {spans} spans on one time axis")
+    return out
+
+
 def host_data() -> dict:
     """The host-made inputs of the phases that do not depend on the card:
     the HIGGS-shaped data, [kmeans]', [e2e]'s and the formats' texts.
@@ -6385,7 +6583,7 @@ def host_data() -> dict:
 def data_phases(device, smi: str, data_dir: str, knums: dict,
                 launches: dict, texts: dict) -> None:
     """The phases over files in `data_dir`: [kmeans], the apps, [e2e],
-    [lbfgs], [cache], [ps], [bsp], [global] and [san]. Adds their main paths' launches to
+    [lbfgs], [cache], [ps], [bsp], [global], [san] and [obs]. Adds their main paths' launches to
     `launches` (the [ps] and [bsp] workers check their own) and
     coo_spmv_t's k-means numbers to `knums`; the files' texts come from
     host_data()."""
@@ -6548,9 +6746,19 @@ def data_phases(device, smi: str, data_dir: str, knums: dict,
     log(f"[san] {smi}: " + json.dumps(san))
     log(f"[phase] san {time.perf_counter() - t:.1f}s")
 
+    # the observability plane on the [e2e] 2^26 pass, with no other
+    # profiler open; its passes are the main path's
+    t = time.perf_counter()
+    obs = run_obs(device, smi, data_dir, files[COMPACT_BUCKETS], launches)
+    log(f"[obs] {smi}: " + json.dumps(obs))
+    wall = time.perf_counter() - t
+    log(f"[phase] obs {wall:.1f}s (its limit {OBS_LIMIT_S:.0f} s: "
+        f"{'within' if wall <= OBS_LIMIT_S else 'OVER'})")
+
 
 
 def main(argv=None) -> int:
+    t_script = time.perf_counter()
     argv = sys.argv[1:] if argv is None else argv
     if argv[:1] == ["--san-proc"]:  # a [san] process: arm, then torch
         sys.path.insert(0, ROOT)
@@ -6682,6 +6890,8 @@ def main(argv=None) -> int:
                       "vs_one_device_max_abs_err", "nccl_one_rank"):
             if extra in k:
                 rows[-1][extra] = k[extra]
+    log(f"[wall] chip_smoke.py {time.perf_counter() - t_script:.1f} s of "
+        f"its {SCRIPT_LIMIT_S:.0f} s limit on {smi}")
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,9 +16,11 @@ every launch and any row order, holds to the same bar as the pull and
 push against the f64 sums, and every cell that no row reaches is exactly
 0. The host data path on the card (the libsvm, criteo and adfea parse
 kernels, the pack's sorts and uniques) gives the plain routes' bytes
-exactly.
+exactly. A 2^26 solver step under WH_OBS_DIR makes the host syncs and
+device operations of the same step with tracing off.
 """
 
+import json
 import re
 import threading
 
@@ -1994,3 +1996,68 @@ def test_global_linear_on_two_gloo_ranks_on_the_card(cuda, tmp_path):
     np.testing.assert_allclose(load_parts(str(tmp_path / "m"))["w"],
                                one.store.state["w"].cpu().numpy(),
                                rtol=1e-4, atol=1e-6)
+
+
+def _solver_step_counts(lrn, cfg) -> tuple:
+    """(host syncs, device ops by name) of one solver run, as the
+    profiler records them: the CUDA runtime's synchronize calls, and the
+    kernels and memory operations on the card."""
+    from collections import Counter
+
+    from wormhole_tpu_torch.solver.minibatch_solver import MinibatchSolver
+
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        MinibatchSolver(lrn, cfg, verbose=False).run()
+        torch.cuda.synchronize()
+    events = prof.events()
+    syncs = sum("Synchronize" in e.name for e in events
+                if e.device_type != torch.autograd.DeviceType.CUDA)
+    ops = Counter(e.name for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return syncs, ops
+
+
+@pytest.mark.cuda
+def test_obs_spans_add_no_sync_and_no_launch_to_a_2_26_step(cuda, tmp_path,
+                                                            monkeypatch):
+    """One 2^26 train step through the solver (a file of one 4,096-row
+    minibatch read as one part by one loader) under WH_OBS_DIR makes the
+    host syncs and the device operations of the same step with the tracer
+    off: the pass and step spans read the host clock alone."""
+    from wormhole_tpu_torch.models.linear import LinearConfig, LinearLearner
+    from wormhole_tpu_torch.obs import trace
+
+    rng = np.random.default_rng(11)
+    keys = rng.integers(0, 1 << 26, size=(4096, 39))
+    data = tmp_path / "train.libsvm"
+    data.write_text("".join(f"{r % 2} " + " ".join(map(str, keys[r])) + "\n"
+                            for r in range(4096)))
+    cfg = LinearConfig(train_data=str(data), data_format="libsvm",
+                       minibatch=4096, num_buckets=1 << 26, nnz_per_row=39,
+                       algo="ftrl", max_data_pass=1, num_parts_per_file=1,
+                       max_concurrency=1)
+    lrn = LinearLearner(cfg, device=cuda)
+    for k in ("WH_OBS_DIR", "WH_FLIGHT", "WH_PROF", "WORMHOLE_PROFILE_DIR"):
+        monkeypatch.delenv(k, raising=False)
+    assert trace.init_from_env() is None
+    _solver_step_counts(lrn, cfg)  # builds and loads the kernels
+    off = _solver_step_counts(lrn, cfg)
+    monkeypatch.setenv("WH_OBS_DIR", str(tmp_path / "obs"))
+    try:
+        assert trace.init_from_env() is not None
+        on = _solver_step_counts(lrn, cfg)
+        trace.ACTIVE.close()
+    finally:
+        monkeypatch.delenv("WH_OBS_DIR")
+        trace.init_from_env()
+    spans = [json.loads(line)["name"]
+             for f in (tmp_path / "obs").glob("trace-*.jsonl")
+             for line in open(f) if '"ph":"X"' in line]
+    assert sorted(spans) == ["solver.train_pass", "solver.train_step"]
+    assert on[0] == off[0], (on[0], off[0])
+    assert on[1] == off[1], {k: (on[1][k], off[1][k])
+                             for k in set(on[1]) | set(off[1])
+                             if on[1][k] != off[1][k]}
+    assert off[0] >= 1 and any("tile_gather_kernel" in k for k in off[1])

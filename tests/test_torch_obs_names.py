@@ -62,7 +62,7 @@ def test_bsp_names_are_registered():
 # what the port's registry leaves out of the JAX one, and what only the
 # port emits (wormhole_tpu_torch/obs/names.py's docstring)
 LEFT_OUT = {"kv.gather_rows", "kv.jit_cache_misses", "kv.scatter_rows",
-            "kv.gather_s", "kv.scatter_s", "solver.*_pass"}
+            "kv.gather_s", "kv.scatter_s"}
 PORT_ONLY = {"kvstore.d2h_copies", "kvstore.h2d_copies",
              "serve.score.h2d_s"}
 

@@ -16,8 +16,7 @@ and every registered name emitted. So the registry is the JAX one less
 what the port does not emit, and plus what only the port emits:
 
 - left out: the kvstore jit timers ``kv.*`` (the port's stores are
-  torch tensors, no jit cache) and the ``solver.*_pass`` span (the
-  port's solver does not trace its passes);
+  torch tensors, no jit cache);
 - the port's own: ``kvstore.d2h_copies`` / ``kvstore.h2d_copies`` (row
   copies between the card and the host, the PS worker's ``[ps-wire]``
   line) and ``serve.score.h2d_s`` (the fetch scorer's copies to the
@@ -190,6 +189,7 @@ SPANS: dict[str, str] = {
     "rpc.*": "one client RPC, named by op",
     "barrier.*": "scheduler barrier, named by barrier",
     "solver.part": "one data part processed by a worker",
+    "solver.*_pass": "one train/eval pass over the data",
     "solver.*_step": "one train/eval minibatch step",
     "serve.request": "root span of a sampled router predict request",
     "serve.rpc.*": "router-side shard RPC within a fan-out, named by op",

@@ -32,7 +32,17 @@ the JAX package's single-process MinibatchSolver:
   histograms ``train.stage.{load,pack,h2d,step,metrics,total}_s`` go to
   obs.metrics.REGISTRY, as the JAX solver's do;
 - a progress row prints every print_sec;
-- predict writes one output file per part (iter_solver.h:140-156).
+- predict writes one output file per part (iter_solver.h:140-156);
+- the obs hooks are the JAX solver's, under its knobs: ``run()`` runs
+  inside ``maybe_trace("minibatch_solver")`` (a torch.profiler export to
+  ``WORMHOLE_PROFILE_DIR``) and, with ``WH_OBS_DIR`` set and no
+  ``WH_ROLE``, writes ``run_report.json`` (rank 0 of a mesh: each rank
+  keeps a registry of its own); a pass is a ``solver.{train,eval}_pass``
+  span and each step a ``solver.{train,eval}_step`` span (obs/trace.py,
+  on with ``WH_OBS_DIR`` or ``WH_FLIGHT``), and the sampling profiler
+  (``WH_PROF``) sees the main thread as ``train`` and the loaders as
+  ``loader``. Off, a span is the shared null object, no sampler thread
+  runs and no profiler is imported.
 
 On a mesh (a learner whose ``mesh`` has a process group; parallel/mesh.py)
 every rank reads every part and steps through the same global batches in
@@ -59,11 +69,14 @@ import torch
 from wormhole_tpu_torch.config import env_flag
 from wormhole_tpu_torch.data import pack_cache as _pc
 from wormhole_tpu_torch.data.minibatch import MinibatchIter
+from wormhole_tpu_torch.obs import pyprof as _pyprof
+from wormhole_tpu_torch.obs import report as _report
+from wormhole_tpu_torch.obs import trace as _trace
 from wormhole_tpu_torch.obs.metrics import REGISTRY
 from wormhole_tpu_torch.solver.progress import Progress
 from wormhole_tpu_torch.solver.workload import list_parts
 from wormhole_tpu_torch.utils import checkpoint as ckpt
-from wormhole_tpu_torch.utils.perf import Perf
+from wormhole_tpu_torch.utils.perf import Perf, maybe_trace
 
 
 class LoaderController:
@@ -271,10 +284,22 @@ class MinibatchSolver:
 
     def run(self) -> dict:
         cfg = self.cfg
-        store = self._ckpt_store
         if cfg.model_in:
-            ckpt.load_model(store, cfg.model_in,
+            ckpt.load_model(self._ckpt_store, cfg.model_in,
                             cfg.load_iter if cfg.load_iter >= 0 else None)
+        with maybe_trace("minibatch_solver"):
+            result = self._run_passes(cfg)
+        if (_report.enabled() and not os.environ.get("WH_ROLE")
+                and self._rank == 0):
+            # no scheduler to aggregate: this process's registry is the
+            # whole job (a PS or global-mesh role's report comes from
+            # apps/_runner.py)
+            path = _report.write(_report.build_local())
+            self._log(f"[obs] run report written: {path}")
+        return result
+
+    def _run_passes(self, cfg) -> dict:
+        store = self._ckpt_store
         result: dict = {}
         for dp in range(cfg.max_data_pass):
             result["train"] = self.iterate(cfg.train_data, True, dp)
@@ -391,6 +416,7 @@ class MinibatchSolver:
             return b
 
         def loader(i):
+            _pyprof.tag_thread("loader")
             q = queues[i % len(queues)]
             try:
                 # parse and pack on a stream of this loader's own (no-op
@@ -484,27 +510,34 @@ class MinibatchSolver:
 
         t_pass0 = time.perf_counter()
         last_print = time.time()
+        _pyprof.tag_thread("train")
         try:
-            for dw, item in staged():
-                if not self.device_feed:
-                    item = stage(item)
-                t_s = time.perf_counter()
-                out = step(item)
-                dt = time.perf_counter() - t_s
-                self.perf.add(f"{mode}_step", dt)
-                t_step += dt
-                n_steps += 1
-                t_m = time.perf_counter()
-                prog.merge(out)
-                if time.time() - last_print >= cfg.print_sec:
-                    self._log(prog.row(self.t0))
-                    last_print = time.time()
-                if train:
-                    dm = time.perf_counter() - t_m
-                    _ST_LOAD.observe(dw)
-                    _ST_STEP.observe(dt)
-                    _ST_METRICS.observe(dm)
-                    _ST_TOTAL.observe(dw + dt + dm)
+            with _trace.span(f"solver.{mode}_pass", cat="solver",
+                             data_pass=data_pass):
+                for dw, item in staged():
+                    if not self.device_feed:
+                        item = stage(item)
+                    t_s = time.perf_counter()
+                    # on the card the span runs from the step's enqueue
+                    # to the progress read-back the step already makes
+                    # (models' _to_floats): it adds no sync of its own
+                    with _trace.span(f"solver.{mode}_step", cat="solver"):
+                        out = step(item)
+                    dt = time.perf_counter() - t_s
+                    self.perf.add(f"{mode}_step", dt)
+                    t_step += dt
+                    n_steps += 1
+                    t_m = time.perf_counter()
+                    prog.merge(out)
+                    if time.time() - last_print >= cfg.print_sec:
+                        self._log(prog.row(self.t0))
+                        last_print = time.time()
+                    if train:
+                        dm = time.perf_counter() - t_m
+                        _ST_LOAD.observe(dw)
+                        _ST_STEP.observe(dt)
+                        _ST_METRICS.observe(dm)
+                        _ST_TOTAL.observe(dw + dt + dm)
         finally:
             stop.set()
             for t in threads:
